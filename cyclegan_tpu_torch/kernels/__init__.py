@@ -1,0 +1,65 @@
+"""Hand-written CUDA kernels for the H100 and what every wrapper shares.
+
+``launches`` counts, per kernel, the launches its wrapper made; a wrapper
+adds one right after its kernel launched and nowhere else, so a run can
+show that the main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cyclegan_tpu_torch.kernels._build import build_dir, check, function
+
+KERNELS = ("conv_same", "instance_norm_act", "sum2x2", "concat_up2")
+launches = {name: 0 for name in KERNELS}
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        launches[name] = 0
+
+
+def dtype_suffix(t: torch.Tensor) -> str:
+    if t.dtype == torch.bfloat16:
+        return "bf16"
+    if t.dtype == torch.float32:
+        return "f32"
+    raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
+
+
+def check_cuda(name: str, *tensors) -> None:
+    """Every tensor a kernel reads or writes: on the current CUDA device,
+    contiguous, of one dtype."""
+    ref = tensors[0]
+    for t in tensors:
+        if t is None:
+            continue
+        if not t.is_cuda:
+            raise ValueError(f"{name}: tensor on {t.device}, expected CUDA")
+        if t.device.index != torch.cuda.current_device():
+            raise ValueError(f"{name}: tensor on {t.device}, not the "
+                             f"current device cuda:{torch.cuda.current_device()}")
+        if t.dtype != ref.dtype:
+            raise TypeError(f"{name}: mixed dtypes {ref.dtype} and {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is "
+                             f"not contiguous")
+
+
+def ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+__all__ = ["KERNELS", "launches", "reset_launches", "build_dir", "check",
+           "function", "check_cuda", "dtype_suffix", "ptr", "stream"]

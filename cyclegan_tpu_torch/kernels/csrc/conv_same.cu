@@ -1,0 +1,160 @@
+// K1 conv_same: stride-1 TF-'SAME' KxK convolution on NHCW activations.
+//
+// Replaces cyclegan_tpu/ops/pallas_conv.py `_conv_fwd_call` (the factored
+// im2col KxK forward) and `_conv1x1_call` (the 1x1 head): K = 1 is the same
+// function with no padding.
+//
+// x   [B, H, C, W]     activations, W innermost (the JAX kernels' NHCW)
+// w   [K, K, C, Cout]  HWIO weights, as stored in the checkpoint
+// b   [Cout] or null   bias, added to the f32 sum before the store
+// out [B, H, Cout, W]
+// TF SAME pads (K-1)/2 before and the rest after: (1, 2) for K = 4.
+//
+// Bound on the H100: operations. The generator's convs do 16-100 multiply-adds
+// per byte moved, far above the ~1 the memory needs at CUDA-core rates. This
+// first version is a direct convolution on the CUDA cores in f32 (no tensor
+// cores yet): a block stages a (TILE_H + K - 1) x CI_CHUNK x (TILE_W + K - 1)
+// input window and the K*K*CI_CHUNK*CO_TILE weights it needs into shared
+// memory (zeros outside the image, so the padding costs no branch in the
+// inner loop), and each thread keeps CO_TILE output channels of one pixel in
+// registers. Every staged input value is reused K*K*CO_TILE times; the weight
+// reads are warp-wide broadcasts. A tensor-core implicit GEMM is later work.
+#include "common.cuh"
+
+namespace {
+
+constexpr int TILE_W = 32;   // output columns per block: one warp across W
+constexpr int TILE_H = 8;    // output rows per block: one warp per row
+constexpr int CO_TILE = 16;  // output channels per thread, in registers
+constexpr int CI_CHUNK = 8;  // input channels staged per shared-memory round
+
+size_t smem_bytes(int K) {
+  const size_t xs = (size_t)(TILE_H + K - 1) * CI_CHUNK * (TILE_W + K - 1);
+  const size_t ws = (size_t)K * K * CI_CHUNK * CO_TILE;
+  return (xs + ws) * sizeof(float);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(TILE_W * TILE_H)
+conv_same_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                 const T* __restrict__ bias, T* __restrict__ out, int B,
+                 int H, int C, int W, int Cout, int K, int pad) {
+  extern __shared__ __align__(16) float smem[];
+  const int SW = TILE_W + K - 1;
+  const int SH = TILE_H + K - 1;
+  float* xs = smem;                         // [SH][CI_CHUNK][SW]
+  float* ws = smem + SH * CI_CHUNK * SW;    // [K*K][CI_CHUNK][CO_TILE]
+
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int tid = ty * TILE_W + tx;
+  const int nthreads = TILE_W * TILE_H;
+  const int w0 = blockIdx.x * TILE_W;
+  const int h0 = blockIdx.y * TILE_H;
+  const int n_co_tiles = (Cout + CO_TILE - 1) / CO_TILE;
+  const int b = blockIdx.z / n_co_tiles;
+  const int co0 = (blockIdx.z % n_co_tiles) * CO_TILE;
+
+  float acc[CO_TILE];
+#pragma unroll
+  for (int i = 0; i < CO_TILE; ++i) acc[i] = 0.f;
+
+  for (int c0 = 0; c0 < C; c0 += CI_CHUNK) {
+    __syncthreads();  // the previous round's reads are done
+    const int n_x = SH * CI_CHUNK * SW;
+    for (int i = tid; i < n_x; i += nthreads) {
+      const int col = i % SW;
+      const int rest = i / SW;
+      const int ci = rest % CI_CHUNK;
+      const int row = rest / CI_CHUNK;
+      const int hh = h0 + row - pad;
+      const int ww = w0 + col - pad;
+      const int cc = c0 + ci;
+      float v = 0.f;
+      if (hh >= 0 && hh < H && ww >= 0 && ww < W && cc < C)
+        v = to_f32(x[(((size_t)b * H + hh) * C + cc) * W + ww]);
+      xs[i] = v;
+    }
+    const int n_w = K * K * CI_CHUNK * CO_TILE;
+    for (int i = tid; i < n_w; i += nthreads) {
+      const int co = i % CO_TILE;
+      const int rest = i / CO_TILE;
+      const int ci = rest % CI_CHUNK;
+      const int tap = rest / CI_CHUNK;  // dy * K + dx
+      const int cc = c0 + ci;
+      const int oc = co0 + co;
+      float v = 0.f;
+      if (cc < C && oc < Cout) v = to_f32(w[((size_t)tap * C + cc) * Cout + oc]);
+      ws[i] = v;
+    }
+    __syncthreads();
+
+    for (int ci = 0; ci < CI_CHUNK; ++ci) {
+      for (int dy = 0; dy < K; ++dy) {
+        const float* xrow = xs + ((ty + dy) * CI_CHUNK + ci) * SW + tx;
+        const float* wtap = ws + ((dy * K) * CI_CHUNK + ci) * CO_TILE;
+        for (int dx = 0; dx < K; ++dx) {
+          const float xv = xrow[dx];
+          const float4* wv =
+              reinterpret_cast<const float4*>(wtap + dx * CI_CHUNK * CO_TILE);
+#pragma unroll
+          for (int q = 0; q < CO_TILE / 4; ++q) {
+            const float4 f = wv[q];
+            acc[4 * q + 0] = fmaf(xv, f.x, acc[4 * q + 0]);
+            acc[4 * q + 1] = fmaf(xv, f.y, acc[4 * q + 1]);
+            acc[4 * q + 2] = fmaf(xv, f.z, acc[4 * q + 2]);
+            acc[4 * q + 3] = fmaf(xv, f.w, acc[4 * q + 3]);
+          }
+        }
+      }
+    }
+  }
+
+  const int h = h0 + ty;
+  const int wc = w0 + tx;
+  if (h >= H || wc >= W) return;
+#pragma unroll
+  for (int co = 0; co < CO_TILE; ++co) {
+    const int oc = co0 + co;
+    if (oc < Cout) {
+      float v = acc[co];
+      if (bias != nullptr) v += to_f32(bias[oc]);
+      out[(((size_t)b * H + h) * Cout + oc) * W + wc] = from_f32<T>(v);
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* x, const void* w, const void* bias, void* out, int B,
+           int H, int C, int W, int Cout, int K, void* stream) {
+  const int pad = (K - 1) / 2;
+  const size_t smem = smem_bytes(K);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        conv_same_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int n_co_tiles = (Cout + CO_TILE - 1) / CO_TILE;
+  dim3 grid((W + TILE_W - 1) / TILE_W, (H + TILE_H - 1) / TILE_H,
+            B * n_co_tiles);
+  dim3 block(TILE_W, TILE_H);
+  conv_same_kernel<T><<<grid, block, smem, (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)w, (const T*)bias, (T*)out, B, H, C, W, Cout, K,
+      pad);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int conv_same_f32(const void* x, const void* w, const void* bias,
+                             void* out, int B, int H, int C, int W, int Cout,
+                             int K, void* stream) {
+  return launch<float>(x, w, bias, out, B, H, C, W, Cout, K, stream);
+}
+
+extern "C" int conv_same_bf16(const void* x, const void* w, const void* bias,
+                              void* out, int B, int H, int C, int W, int Cout,
+                              int K, void* stream) {
+  return launch<__nv_bfloat16>(x, w, bias, out, B, H, C, W, Cout, K, stream);
+}

@@ -1,0 +1,20 @@
+"""Image ops on NHCW activations. Each op with a hand-written kernel
+launches it for a CUDA tensor and runs its plain PyTorch version for a CPU
+tensor; nothing else decides between the two."""
+
+from cyclegan_tpu_torch.ops import layout
+from cyclegan_tpu_torch.ops.activations import apply_activation, leaky_relu
+from cyclegan_tpu_torch.ops.conv import conv2d
+from cyclegan_tpu_torch.ops.norm import instance_norm
+from cyclegan_tpu_torch.ops.pool import avg_pool2x2
+from cyclegan_tpu_torch.ops.resize import upsample_concat
+
+__all__ = [
+    "apply_activation",
+    "avg_pool2x2",
+    "conv2d",
+    "instance_norm",
+    "layout",
+    "leaky_relu",
+    "upsample_concat",
+]
