@@ -4,7 +4,10 @@
 Loads the model config and the two generators' weights from a model
 folder and stylizes uint8 image batches. The generator runs on NHCW
 activations between one transpose in and one out, so on the card every
-conv, norm, pool and junction of the forward is a hand-written kernel.
+conv, norm, pool and junction of the forward is a hand-written kernel. The
+generators are the modules training updates; serving freezes them
+(``requires_grad_(False)``, eval mode) and runs under ``inference_mode``,
+so no backward state is kept and the norm kernel writes no statistics.
 """
 
 from __future__ import annotations

@@ -13,7 +13,9 @@ import torch
 
 from cyclegan_tpu_torch.kernels._build import build_dir, check, function
 
-KERNELS = ("conv_same", "instance_norm_act", "sum2x2", "concat_up2")
+# K1-K4 serve and train; K5-K8 are their backward kernels.
+KERNELS = ("conv_same", "instance_norm_act", "sum2x2", "concat_up2",
+           "conv_dw", "instance_norm_act_bwd", "dup2x2", "split_pool2")
 launches = {name: 0 for name in KERNELS}
 
 P = ctypes.c_void_p

@@ -8,7 +8,10 @@
 // w   [K, K, C, Cout]  HWIO weights, as stored in the checkpoint
 // b   [Cout] or null   bias, added to the f32 sum before the store
 // out [B, H, Cout, W]
-// TF SAME pads (K-1)/2 before and the rest after: (1, 2) for K = 4.
+// pad rows and columns of zeros before the image, the rest after: the forward
+// of TF SAME pads (K-1)/2 before, (1, 2) for K = 4; the input gradient of that
+// conv (this kernel on dY with flipped, ci<->co-swapped weights, as
+// pallas_conv.py `_conv_bwd_rule`) pads K-1-(K-1)/2 before, 2 for K = 4.
 //
 // Bound on the H100: operations. The generator's convs do 16-100 multiply-adds
 // per byte moved, far above the ~1 the memory needs at CUDA-core rates. This
@@ -126,8 +129,8 @@ conv_same_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 template <typename T>
 int launch(const void* x, const void* w, const void* bias, void* out, int B,
-           int H, int C, int W, int Cout, int K, void* stream) {
-  const int pad = (K - 1) / 2;
+           int H, int C, int W, int Cout, int K, int pad, void* stream) {
+  if (pad < 0 || pad > K - 1) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(K);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -149,12 +152,13 @@ int launch(const void* x, const void* w, const void* bias, void* out, int B,
 
 extern "C" int conv_same_f32(const void* x, const void* w, const void* bias,
                              void* out, int B, int H, int C, int W, int Cout,
-                             int K, void* stream) {
-  return launch<float>(x, w, bias, out, B, H, C, W, Cout, K, stream);
+                             int K, int pad, void* stream) {
+  return launch<float>(x, w, bias, out, B, H, C, W, Cout, K, pad, stream);
 }
 
 extern "C" int conv_same_bf16(const void* x, const void* w, const void* bias,
                               void* out, int B, int H, int C, int W, int Cout,
-                              int K, void* stream) {
-  return launch<__nv_bfloat16>(x, w, bias, out, B, H, C, W, Cout, K, stream);
+                              int K, int pad, void* stream) {
+  return launch<__nv_bfloat16>(x, w, bias, out, B, H, C, W, Cout, K, pad,
+                               stream);
 }

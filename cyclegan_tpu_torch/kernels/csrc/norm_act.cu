@@ -4,7 +4,10 @@
 // `_fwd_stream_call` (slab >= 3 MB, hand-pipelined DMA). The split was a VMEM
 // artefact of the TPU; one design covers both here.
 //
-// x [B, H, C, W]; gamma, beta [C] in x's type or null (1 and 0); out like x.
+// x [B, H, C, W]; gamma, beta [C] in x's type or null (1 and 0); out like x;
+// mu, rstd [B, C] f32 or null: the statistics, written for the backward
+// (K6, norm_act_bwd.cu) as the Pallas forward writes its residuals, and left
+// out (null) when serving.
 // Per (sample, channel): mu = E[x], var from f32 sums, eps 1e-3 by default,
 // out = act((x - mu) * gamma * rstd + beta), act in {none, relu, leaky_relu}.
 // Statistics follow the JAX package: bf16 input takes one sweep with
@@ -44,8 +47,9 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 template <typename T, bool TWO_PASS>
 __global__ void __launch_bounds__(THREADS)
 norm_act_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
-                const T* __restrict__ beta, T* __restrict__ out, int H, int C,
-                int W, float eps, int act, float alpha) {
+                const T* __restrict__ beta, T* __restrict__ out,
+                float* __restrict__ mu_out, float* __restrict__ rstd_out,
+                int H, int C, int W, float eps, int act, float alpha) {
   __shared__ float red[THREADS / 32];
   const int b = blockIdx.x / C;
   const int c = blockIdx.x % C;
@@ -76,6 +80,10 @@ norm_act_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
     var = fmaxf(block_sum(s2, red) * inv_n - mu * mu, 0.f);
   }
   const float rstd = rsqrtf(var + eps);
+  if (mu_out != nullptr && threadIdx.x == 0) {
+    mu_out[blockIdx.x] = mu;
+    rstd_out[blockIdx.x] = rstd;
+  }
   const float g = gamma != nullptr ? to_f32(gamma[c]) : 1.f;
   const float be = beta != nullptr ? to_f32(beta[c]) : 0.f;
   const float a = g * rstd;
@@ -95,28 +103,31 @@ norm_act_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
 
 template <typename T, bool TWO_PASS>
 int launch(const void* x, const void* gamma, const void* beta, void* out,
-           int B, int H, int C, int W, float eps, int act, float alpha,
-           void* stream) {
+           void* mu, void* rstd, int B, int H, int C, int W, float eps,
+           int act, float alpha, void* stream) {
+  if ((mu == nullptr) != (rstd == nullptr)) return (int)cudaErrorInvalidValue;
   norm_act_kernel<T, TWO_PASS><<<B * C, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)gamma, (const T*)beta, (T*)out, H, C, W, eps,
-      act, alpha);
+      (const T*)x, (const T*)gamma, (const T*)beta, (T*)out, (float*)mu,
+      (float*)rstd, H, C, W, eps, act, alpha);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int instance_norm_act_f32(const void* x, const void* gamma,
-                                     const void* beta, void* out, int B,
-                                     int H, int C, int W, float eps, int act,
-                                     float alpha, void* stream) {
-  return launch<float, true>(x, gamma, beta, out, B, H, C, W, eps, act, alpha,
-                             stream);
+                                     const void* beta, void* out, void* mu,
+                                     void* rstd, int B, int H, int C, int W,
+                                     float eps, int act, float alpha,
+                                     void* stream) {
+  return launch<float, true>(x, gamma, beta, out, mu, rstd, B, H, C, W, eps,
+                             act, alpha, stream);
 }
 
 extern "C" int instance_norm_act_bf16(const void* x, const void* gamma,
-                                      const void* beta, void* out, int B,
-                                      int H, int C, int W, float eps, int act,
-                                      float alpha, void* stream) {
-  return launch<__nv_bfloat16, false>(x, gamma, beta, out, B, H, C, W, eps,
-                                      act, alpha, stream);
+                                      const void* beta, void* out, void* mu,
+                                      void* rstd, int B, int H, int C, int W,
+                                      float eps, int act, float alpha,
+                                      void* stream) {
+  return launch<__nv_bfloat16, false>(x, gamma, beta, out, mu, rstd, B, H, C,
+                                      W, eps, act, alpha, stream);
 }

@@ -1,13 +1,18 @@
-"""The pooled U-Net generator (cyclegan_tpu/models/unet.py
-``unet_generator``), on NHCW activations.
+"""The pooled U-Net (cyclegan_tpu/models/unet.py ``unet_generator``), on
+NHCW activations: the default recipe's generators (16/32/64/128, all k4,
+tanh) and, from the same builder, its discriminators (16/32/64 at k7/k5/k3,
+one output channel, sigmoid).
 
 Double-conv blocks (conv without bias -> affine instance norm -> ReLU,
 twice) with a 2x2 average pool on the way down; nearest-2x upsample and
 skip concat (skip first) on the way up; a 1x1 conv with bias and the final
 activation as head. Parameter names and shapes are the JAX package's.
+Every op is differentiable through the kernels' autograd Functions, so the
+same module serves and trains.
 
-This module serves inference: dropout, a training-time op, is never
-applied.
+Dropout (``dropout: True``) is applied in training mode in the JAX package;
+it is not ported yet, so a training-mode forward of such a config raises.
+An eval-mode forward never applies dropout, in either package.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ def _apply_double_conv(blocks: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
 
 
 class UNetGenerator(nn.Module):
-    """Pooled U-Net; ``forward`` takes and returns NHCW ``[B, H, C, W]``.
+    """Pooled U-Net; ``forward`` takes and returns NHCW ``[B, H, C, W]``
+    and is differentiable in the input and the parameters.
 
     Mandatory config fields, as in the JAX builder (KeyError if absent):
     filters, kernels, expansion, normalization, dropout, output_channels,
@@ -62,7 +68,7 @@ class UNetGenerator(nn.Module):
         kernels = list(config["kernels"])
         expansion = config["expansion"]
         norm = config["normalization"]
-        config["dropout"]  # mandatory field; inference never applies dropout
+        self.use_dropout = bool(config["dropout"])
         output_channels = config["output_channels"]
         self.final_activation = config["final_activation"]
         in_channels = int(config.get("in_channels", 3))
@@ -96,6 +102,10 @@ class UNetGenerator(nn.Module):
                               use_bias=True, kernel_init=glorot_uniform)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_dropout and self.training:
+            raise NotImplementedError(
+                "unet_generator dropout: True in training mode is not ported "
+                "yet (ROADMAP.md queue 1, item 'the other recipes')")
         skips = []
         for blocks in self.down:
             x = _apply_double_conv(blocks, x)

@@ -1,13 +1,14 @@
-"""Image ops on NHCW activations. Each op with a hand-written kernel
-launches it for a CUDA tensor and runs its plain PyTorch version for a CPU
-tensor; nothing else decides between the two."""
+"""Image ops on NHCW activations. Each op with a hand-written kernel is an
+autograd Function whose forward and backward launch the kernels for a CUDA
+tensor and run their plain PyTorch versions for a CPU tensor; nothing else
+decides between the two."""
 
 from cyclegan_tpu_torch.ops import layout
 from cyclegan_tpu_torch.ops.activations import apply_activation, leaky_relu
 from cyclegan_tpu_torch.ops.conv import conv2d
 from cyclegan_tpu_torch.ops.norm import instance_norm
 from cyclegan_tpu_torch.ops.pool import avg_pool2x2
-from cyclegan_tpu_torch.ops.resize import upsample_concat
+from cyclegan_tpu_torch.ops.resize import resize_bilinear, upsample_concat
 
 __all__ = [
     "apply_activation",
@@ -16,5 +17,6 @@ __all__ = [
     "instance_norm",
     "layout",
     "leaky_relu",
+    "resize_bilinear",
     "upsample_concat",
 ]

@@ -1,9 +1,9 @@
 """Convolution on NHCW activations with HWIO weights
 (cyclegan_tpu/ops/conv.py ``conv2d``).
 
-This slice takes stride-1 'SAME' convolutions only, which is every conv of
-the pooled U-Net; the tensor's device picks K1 or its plain version
-(``ops/cuda_conv.py``).
+The port takes stride-1 'SAME' convolutions only, which is every conv of
+the pooled U-Net; the tensor's device picks K1 (forward, input gradient) and
+K5 (weight gradient) or their plain versions (``ops/cuda_conv.py``).
 """
 
 from __future__ import annotations

@@ -1,18 +1,25 @@
-"""Fused instance norm + activation on NHCW activations: kernel K2 and its
-plain version.
+"""Fused instance norm + activation on NHCW activations and its gradient:
+kernels K2 (forward) and K6 (backward), their plain versions, and the
+autograd Function that joins them.
 
-Replaces cyclegan_tpu/ops/pallas_norm_act.py ``instance_norm_act`` (its
-forward kernels ``_fwd_call`` and ``_fwd_stream_call``). The TPU split into
-a VMEM-resident and a streamed kernel at 3 MB slabs was a VMEM artefact;
-``kernels/csrc/norm_act.cu`` is one design for every slab size.
+Replaces cyclegan_tpu/ops/pallas_norm_act.py ``instance_norm_act``: its
+forward kernels ``_fwd_call`` and ``_fwd_stream_call`` (K2,
+``kernels/csrc/norm_act.cu``) and its backward kernels ``_bwd_call`` and
+``_bwd_stream_call`` (K6, ``kernels/csrc/norm_act_bwd.cu``). The TPU split
+into VMEM-resident and streamed kernels at 3 MB slabs was a VMEM artefact;
+each CUDA kernel is one design for every slab size.
 
-Bound on the H100: bytes (about 8 flops per element; x read once, the
-output written once). One block per (sample, channel) plane reduces in f32
-and sweeps the plane again to write; the re-read mostly hits L2.
+Bound on the H100: bytes (about 8 flops per element forward, 20 backward).
+One block per (sample, channel) plane reduces in f32 and sweeps the plane
+again to write; the re-read mostly hits L2.
 
 Statistics as in the JAX package: bf16 input takes one sweep,
 var = max(E[x^2] - E[x]^2, 0); f32 input takes two passes. Then
-out = act((x - mu) * gamma * rstd + beta).
+out = act((x - mu) * gamma * rstd + beta). The forward can write mu and
+rstd (f32 [B, C]) for the backward, as the Pallas forward writes its
+residuals; the backward writes dx and t1 = sum dv, t2 = sum dv * xhat per
+(sample, channel), and dgamma, dbeta are their sums over the batch (torch
+sums, as JAX's are XLA sums).
 """
 
 from __future__ import annotations
@@ -41,11 +48,19 @@ def _check(x, gamma, beta, act):
         raise ValueError(f"activation {act!r} not in {sorted(_ACTS)}")
 
 
+def _affine(gamma, beta):
+    """gamma, beta as f32 [C, 1] (1 and 0 when absent)."""
+    g = 1.0 if gamma is None else gamma.float()[:, None]
+    b = 0.0 if beta is None else beta.float()[:, None]
+    return g, b
+
+
 def instance_norm_act_plain(x: torch.Tensor, gamma: Optional[torch.Tensor],
                             beta: Optional[torch.Tensor],
                             eps: float = TFA_EPSILON, act: str = "relu",
-                            alpha: float = 0.2) -> torch.Tensor:
-    """The kernel's function with explicit f32 sums over (H, W)."""
+                            alpha: float = 0.2, with_stats: bool = False):
+    """The kernel's function with explicit f32 sums over (H, W). With
+    ``with_stats``, returns (out, mu, rstd), the statistics f32 [B, C]."""
     _check(x, gamma, beta, act)
     xf = x.float()
     n = x.shape[1] * x.shape[3]
@@ -56,42 +71,163 @@ def instance_norm_act_plain(x: torch.Tensor, gamma: Optional[torch.Tensor],
         sq = (xf * xf).sum(dim=(1, 3), keepdim=True) / n
         var = torch.clamp(sq - mu * mu, min=0.0)
     rstd = torch.rsqrt(var + eps)
-    g = 1.0 if gamma is None else gamma.float()[:, None]
-    b = 0.0 if beta is None else beta.float()[:, None]
+    g, b = _affine(gamma, beta)
     v = (xf - mu) * (g * rstd) + b
     if act == "relu":
         v = torch.clamp(v, min=0.0)
     elif act == "leaky_relu":
         v = torch.where(v >= 0.0, v, v * alpha)
-    return v.to(x.dtype)
+    out = v.to(x.dtype)
+    if with_stats:
+        return out, mu[:, 0, :, 0], rstd[:, 0, :, 0]
+    return out
 
 
 def instance_norm_act_cuda(x: torch.Tensor, gamma: Optional[torch.Tensor],
                            beta: Optional[torch.Tensor],
                            eps: float = TFA_EPSILON, act: str = "relu",
-                           alpha: float = 0.2) -> torch.Tensor:
-    """Launch K2 on CUDA tensors."""
+                           alpha: float = 0.2, with_stats: bool = False):
+    """Launch K2 on CUDA tensors (with ``with_stats``, it also writes mu and
+    rstd and this returns (out, mu, rstd))."""
     _check(x, gamma, beta, act)
     kernels.check_cuda("instance_norm_act", x, gamma, beta)
     B, H, C, W = x.shape
     out = torch.empty_like(x)
+    mu = rstd = None
+    if with_stats:
+        mu = torch.empty((B, C), dtype=torch.float32, device=x.device)
+        rstd = torch.empty_like(mu)
     fn = kernels.function(
         "norm_act", f"instance_norm_act_{kernels.dtype_suffix(x)}",
-        [P, P, P, P, I, I, I, I, CF, I, CF, P])
+        [P, P, P, P, P, P, I, I, I, I, CF, I, CF, P])
     err = fn(kernels.ptr(x), kernels.ptr(gamma), kernels.ptr(beta),
-             kernels.ptr(out), B, H, C, W, float(eps), _ACTS[act],
-             float(alpha), kernels.stream())
+             kernels.ptr(out), kernels.ptr(mu), kernels.ptr(rstd), B, H, C, W,
+             float(eps), _ACTS[act], float(alpha), kernels.stream())
     kernels.check("norm_act", err)
     kernels.launches["instance_norm_act"] += 1
-    return out
+    return (out, mu, rstd) if with_stats else out
+
+
+def _instance_norm_act(x, gamma, beta, eps, act, alpha, with_stats):
+    """K2 or its plain version, by the tensor's device."""
+    if x.is_cuda:
+        return instance_norm_act_cuda(x, gamma, beta, eps, act, alpha,
+                                      with_stats=with_stats)
+    if x.device.type == "cpu":
+        return instance_norm_act_plain(x, gamma, beta, eps, act, alpha,
+                                       with_stats=with_stats)
+    raise ValueError(f"instance_norm_act: no kernel for device {x.device}")
+
+
+def _check_bwd(x, gz, mu, rstd):
+    if gz.shape != x.shape:
+        raise ValueError(f"gradient {tuple(gz.shape)} for x {tuple(x.shape)}")
+    stats = (x.shape[0], x.shape[2])
+    for s in (mu, rstd):
+        if tuple(s.shape) != stats or s.dtype != torch.float32:
+            raise ValueError(f"statistics {tuple(s.shape)} {s.dtype}, "
+                             f"expected f32 {stats}")
+
+
+def instance_norm_act_bwd_plain(x, gz, gamma, beta, mu, rstd,
+                                act: str = "relu", alpha: float = 0.2):
+    """(dx, t1, t2) with explicit f32 sums: xhat = (x - mu) rstd,
+    v = gamma xhat + beta, dv = gz act'(v) where act' is 1 only for v > 0
+    under relu (pallas_norm_act.py ``_act_grad``), t1 = sum dv,
+    t2 = sum dv xhat, dx = gamma rstd (dv - t1/n - xhat t2/n)."""
+    _check(x, gamma, beta, act)
+    _check_bwd(x, gz, mu, rstd)
+    n = x.shape[1] * x.shape[3]
+    m = mu[:, None, :, None]
+    r = rstd[:, None, :, None]
+    g, b = _affine(gamma, beta)
+    xhat = (x.float() - m) * r
+    v = xhat * g + b
+    if act == "relu":
+        slope = (v > 0.0).float()
+    elif act == "leaky_relu":
+        slope = torch.where(v >= 0.0, 1.0, alpha)
+    else:
+        slope = torch.ones_like(v)
+    dv = gz.float() * slope
+    t1 = dv.sum(dim=(1, 3))                                   # [B, C]
+    t2 = (dv * xhat).sum(dim=(1, 3))
+    dx = (g * r) * (dv - t1[:, None, :, None] / n
+                    - xhat * (t2[:, None, :, None] / n))
+    return dx.to(x.dtype), t1, t2
+
+
+def instance_norm_act_bwd_cuda(x, gz, gamma, beta, mu, rstd,
+                               act: str = "relu", alpha: float = 0.2):
+    """Launch K6 on CUDA tensors; returns (dx, t1, t2)."""
+    _check(x, gamma, beta, act)
+    _check_bwd(x, gz, mu, rstd)
+    kernels.check_cuda("instance_norm_act_bwd", x, gz, gamma, beta)
+    kernels.check_cuda("instance_norm_act_bwd", mu, rstd)
+    B, H, C, W = x.shape
+    dx = torch.empty_like(x)
+    t1 = torch.empty((B, C), dtype=torch.float32, device=x.device)
+    t2 = torch.empty_like(t1)
+    fn = kernels.function(
+        "norm_act_bwd", f"norm_act_bwd_{kernels.dtype_suffix(x)}",
+        [P, P, P, P, P, P, P, P, P, I, I, I, I, I, CF, P])
+    err = fn(kernels.ptr(x), kernels.ptr(gz), kernels.ptr(gamma),
+             kernels.ptr(beta), kernels.ptr(mu), kernels.ptr(rstd),
+             kernels.ptr(dx), kernels.ptr(t1), kernels.ptr(t2), B, H, C, W,
+             _ACTS[act], float(alpha), kernels.stream())
+    kernels.check("norm_act_bwd", err)
+    kernels.launches["instance_norm_act_bwd"] += 1
+    return dx, t1, t2
+
+
+def instance_norm_act_bwd(x, gz, gamma, beta, mu, rstd, act="relu",
+                          alpha=0.2):
+    """K6 or its plain version, by the tensor's device."""
+    if x.is_cuda:
+        return instance_norm_act_bwd_cuda(x, gz, gamma, beta, mu, rstd, act,
+                                          alpha)
+    if x.device.type == "cpu":
+        return instance_norm_act_bwd_plain(x, gz, gamma, beta, mu, rstd, act,
+                                           alpha)
+    raise ValueError(f"instance_norm_act_bwd: no kernel for device "
+                     f"{x.device}")
+
+
+class InstanceNormAct(torch.autograd.Function):
+    """z = act(instance_norm(x) * gamma + beta); forward K2 (which keeps mu
+    and rstd), backward K6, dgamma = sum_b t2 and dbeta = sum_b t1 in the
+    parameters' dtype, as the Pallas VJP returns them."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, act, alpha):
+        z, mu, rstd = _instance_norm_act(x, gamma, beta, eps, act, alpha,
+                                         with_stats=True)
+        ctx.save_for_backward(x, gamma, beta, mu, rstd)
+        ctx.act, ctx.alpha = act, alpha
+        return z
+
+    @staticmethod
+    def backward(ctx, gz):
+        x, gamma, beta, mu, rstd = ctx.saved_tensors
+        dx, t1, t2 = instance_norm_act_bwd(x, gz.contiguous(), gamma, beta,
+                                           mu, rstd, ctx.act, ctx.alpha)
+        dgamma = dbeta = None
+        if ctx.needs_input_grad[1]:
+            dgamma = t2.sum(dim=0).to(gamma.dtype)
+        if ctx.needs_input_grad[2]:
+            dbeta = t1.sum(dim=0).to(beta.dtype)
+        return (dx if ctx.needs_input_grad[0] else None), dgamma, dbeta, \
+            None, None, None
 
 
 def instance_norm_act(x: torch.Tensor, gamma: Optional[torch.Tensor],
                       beta: Optional[torch.Tensor], eps: float = TFA_EPSILON,
                       act: str = "relu", alpha: float = 0.2) -> torch.Tensor:
-    """x [B,H,C,W] NHCW; gamma, beta [C] or None (non-affine)."""
-    if x.is_cuda:
-        return instance_norm_act_cuda(x, gamma, beta, eps, act, alpha)
-    if x.device.type == "cpu":
-        return instance_norm_act_plain(x, gamma, beta, eps, act, alpha)
-    raise ValueError(f"instance_norm_act: no kernel for device {x.device}")
+    """x [B,H,C,W] NHCW; gamma, beta [C] or None (non-affine);
+    differentiable in x, gamma and beta."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, gamma, beta)):
+        return InstanceNormAct.apply(x.contiguous(), gamma, beta, eps, act,
+                                     alpha)
+    return _instance_norm_act(x.contiguous(), gamma, beta, eps, act, alpha,
+                              with_stats=False)

@@ -1,13 +1,15 @@
-"""Scaled 2x2 block sum on NHCW activations (the average pool): kernel K3
-and its plain version.
+"""The 2x2 average pool on NHCW activations and its gradient: kernels K3
+(scaled 2x2 block sum) and K7 (scaled 2x duplication), their plain
+versions, and the autograd Function that joins them.
 
-Replaces cyclegan_tpu/ops/pallas_resize.py ``avg_pool2x2_nhcw`` (its
-``_sum2x2_call``), ``kernels/csrc/sum2x2.cu``.
+Replaces cyclegan_tpu/ops/pallas_resize.py ``avg_pool2x2_nhcw``: its
+forward ``_sum2x2_call`` (K3, ``kernels/csrc/sum2x2.cu``) and its backward
+``_dup2x2_call`` at scale 1/4 (K7, ``kernels/csrc/dup2x2.cu``).
 
-Bound on the H100: bytes (3 flops per 5 elements moved). One thread per
-output element with coalesced reads of the two input rows; the sum is f32,
-row pair first and column pair second as in the Pallas kernel, so the
-kernel and the plain version agree exactly.
+Bound on the H100: bytes (under one flop per element moved). One thread per
+output element with coalesced accesses. K3 adds in f32, row pair first and
+column pair second as the Pallas kernel, and K7 multiplies by an exact
+1/4, so both kernels equal their plain versions exactly.
 """
 
 from __future__ import annotations
@@ -57,6 +59,56 @@ def sum2x2(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     raise ValueError(f"sum2x2: no kernel for device {x.device}")
 
 
+def _check_dup(x):
+    if x.dim() != 4:
+        raise ValueError(f"dup2x2 takes x [B,h,C,w], got {tuple(x.shape)}")
+
+
+def dup2x2_plain(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """[B,h,C,w] -> [B,2h,C,2w]: each element times ``scale`` in f32,
+    rounded once, then repeated over a 2x2 block by expand + reshape."""
+    _check_dup(x)
+    B, h, C, w = x.shape
+    v = (x.float() * scale).to(x.dtype)
+    return v[:, :, None, :, :, None].expand(B, h, 2, C, w, 2).reshape(
+        B, 2 * h, C, 2 * w)
+
+
+def dup2x2_cuda(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """Launch K7 on a CUDA tensor."""
+    _check_dup(x)
+    kernels.check_cuda("dup2x2", x)
+    B, h, C, w = x.shape
+    out = torch.empty((B, 2 * h, C, 2 * w), dtype=x.dtype, device=x.device)
+    fn = kernels.function("dup2x2", f"dup2x2_{kernels.dtype_suffix(x)}",
+                          [P, P, I, I, I, I, CF, P])
+    err = fn(kernels.ptr(x), kernels.ptr(out), B, h, C, w, float(scale),
+             kernels.stream())
+    kernels.check("dup2x2", err)
+    kernels.launches["dup2x2"] += 1
+    return out
+
+
+def dup2x2(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    if x.is_cuda:
+        return dup2x2_cuda(x, scale)
+    if x.device.type == "cpu":
+        return dup2x2_plain(x, scale)
+    raise ValueError(f"dup2x2: no kernel for device {x.device}")
+
+
+class AvgPool2x2(torch.autograd.Function):
+    """2x2 average pool: forward K3 at scale 1/4, backward K7 at 1/4."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return sum2x2(x, 0.25)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dup2x2(g.contiguous(), 0.25)
+
+
 def avg_pool2x2_nhcw(x: torch.Tensor) -> torch.Tensor:
-    """2x2 average pool, stride 2, NHCW."""
-    return sum2x2(x, 0.25)
+    """2x2 average pool, stride 2, NHCW; differentiable."""
+    return AvgPool2x2.apply(x.contiguous())

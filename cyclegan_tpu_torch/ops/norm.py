@@ -1,6 +1,7 @@
 """Instance norm on NHCW activations (cyclegan_tpu/ops/norm.py
 ``instance_norm``), fused with the activation that follows it: the
-tensor's device picks K2 or its plain version (``ops/cuda_norm_act.py``).
+tensor's device picks K2 (forward) and K6 (backward) or their plain
+versions (``ops/cuda_norm_act.py``).
 Epsilon 1e-3 as tensorflow_addons' InstanceNormalization.
 """
 

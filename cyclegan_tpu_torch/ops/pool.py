@@ -1,6 +1,7 @@
 """2x2 average pool, stride 2, on NHCW activations
-(cyclegan_tpu/ops/pool.py ``avg_pool2x2``): K3 or its plain version by
-the tensor's device (``ops/cuda_resize.py``)."""
+(cyclegan_tpu/ops/pool.py ``avg_pool2x2``): K3 (forward) and K7
+(backward) or their plain versions by the tensor's device
+(``ops/cuda_resize.py``)."""
 
 from __future__ import annotations
 

@@ -5,15 +5,18 @@ saved under ``/``-joined paths (``down/0/0/conv/w``). The port's modules
 are built so that their ``state_dict`` keys are the same paths joined by
 ``.`` (``down.0.0.conv.w``), with the same shapes: conv weights stay HWIO,
 as in the checkpoint and the kernels' signatures. So the bridge renames
-and converts, and never transposes.
+and converts, and never transposes. A training state's four networks cross
+as one ``params`` tree keyed by network name, as the JAX ``TrainState``
+holds them, so one numpy tree seeds both packages.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def jax_params_to_torch(tree: Any) -> Dict[str, torch.Tensor]:
@@ -55,3 +58,19 @@ def torch_params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Any:
         return out
 
     return listify(root)
+
+
+def models_to_jax_params(models: Mapping[str, nn.Module]) -> Dict[str, Any]:
+    """Networks by name (a ``TrainState``'s ``models``) -> the JAX
+    package's ``params`` tree: {name: nested dicts/lists of numpy}."""
+    return {name: torch_params_to_jax(model.state_dict())
+            for name, model in models.items()}
+
+
+def load_jax_params(models: Mapping[str, nn.Module],
+                    params: Mapping[str, Any]) -> None:
+    """Copy a JAX ``params`` tree ({name: tree}, numpy leaves) into the
+    networks of the same names, in place, keeping each parameter's device
+    and dtype. Every leaf must match a parameter (``strict``)."""
+    for name, model in models.items():
+        model.load_state_dict(jax_params_to_torch(params[name]), strict=True)

@@ -1,19 +1,35 @@
-"""chip_smoke.py's launch plan is the generator's real one.
+"""chip_smoke.py's launch plans are the real ones.
 
 chip_smoke.py checks and times each kernel at the shape of every launch of
-one generator forward, from a plan it derives from the config. Here the
-plan is held against the launches a forward really makes, recorded on the
-CPU through the plain versions the wrappers call there.
+one generator forward and of one train step, from plans it derives from
+the config. Here each plan is held against the launches a forward and a
+train step really make, recorded on the CPU through the plain versions the
+wrappers call there.
 """
+
+import collections
 
 import pytest
 import torch
 
 import chip_smoke
+from cyclegan_tpu_torch import steps
 from cyclegan_tpu_torch.config import yaml2namespace
+from cyclegan_tpu_torch.data.augment import random_jitter_batch
 from cyclegan_tpu_torch.models import UNetGenerator
 from cyclegan_tpu_torch.ops import (cuda_concat, cuda_conv, cuda_norm_act,
                                     cuda_resize)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small CPU shapes: the suite runs in
+    several worker processes at once, and torch's default of one thread
+    per core in each of them oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("config", [
@@ -59,3 +75,87 @@ def test_default_generator_launch_counts():
         "concat_up2": 3}
     assert (8, 128, 160, 64, 4, False) in plan["conv_same"]
     assert plan["conv_same"][-1] == (8, 256, 32, 3, 1, True)
+
+
+def _record_train_step(monkeypatch, model_cfg, batch, size):
+    """Every kernel launch of one bf16 train step (jitter inside), recorded
+    on the CPU through the plain versions the Functions call there."""
+    seen = collections.defaultdict(list)
+
+    def record(module, name, key, shape_of):
+        plain = getattr(module, name)
+
+        def wrapper(*args, **kwargs):
+            seen[key].append(shape_of(*args, **kwargs))
+            return plain(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, wrapper)
+
+    def conv_shape(x, w, b=None, pad=None):
+        k = int(w.shape[0])
+        return (x.shape[0], x.shape[1], x.shape[2], w.shape[3], k,
+                b is not None, cuda_conv.tf_same_pad(k)[0] if pad is None
+                else pad)
+
+    def plane(x, *args, **kwargs):
+        return (x.shape[0], x.shape[1], x.shape[2])
+
+    record(cuda_conv, "conv_same_plain", "conv_same", conv_shape)
+    record(cuda_conv, "conv_dw_plain", "conv_dw",
+           lambda x, g, k, pad: (x.shape[0], x.shape[1], x.shape[2],
+                                 g.shape[2], k, pad))
+    record(cuda_norm_act, "instance_norm_act_plain", "instance_norm_act",
+           plane)
+    record(cuda_norm_act, "instance_norm_act_bwd_plain",
+           "instance_norm_act_bwd", plane)
+    record(cuda_resize, "sum2x2_plain", "sum2x2", plane)
+    record(cuda_resize, "dup2x2_plain", "dup2x2", plane)
+    record(cuda_concat, "concat_up2_plain", "concat_up2",
+           lambda skip, x: (skip.shape[0], skip.shape[1], skip.shape[2],
+                            x.shape[2]))
+    record(cuda_concat, "split_pool2_plain", "split_pool2",
+           lambda g, c1: (g.shape[0], g.shape[1], c1, g.shape[2] - c1))
+
+    def jitter(generator, a, b):
+        return (random_jitter_batch(generator, a, size),
+                random_jitter_batch(generator, b, size))
+
+    state = steps.init_train_state(
+        steps.build_models(model_cfg),
+        yaml2namespace("configs/training_config.yaml"), device="cpu")
+    step = steps.make_train_step(model_cfg.loss, model_cfg.loss_weights,
+                                 "bfloat16", preprocess=jitter)
+    images = torch.zeros(batch, size, size, 3, dtype=torch.uint8)
+    step(state, images, images)
+    return seen
+
+
+@pytest.mark.parametrize("config", [
+    "model_instances/converged256/model_config.yaml",
+    "configs/cycle.yaml",
+])
+def test_train_launch_plan_matches_a_recorded_step(config, monkeypatch):
+    model_cfg = yaml2namespace(config)
+    seen = _record_train_step(monkeypatch, model_cfg, 2, 32)
+    plan = chip_smoke.train_launches(model_cfg, 2, 32)
+    assert set(seen) == set(plan)
+    for name, shapes in plan.items():
+        assert collections.Counter(seen[name]) == \
+            collections.Counter(shapes), name
+
+
+def test_default_train_step_launch_counts():
+    cfg = yaml2namespace("model_instances/converged256/model_config.yaml")
+    plan = chip_smoke.train_launches(cfg, 8, 256)
+    assert {k: len(v) for k, v in plan.items()} == {
+        "conv_same": 304, "instance_norm_act": 144, "sum2x2": 30,
+        "concat_up2": 30, "conv_dw": 134, "instance_norm_act_bwd": 144,
+        "dup2x2": 30, "split_pool2": 30}
+    # the input gradient of a k4 conv pads 2 before; its forward pads 1
+    assert (8, 128, 64, 160, 4, False, 2) in plan["conv_same"]
+    assert (8, 128, 160, 64, 4, False, 1) in plan["conv_same"]
+    # the generators' 14 k4 convs: 6 forwards at pad 1; input gradients at
+    # pad 2 in all 6 applications but the first conv of the 4 whose input
+    # is a real image
+    k4 = collections.Counter(s[6] for s in plan["conv_same"] if s[4] == 4)
+    assert k4 == {1: 6 * 14, 2: 6 * 14 - 4}
