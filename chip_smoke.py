@@ -5,32 +5,47 @@
 
 from the root of the repository, on a machine with a CUDA card and nvcc.
 It needs no network and writes only the kernel build
-(``cyclegan_tpu_torch/kernels/build``) and, with ``--out``, the per-launch
-details (``chip_smoke_detail.json``) and profiler traces of the serving
-forward and of the train step (``forward_trace.json``,
-``train_trace.json``) into DIR. Phases, each failing the run if it fails:
+(``cyclegan_tpu_torch/kernels/build``), a temporary model folder, and, with
+``--out``, the per-launch details (``chip_smoke_detail.json``) and profiler
+traces of each serving forward and train step (``*_trace.json``) into DIR.
+Two recipes at full width and depth, batch 8, 256x256: the default U-Net
+recipe (``configs/cycle.yaml`` = converged256) and the canonical ResNet
+recipe (``configs/resnet.yaml``: ResNet-9 generator, filters 32, PatchGAN
+64/128/256). Phases, each failing the run if it fails:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of the
-   eight CUDA kernels from ``cyclegan_tpu_torch/kernels/csrc``;
+   CUDA kernels from ``cyclegan_tpu_torch/kernels/csrc``;
 2. every kernel against its plain PyTorch version on the card, at every
-   unique launch shape of one train step of the default recipe (batch 8,
-   256x256; its generator forwards are the serving forward's launches),
-   in bf16 and f32, with TF32 off: the forward kernels K1-K4, K1 at the
-   input gradient's pad, K2's mu and rstd, and the backward kernels K5-K8;
+   unique launch shape of one train step of each recipe (their generator
+   forwards are the serving forwards' launches), in bf16 and f32, with
+   TF32 off: K1-K4, K1 at the input gradient's pad and on the reflect
+   conv's padded dY, K2's mu and rstd, K2 and K6 with and without
+   gamma/beta and with ReLU, none and LeakyReLU, K5-K8, and the reflect
+   conv's K9, K9-dW and K10;
 3. each kernel's time at those shapes (CUDA events, median after warm-up)
    beside its plain version, one PyTorch library call for the same
    function where there is one, and the least time the card could take;
-4. serving: ``InferenceSession`` on converged256, bf16, on the card,
+4. U-Net serving: ``InferenceSession`` on converged256, bf16, on the card,
    answers batch-8 and batch-1 requests in both directions; each forward
    must launch 15/14/3/3 conv/norm/pool/junction kernels, and the outputs
    are held against the plain f32 session on the CPU. Then serving img/s;
-5. training, from converged256's four networks with fresh Adam: one bf16
-   step at batch 8 (jitter inside) whose launches of every kernel equal
-   the plan ``train_launches`` derives from the configs; the f32 gradients
-   of a batch-2 step on the card against the plain f32 step on the CPU;
-   the bf16 card step's gradient error against the CPU bf16 step's; five
-   bf16 steps with finite losses that move every network; then train-step
-   img/s, peak memory, host issue time and a profiler trace of 3 steps.
+5. U-Net training, from converged256's four networks with fresh Adam: one
+   bf16 step at batch 8 (jitter inside) whose launches of every kernel
+   equal the plan ``train_launches`` derives from the configs; the f32
+   gradients of a batch-2 step on the card against the plain f32 step on
+   the CPU; the bf16 card step's gradient error against the CPU bf16
+   step's; five bf16 steps with finite losses that move every network;
+   then train-step img/s, peak memory, host issue time and a profiler
+   trace of 3 steps;
+6. ResNet training, as phase 5 from seeded random weights, against the
+   plan ``resnet_train_launches``; its f32 gradients are compared at
+   ``RESNET_F32_POINT`` (full width and depth, batch 1 at 16x16, a seed
+   where no ReLU or LeakyReLU input of the CPU step lies within
+   ``KINK_MARGIN`` of zero, asserted) with TF32 on, PyTorch's default, so
+   that the check covers the port turning it off for its library convs;
+7. ResNet serving: the networks phase 6 trained, saved by the port into a
+   model folder, served as phase 4 (20 reflect-conv and 23 norm launches
+   per forward).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' numbers as JSON.
@@ -40,7 +55,9 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -56,6 +73,7 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 MODEL_DIR = ROOT / "model_instances" / "converged256"
 TRAIN_CONFIG = ROOT / "configs" / "training_config.yaml"
+RESNET_CONFIG = ROOT / "configs" / "resnet.yaml"
 DEVICE = "cuda"
 BATCH = 8
 SIZE = 256
@@ -98,6 +116,12 @@ TOL = {
     ("dup2x2", torch.float32): (0.0, 0.0),
     ("split_pool2", torch.bfloat16): (0.0, 0.0),
     ("split_pool2", torch.float32): (0.0, 0.0),
+    ("conv_reflect", torch.bfloat16): (1e-2, 1e-2),
+    ("conv_reflect", torch.float32): (1e-4, 1e-4),
+    ("conv_reflect_dw", torch.bfloat16): (0.0, 1e-5),
+    ("conv_reflect_dw", torch.float32): (0.0, 1e-5),
+    ("reflect_fold", torch.bfloat16): (0.0, 0.0),
+    ("reflect_fold", torch.float32): (0.0, 0.0),
 }
 _CSRC = "cyclegan_tpu_torch/kernels/csrc/"
 SOURCES = {
@@ -121,26 +145,53 @@ SOURCES = {
                "cyclegan_tpu/ops/pallas_resize.py:209", []),
     "split_pool2": (_CSRC + "split_pool2.cu",
                     "cyclegan_tpu/ops/pallas_concat.py:305", []),
+    "conv_reflect": (_CSRC + "conv_same.cu",
+                     "cyclegan_tpu/ops/pallas_conv.py:1130", []),
+    "conv_reflect_dw": (_CSRC + "conv_dw.cu",
+                        "cyclegan_tpu/ops/pallas_conv.py:1130", []),
+    "reflect_fold": (_CSRC + "reflect_fold.cu",
+                     "cyclegan_tpu/ops/pallas_conv.py:1130", []),
 }
 # kernel-name fragments of the profiler trace -> kernel family
 TRACE_FAMILIES = (
-    ("conv_same_kernel", "conv_same"),
+    ("conv_same_kernel", "conv_same"), ("conv_reflect_kernel", "conv_reflect"),
+    ("conv_reflect_dw_partial_kernel", "conv_reflect_dw"),
+    ("reflect_sum_splits_kernel", "conv_reflect_dw"),
+    ("reflect_fold_kernel", "reflect_fold"),
     ("conv_dw_partial_kernel", "conv_dw"), ("sum_splits_kernel", "conv_dw"),
     ("norm_act_bwd_kernel", "instance_norm_act_bwd"),
     ("norm_act_kernel", "instance_norm_act"),
     ("sum2x2_kernel", "sum2x2"), ("dup2x2_kernel", "dup2x2"),
     ("concat_up2_kernel", "concat_up2"),
     ("split_pool2_kernel", "split_pool2"),
+    # the library convolutions (stride 2, transposed) of the ResNet recipe
+    ("cudnn", "library conv"), ("xmma", "library conv"),
+    ("cutlass", "library conv"), ("grad", "library conv"),
+    ("conv", "library conv"),
 )
-# serving: card bf16 output vs the plain f32 session, in uint8 steps
+# serving: card bf16 output vs the plain f32 session, in uint8 steps: the
+# mean, the share of pixels more than SERVE_FAR off and the worst pixel
+# each within the absolute bound, or within RATIO times the plain bf16
+# session's own where that is larger (the plain bf16 ResNet session is
+# itself about half a step off on average: bf16 rounding through 20 convs
+# and 23 norms)
 SERVE_MEAN_MAX = 0.5
 SERVE_FAR = 8            # a pixel this far off counts as an outlier...
 SERVE_FAR_SHARE = 1e-3   # ...and at most this share of them may be
 SERVE_F32_MAX = 1
-# training: per network, |g_card - g_cpu| / |g_cpu| in f32, and the bf16
-# card step's error at most this multiple of the plain bf16 step's
+# training: per network, |g_card - g_cpu| / |g_cpu| in f32 within
+# TRAIN_F32_REL; the bf16 card step's error within RATIO times the plain
+# bf16 step's
 TRAIN_F32_REL = 1e-3
-TRAIN_BF16_RATIO = 1.5
+RATIO = 1.5
+# The ResNet's f32 comparison point: seeded weights and input, batch 1 at
+# 16x16. Every norm of the recipe is non-affine, so its ReLU and LeakyReLU
+# inputs straddle zero in every channel; two f32 implementations may put an
+# input within rounding of a kink on either side, and one such flip moves a
+# gradient by more than TRAIN_F32_REL. At 256x256 there are millions of
+# them; at this point none lies within KINK_MARGIN (asserted).
+RESNET_F32_POINT = {"size": 16, "batch": 1, "seed": 354}
+KINK_MARGIN = 1e-5
 
 failures = []
 
@@ -164,8 +215,8 @@ def tf_pad(k):
 
 def generator_launches(cfg, batch, size):
     """The kernel launches of one forward of the pooled U-Net, in order:
-    conv (B, H, Cin, Cout, K, bias), norm (B, H, C), pool (B, H, C),
-    junction (B, H, C1, C2) with H the output side."""
+    conv (B, H, Cin, Cout, K, bias), norm (B, H, C, act, affine), pool
+    (B, H, C), junction (B, H, C1, C2) with H the output side."""
     filters, ks = list(cfg["filters"]), list(cfg["kernels"])
     conv, norm, pool, junction = [], [], [], []
     c, s, skips = 3, size, []
@@ -173,7 +224,7 @@ def generator_launches(cfg, batch, size):
     def double_conv(cin, f, k, s):
         for ci in (cin, f):
             conv.append((batch, s, ci, f, k, False))
-            norm.append((batch, s, f))
+            norm.append((batch, s, f, "relu", True))
 
     for f, k in zip(filters[:-1], ks[:-1]):
         double_conv(c, f, k, s)
@@ -214,10 +265,7 @@ def train_launches(model_cfg, batch, size):
     # (plan, parameters train, input needs a gradient)
     apps = ([(gen, True, False)] * 4 + [(gen, True, True)] * 2
             + [(disc, True, False)] * 4 + [(disc, False, True)] * 2)
-    out = {name: [] for name in ("conv_same", "instance_norm_act", "sum2x2",
-                                 "concat_up2", "conv_dw",
-                                 "instance_norm_act_bwd", "dup2x2",
-                                 "split_pool2")}
+    out = {name: [] for name in UNET_KERNELS}
     for plan, params_train, input_grad in apps:
         for i, (b, h, cin, cout, k, bias) in enumerate(plan["conv_same"]):
             out["conv_same"].append((b, h, cin, cout, k, bias, tf_pad(k)))
@@ -235,13 +283,91 @@ def train_launches(model_cfg, batch, size):
     return out
 
 
+UNET_KERNELS = ("conv_same", "instance_norm_act", "sum2x2", "concat_up2",
+                "conv_dw", "instance_norm_act_bwd", "dup2x2", "split_pool2")
+RESNET_KERNELS = ("conv_reflect", "conv_reflect_dw", "reflect_fold",
+                  "conv_same", "conv_dw", "instance_norm_act",
+                  "instance_norm_act_bwd")
+
+
+def resnet_generator_launches(cfg, batch, size):
+    """The kernel launches of one forward of the ResNet generator, in
+    order: reflect conv (B, H, Cin, Cout, K, bias) and norm (B, H, C, act,
+    affine). Its stride-2 and transposed convs are library calls."""
+    f = int(cfg["filters"])
+    s4 = size // 4
+    conv = ([(batch, size, 3, f, 7, True)]
+            + [(batch, s4, 4 * f, 4 * f, 3, True)] * 18
+            + [(batch, size, f, 3, 7, True)])
+    norm = ([(batch, size, f, "relu", False),
+             (batch, size // 2, 2 * f, "relu", False),
+             (batch, s4, 4 * f, "relu", False)]
+            + [(batch, s4, 4 * f, "relu", False),
+               (batch, s4, 4 * f, "none", False)] * 9
+            + [(batch, size // 2, 2 * f, "relu", False),
+               (batch, size, f, "relu", False)])
+    return {"conv_reflect": conv, "instance_norm_act": norm}
+
+
+def patchgan_launches(cfg, batch, size):
+    """The kernel launches of one PatchGAN forward: a norm with
+    LeakyReLU(0.2) after each stride-2 (library) conv, then the 1x1 head
+    on K1, (B, H, Cin, Cout, K, bias) with H the side it runs at."""
+    norm, s = [], size
+    for f in cfg["filters"]:
+        s //= 2
+        norm.append((batch, s, int(f), "leaky_relu", False))
+    head = [(batch, s, int(cfg["filters"][-1]), 1, 1, True)]
+    return {"conv_same": head, "instance_norm_act": norm}
+
+
+def resnet_train_launches(model_cfg, batch, size):
+    """The kernel launches of one train step of the ResNet recipe, by
+    kernel, as unordered lists of shapes: conv_reflect (B, H, Cin, Cout,
+    K, bias), conv_reflect_dw (B, H, Cin, Cout, K), reflect_fold (B, H, C,
+    p) with H the folded side, and conv_same, conv_dw, instance_norm_act
+    and its backward as ``train_launches`` gives them.
+
+    Applications as there (6 generators, 6 discriminators). Every reflect
+    conv runs K9 and, where the parameters train (every generator
+    application), K9-dW; its input gradient, for every conv but the first
+    and for the first where the input needs a gradient, is K1 on dY padded
+    by p to the side H + 2p (at pad p, output channels Cin) and then K10.
+    The PatchGAN's head is K1 (K = 1) forward and dX in every application,
+    K5 where the parameters train."""
+    gen = resnet_generator_launches(model_cfg["generator"], batch, size)
+    disc = patchgan_launches(model_cfg["discriminator"], batch, size)
+    out = {name: [] for name in RESNET_KERNELS}
+    for input_grad in [False] * 4 + [True] * 2:
+        for i, (b, h, cin, cout, k, bias) in enumerate(gen["conv_reflect"]):
+            p = k // 2
+            out["conv_reflect"].append((b, h, cin, cout, k, bias))
+            out["conv_reflect_dw"].append((b, h, cin, cout, k))
+            if i > 0 or input_grad:
+                out["conv_same"].append((b, h + 2 * p, cout, cin, k, False,
+                                         p))
+                out["reflect_fold"].append((b, h, cin, p))
+        out["instance_norm_act"] += gen["instance_norm_act"]
+        out["instance_norm_act_bwd"] += gen["instance_norm_act"]
+    for params_train in [True] * 4 + [False] * 2:
+        for b, h, cin, cout, k, bias in disc["conv_same"]:
+            out["conv_same"].append((b, h, cin, cout, k, bias, 0))
+            out["conv_same"].append((b, h, cout, cin, k, False, 0))
+            if params_train:
+                out["conv_dw"].append((b, h, cin, cout, k, 0))
+        out["instance_norm_act"] += disc["instance_norm_act"]
+        out["instance_norm_act_bwd"] += disc["instance_norm_act"]
+    return out
+
+
 def make_case(name, shape, dtype, seed):
     """Inputs of one launch, made on the card from a seed. Returns
     (kernel call, plain call, library call or None, bytes, operations,
     checks): both calls return a tuple of outputs, and checks names each
     output's tolerance key and scale."""
     from cyclegan_tpu_torch.ops import (cuda_concat, cuda_conv,
-                                        cuda_norm_act, cuda_resize)
+                                        cuda_norm_act, cuda_reflect,
+                                        cuda_resize)
 
     g = torch.Generator(device=DEVICE).manual_seed(seed)
 
@@ -278,48 +404,94 @@ def make_case(name, shape, dtype, seed):
                     xp, (cout, cin, k, k), gy_nchw),
                 (x.numel() + gy.numel()) * size + k * k * cin * cout * 4,
                 2 * B * H * H * k * k * cin * cout, [(name, scale)])
-    if name == "instance_norm_act":
-        B, H, c = shape
+    if name == "conv_reflect":
+        B, H, cin, cout, k, has_bias = shape
+        x = rnd(B, H, cin, H)
+        w = rnd(k, k, cin, cout, scale=0.05)
+        b = rnd(cout, scale=0.5) if has_bias else None
+        xp = F.pad(nchw(x), (k // 2,) * 4, mode="reflect")
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        nbytes = (x.numel() + w.numel() + (cout if has_bias else 0)
+                  + B * H * cout * H) * size
+        return (lambda: (cuda_reflect.conv_reflect_cuda(x, w, b),),
+                lambda: (cuda_reflect.conv_reflect_plain(x, w, b),),
+                lambda: F.conv2d(xp, w_oihw, b),
+                nbytes, 2 * B * H * H * k * k * cin * cout,
+                [(name, 1.0)])
+    if name == "conv_reflect_dw":
+        B, H, cin, cout, k = shape
+        x = rnd(B, H, cin, H)
+        gy = rnd(B, H, cout, H)
+        xp = F.pad(nchw(x), (k // 2,) * 4, mode="reflect")
+        gy_nchw = nchw(gy)
+        scale = cuda_reflect.conv_reflect_dw_plain(x.abs(), gy.abs(), k)
+        return (lambda: (cuda_reflect.conv_reflect_dw_cuda(x, gy, k),),
+                lambda: (cuda_reflect.conv_reflect_dw_plain(x, gy, k),),
+                lambda: torch.nn.grad.conv2d_weight(
+                    xp, (cout, cin, k, k), gy_nchw),
+                (x.numel() + gy.numel()) * size + k * k * cin * cout * 4,
+                2 * B * H * H * k * k * cin * cout, [(name, scale)])
+    if name == "reflect_fold":
+        B, H, c, p = shape
+        dxp = rnd(B, H + 2 * p, c, H + 2 * p)
+        out = B * H * c * H
+        x_like = torch.empty((B, c, H, H), dtype=dtype, device=DEVICE)
+        dxp_nchw = nchw(dxp)
+        # every element of dxp is added into one output once; the library's
+        # adjoint of reflect padding is the same function
+        return (lambda: (cuda_reflect.reflect_fold_cuda(dxp, p),),
+                lambda: (cuda_reflect.reflect_fold_plain(dxp, p),),
+                lambda: torch.ops.aten.reflection_pad2d_backward(
+                    dxp_nchw, x_like, [p] * 4),
+                (dxp.numel() + out) * size, dxp.numel() - out,
+                [(name, 1.0)])
+    if name in ("instance_norm_act", "instance_norm_act_bwd"):
+        B, H, c, act, affine = shape
         x = rnd(B, H, c, H, scale=1.5, offset=0.5)
-        gamma = rnd(c, scale=0.1, offset=1.0)
-        beta = rnd(c, scale=0.1)
+        gamma = rnd(c, scale=0.1, offset=1.0) if affine else None
+        beta = rnd(c, scale=0.1) if affine else None
         n = x.numel()
-        # Σx, Σx², then (x - mu)·a + b and the max: 7 per element
+        nparams = 2 * c if affine else 0
+
+        def library_act(y):
+            if act == "relu":
+                return F.relu(y)
+            if act == "leaky_relu":
+                return F.leaky_relu(y, 0.2)
+            return y
+
+    if name == "instance_norm_act":
+        # Σx, Σx², then (x - mu)·a + b and the activation: 7 per element
         return (lambda: cuda_norm_act.instance_norm_act_cuda(
-                    x, gamma, beta, 1e-3, "relu", with_stats=True),
+                    x, gamma, beta, 1e-3, act, with_stats=True),
                 lambda: cuda_norm_act.instance_norm_act_plain(
-                    x, gamma, beta, 1e-3, "relu", with_stats=True),
-                lambda: F.relu(F.instance_norm(nchw(x), weight=gamma,
-                                               bias=beta, eps=1e-3)),
-                (2 * n + 2 * c) * size + 2 * B * c * 4, 7 * n,
+                    x, gamma, beta, 1e-3, act, with_stats=True),
+                lambda: library_act(F.instance_norm(
+                    nchw(x), weight=gamma, bias=beta, eps=1e-3)),
+                (2 * n + nparams) * size + 2 * B * c * 4, 7 * n,
                 [(name, 1.0), (name + ".stats", 1.0),
                  (name + ".stats", 1.0)])
     if name == "instance_norm_act_bwd":
-        B, H, c = shape
-        x = rnd(B, H, c, H, scale=1.5, offset=0.5)
-        gamma = rnd(c, scale=0.1, offset=1.0)
-        beta = rnd(c, scale=0.1)
         gz = rnd(B, H, c, H)
         _, mu, rstd = cuda_norm_act.instance_norm_act_plain(
-            x, gamma, beta, 1e-3, "relu", with_stats=True)
-        leaves = [nchw(x).detach().clone().requires_grad_(True),
-                  gamma.detach().clone().requires_grad_(True),
-                  beta.detach().clone().requires_grad_(True)]
-        y = F.relu(F.instance_norm(leaves[0], weight=leaves[1],
-                                   bias=leaves[2], eps=1e-3))
+            x, gamma, beta, 1e-3, act, with_stats=True)
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (nchw(x), gamma, beta) if t is not None]
+        y = library_act(F.instance_norm(
+            leaves[0], weight=leaves[1] if affine else None,
+            bias=leaves[2] if affine else None, eps=1e-3))
         gz_nchw = nchw(gz)
-        n = x.numel()
         want = cuda_norm_act.instance_norm_act_bwd_plain(
-            x, gz, gamma, beta, mu, rstd, "relu")
+            x, gz, gamma, beta, mu, rstd, act)
         scales = [float(t.float().abs().max()) for t in want]
         # xhat, v, dv, the two sums and dx: 12 per element
         return (lambda: cuda_norm_act.instance_norm_act_bwd_cuda(
-                    x, gz, gamma, beta, mu, rstd, "relu"),
+                    x, gz, gamma, beta, mu, rstd, act),
                 lambda: cuda_norm_act.instance_norm_act_bwd_plain(
-                    x, gz, gamma, beta, mu, rstd, "relu"),
+                    x, gz, gamma, beta, mu, rstd, act),
                 lambda: torch.autograd.grad(y, leaves, gz_nchw,
                                             retain_graph=True),
-                (3 * n + 2 * c) * size + 4 * B * c * 4, 12 * n,
+                (3 * n + nparams) * size + 4 * B * c * 4, 12 * n,
                 [(name, scales[0]), (name + ".sums", scales[1]),
                  (name + ".sums", scales[2])])
     if name == "sum2x2":
@@ -365,6 +537,21 @@ def make_case(name, shape, dtype, seed):
     raise KeyError(name)
 
 
+@contextlib.contextmanager
+def no_tf32():
+    """TF32 off for the plain versions' and the library's f32 calls in
+    phases 2 and 3; PyTorch's defaults again after, for the main paths."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
 def time_ms(fn, reps=TIMED_REPS, warmup=3):
     """Median device time of one call, CUDA events around each call.
 
@@ -396,8 +583,6 @@ def unique_shapes(plan):
 def check_kernels(shapes):
     """Phase 2: kernel vs plain at every unique launch shape, bf16 and
     f32. Returns the largest absolute error per (kernel, dtype)."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     max_err = {}
     for dtype in (torch.bfloat16, torch.float32):
         for name, counter in shapes.items():
@@ -432,18 +617,22 @@ def check_kernels(shapes):
     return max_err
 
 
-def time_kernels(shapes, dtype=torch.bfloat16):
-    """Phase 3: per unique launch shape, kernel / plain / library / bound
-    ms, with the shape's launches per train step."""
+def time_kernels(paths, dtype=torch.bfloat16):
+    """Phase 3: per unique launch shape of the train steps ``paths``
+    ({path: {kernel: Counter(shape -> launches per step)}}), kernel /
+    plain / library / bound ms, with the shape's launches per step of each
+    path."""
     rows = []
-    for name, counter in shapes.items():
-        for i, shape in enumerate(sorted(counter)):
+    for name, shapes in union_shapes(paths).items():
+        for i, shape in enumerate(shapes):
             kernel, plain, library, nbytes, ops, _ = make_case(
                 name, shape, dtype, 1000 + i)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / PEAK_OPS[dtype] * 1e3
+            per_step = {path: plan.get(name, {}).get(shape, 0)
+                        for path, plan in paths.items()}
             row = {"kernel": name, "shape": list(shape),
-                   "per_step": counter[shape],
+                   "per_step": per_step,
                    "ms": time_ms(kernel), "plain_ms": time_ms(plain),
                    "library_ms": None if library is None
                    else time_ms(library),
@@ -453,11 +642,20 @@ def time_kernels(shapes, dtype=torch.bfloat16):
             rows.append(row)
             lib = ("-" if row["library_ms"] is None
                    else f"{row['library_ms']:.4f}")
-            print(f"time {name:22s} {str(shape):32s} x{counter[shape]:<3d} "
+            print(f"time {name:22s} {str(shape):36s} {per_step} "
                   f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f}"
                   f"  library {lib}  bound {row['bound_ms']:.4f}",
                   flush=True)
     return rows
+
+
+def union_shapes(paths):
+    """{kernel: sorted unique shapes over every path's plan}."""
+    out = {}
+    for plan in paths.values():
+        for name, counter in plan.items():
+            out.setdefault(name, set()).update(counter)
+    return {name: sorted(shapes) for name, shapes in out.items()}
 
 
 def device_trace(run, out_dir, n, file_name):
@@ -503,14 +701,16 @@ def device_trace(run, out_dir, n, file_name):
     return result
 
 
-def serve(cfg, out_dir):
-    """Phase 4: serving. Returns launches and metrics."""
+def serve(label, model_dir, forward_plan, out_dir):
+    """Phases 4 and 7: serving the generators of ``model_dir``, each
+    forward launching the kernels of ``forward_plan`` ({kernel: shapes}).
+    Returns the main path's launches, the number of forwards and
+    metrics."""
     from cyclegan_tpu_torch import kernels
     from cyclegan_tpu_torch.apps.inference import InferenceSession
 
-    per_forward = {name: len(v) for name, v in
-                   generator_launches(cfg, 1, SIZE).items()}
-    session = InferenceSession(MODEL_DIR, "bfloat16", device=DEVICE)
+    per_forward = {name: len(v) for name, v in forward_plan.items()}
+    session = InferenceSession(model_dir, "bfloat16", device=DEVICE)
     rng = np.random.default_rng(0)
     images = {b: rng.integers(0, 256, (b, SIZE, SIZE, 3), dtype=np.uint8)
               for b in (BATCH, 1)}
@@ -524,21 +724,21 @@ def serve(cfg, out_dir):
         added = {k: kernels.launches[k] - before[k] for k in before
                  if kernels.launches[k] != before[k] or k in per_forward}
         if added != per_forward:
-            fail(f"serve {b} {direction}: launches {added}, expected "
+            fail(f"{label} {b} {direction}: launches {added}, expected "
                  f"{per_forward}")
     main_launches = dict(kernels.launches)
-    print(f"serve main path launches {main_launches} over {len(requests)} "
-          f"forwards ({per_forward} each)", flush=True)
+    print(f"{label} main path launches {main_launches} over "
+          f"{len(requests)} forwards ({per_forward} each)", flush=True)
 
-    cpu32 = InferenceSession(MODEL_DIR, "float32", device="cpu")
-    cpu16 = InferenceSession(MODEL_DIR, "bfloat16", device="cpu")
-    card32 = InferenceSession(MODEL_DIR, "float32", device=DEVICE)
+    cpu32 = InferenceSession(model_dir, "float32", device="cpu")
+    cpu16 = InferenceSession(model_dir, "bfloat16", device="cpu")
+    card32 = InferenceSession(model_dir, "float32", device=DEVICE)
     quality = []
     for b, direction in requests:
         out = outputs[(b, direction)]
         ref = cpu32.stylize(images[b], direction).astype(int)
         if out.shape != images[b].shape or out.dtype != np.uint8:
-            fail(f"serve {b} {direction}: output {out.shape} {out.dtype}")
+            fail(f"{label} {b} {direction}: output {out.shape} {out.dtype}")
         d = np.abs(out.astype(int) - ref)
         d_plain = np.abs(cpu16.stylize(images[b], direction).astype(int)
                          - ref)
@@ -551,20 +751,25 @@ def serve(cfg, out_dir):
              "bf16_cpu_vs_f32_cpu_mean": float(d_plain.mean()),
              "f32_card_vs_f32_cpu_max": int(d32.max())}
         quality.append(q)
-        print(f"serve quality {json.dumps(q)}", flush=True)
-        if q["bf16_card_vs_f32_cpu_mean"] > SERVE_MEAN_MAX:
-            fail(f"serve {b} {direction}: mean uint8 diff "
-                 f"{q['bf16_card_vs_f32_cpu_mean']} > {SERVE_MEAN_MAX}")
-        if q["bf16_card_share_beyond_8"] > SERVE_FAR_SHARE:
-            fail(f"serve {b} {direction}: share of pixels > {SERVE_FAR} off "
-                 f"{q['bf16_card_share_beyond_8']} > {SERVE_FAR_SHARE}")
+        print(f"{label} quality {json.dumps(q)}", flush=True)
+        q["bf16_cpu_share_beyond_8"] = float((d_plain > SERVE_FAR).mean())
+        mean_max = max(SERVE_MEAN_MAX,
+                       RATIO * q["bf16_cpu_vs_f32_cpu_mean"])
+        share_max = max(SERVE_FAR_SHARE,
+                        RATIO * q["bf16_cpu_share_beyond_8"])
+        if q["bf16_card_vs_f32_cpu_mean"] > mean_max:
+            fail(f"{label} {b} {direction}: mean uint8 diff "
+                 f"{q['bf16_card_vs_f32_cpu_mean']} > {mean_max}")
+        if q["bf16_card_share_beyond_8"] > share_max:
+            fail(f"{label} {b} {direction}: share of pixels > {SERVE_FAR} off "
+                 f"{q['bf16_card_share_beyond_8']} > {share_max}")
         if q["bf16_card_vs_f32_cpu_max"] > max(
-                SERVE_FAR, 1.5 * q["bf16_cpu_vs_f32_cpu_max"]):
-            fail(f"serve {b} {direction}: max uint8 diff "
+                SERVE_FAR, RATIO * q["bf16_cpu_vs_f32_cpu_max"]):
+            fail(f"{label} {b} {direction}: max uint8 diff "
                  f"{q['bf16_card_vs_f32_cpu_max']} beyond 1.5x the plain "
                  f"bf16 session's {q['bf16_cpu_vs_f32_cpu_max']}")
         if q["f32_card_vs_f32_cpu_max"] > SERVE_F32_MAX:
-            fail(f"serve {b} {direction}: f32 card vs cpu max "
+            fail(f"{label} {b} {direction}: f32 card vs cpu max "
                  f"{q['f32_card_vs_f32_cpu_max']} > {SERVE_F32_MAX}")
 
     # throughput at batch 8: whole requests on the host clock (uint8 in,
@@ -599,7 +804,7 @@ def serve(cfg, out_dir):
     torch.cuda.synchronize()
     with torch.inference_mode():
         trace = device_trace(lambda: model(x), out_dir, 5,
-                             "forward_trace.json")
+                             f"{label}_forward_trace.json")
     metrics = {
         "batch": BATCH, "size": SIZE, "compute_dtype": "bfloat16",
         "request_ms_median": statistics.median(walls) * 1e3,
@@ -611,25 +816,28 @@ def serve(cfg, out_dir):
         "trace": trace,
         "quality": quality,
     }
-    print(f"serve batch {BATCH}: {metrics['img_per_s']:.1f} img/s per "
+    print(f"{label} batch {BATCH}: {metrics['img_per_s']:.1f} img/s per "
           f"request (median {metrics['request_ms_median']:.2f} ms), "
           f"generator forward {fwd_ms:.3f} ms = "
           f"{metrics['forward_img_per_s']:.1f} img/s", flush=True)
     return main_launches, len(requests), metrics
 
 
-def _train_state(model_cfg, device):
-    """converged256's four networks (f32 masters) with fresh Adam."""
+def _train_state(model_cfg, device, model_dir=None, seed=0):
+    """The four networks (f32 masters) with fresh Adam: from the
+    checkpoint in ``model_dir``, or random weights from ``seed`` without
+    one."""
     from cyclegan_tpu_torch.config import yaml2namespace
     from cyclegan_tpu_torch.steps import build_models, init_train_state
     from cyclegan_tpu_torch.utils.checkpoint import load_pytree
     from cyclegan_tpu_torch.weights import (load_jax_params,
                                             models_to_jax_params)
 
-    models = build_models(model_cfg)
-    restored = load_pytree(MODEL_DIR / "checkpoint.npz",
-                           {"params": models_to_jax_params(models)})
-    load_jax_params(models, restored["params"])
+    models = build_models(model_cfg, seed=seed)
+    if model_dir is not None:
+        restored = load_pytree(model_dir / "checkpoint.npz",
+                               {"params": models_to_jax_params(models)})
+        load_jax_params(models, restored["params"])
     return init_train_state(models, yaml2namespace(TRAIN_CONFIG), 0, device)
 
 
@@ -644,8 +852,63 @@ def _rel(a, b):
     return float((a - b).norm() / b.norm())
 
 
-def train(model_cfg, out_dir):
-    """Phase 5: training. Returns launches and metrics."""
+def step_grads(model_cfg, device, dtype, x, model_dir=None, seed=0):
+    """The gradients one train step (no jitter) leaves on inputs ``x``."""
+    from cyclegan_tpu_torch.steps import make_train_step
+
+    s = _train_state(model_cfg, device, model_dir, seed)
+    make_train_step(model_cfg["loss"], model_cfg["loss_weights"], dtype)(
+        s, *(t.to(device) for t in x))
+    return _flat_grads(s)
+
+
+def f32_point_inputs(point):
+    """The (real_a, real_b) batches of an f32 comparison point, normalized
+    uint8 noise from its seed."""
+    from cyclegan_tpu_torch.data.augment import normalize
+
+    rng = np.random.default_rng(point["seed"])
+    shape = (point["batch"], point["size"], point["size"], 3)
+    return [normalize(torch.from_numpy(rng.integers(0, 256, shape,
+                                                    dtype=np.uint8)))
+            for _ in range(2)]
+
+
+def nearest_kink(run):
+    """``run()``'s result on the CPU, and the smallest |input| of any ReLU
+    or LeakyReLU it met: the output of a non-affine norm before its
+    activation."""
+    from cyclegan_tpu_torch.ops import cuda_norm_act
+
+    plain = cuda_norm_act.instance_norm_act_plain
+    nearest = [math.inf]
+
+    def recording(x, gamma, beta, eps=1e-3, act="relu", alpha=0.2,
+                  with_stats=False):
+        assert gamma is None and beta is None, "affine norms not recorded"
+        out, mu, rstd = plain(x, gamma, beta, eps, act, alpha,
+                              with_stats=True)
+        if act != "none":
+            v = (x.float() - mu[:, None, :, None]) * rstd[:, None, :, None]
+            nearest[0] = min(nearest[0], float(v.abs().min()))
+        return (out, mu, rstd) if with_stats else out
+
+    cuda_norm_act.instance_norm_act_plain = recording
+    try:
+        result = run()
+    finally:
+        cuda_norm_act.instance_norm_act_plain = plain
+    return result, nearest[0]
+
+
+def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None):
+    """Phases 5 and 6: training ``model_cfg`` from ``model_dir``'s weights
+    (seeded random weights if None) against the launch ``plan`` ({kernel:
+    shapes}) of one step. The f32 gradients are compared on the step's
+    first GRAD_BATCH images, or at ``f32_point`` where given (inputs, and
+    weights where there is no ``model_dir``, from its seed; asserted
+    kink-free). Returns the main path's
+    launches, metrics and the trained state."""
     from cyclegan_tpu_torch import kernels
     from cyclegan_tpu_torch.data.augment import (normalize,
                                                  random_jitter_batch)
@@ -655,13 +918,12 @@ def train(model_cfg, out_dir):
         return (random_jitter_batch(generator, a, SIZE),
                 random_jitter_batch(generator, b, SIZE))
 
-    plan = {k: len(v) for k, v in train_launches(model_cfg, BATCH,
-                                                 SIZE).items()}
+    plan = {k: len(v) for k, v in plan.items()}
     noise = torch.Generator(device=DEVICE).manual_seed(0)
     batch = [torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=noise,
                            dtype=torch.uint8, device=DEVICE)
              for _ in range(2)]
-    state = _train_state(model_cfg, DEVICE)
+    state = _train_state(model_cfg, DEVICE, model_dir)
     start = {name: [p.detach().clone() for p in m.parameters()]
              for name, m in state.models.items()}
     step16 = make_train_step(model_cfg["loss"], model_cfg["loss_weights"],
@@ -671,40 +933,56 @@ def train(model_cfg, out_dir):
     kernels.reset_launches()
     metrics = step16(state, *batch)
     torch.cuda.synchronize()
-    main_launches = dict(kernels.launches)
-    print(f"train main path launches {main_launches} in one step (plan "
+    main_launches = {k: v for k, v in kernels.launches.items()
+                     if v or k in plan}
+    print(f"{label} main path launches {main_launches} in one step (plan "
           f"{plan})", flush=True)
     if main_launches != plan:
-        fail(f"train step launches {main_launches}, plan {plan}")
+        fail(f"{label} step launches {main_launches}, plan {plan}")
 
     # 5.2-5.3: gradients of one batch-2 step (no jitter) against the plain
-    # f32 step on the CPU
+    # f32 step on the CPU; the f32 comparison with PyTorch's default TF32
+    # setting, which the port must override where it matters
     x = [normalize(t[:GRAD_BATCH]) for t in batch]
-    grads = {}
-    for device, dtype in (("cpu", "float32"), (DEVICE, "float32"),
-                          (DEVICE, "bfloat16"), ("cpu", "bfloat16")):
-        s = _train_state(model_cfg, device)
-        make_train_step(model_cfg["loss"], model_cfg["loss_weights"],
-                        dtype)(s, *(t.to(device) for t in x))
-        grads[(device, dtype)] = _flat_grads(s)
+    grads = {(device, dtype): step_grads(model_cfg, device, dtype, x,
+                                         model_dir)
+             for device, dtype in (("cpu", "float32"), (DEVICE, "bfloat16"),
+                                   ("cpu", "bfloat16"))}
+    f32_at = {"batch": GRAD_BATCH, "size": SIZE, "seed": None}
+    f32_x, f32_seed, f32_ref = x, 0, grads[("cpu", "float32")]
+    if f32_point is not None:
+        f32_at = dict(f32_point)
+        f32_x, f32_seed = f32_point_inputs(f32_point), f32_point["seed"]
+        f32_ref, kink = nearest_kink(lambda: step_grads(
+            model_cfg, "cpu", "float32", f32_x, model_dir, f32_seed))
+        f32_at["nearest_kink"] = kink
+        print(f"{label} f32 point {json.dumps(f32_at)}", flush=True)
+        if not kink > KINK_MARGIN:
+            fail(f"{label}: a ReLU input {kink} from its kink at the f32 "
+                 f"point, not beyond {KINK_MARGIN}")
+    if not torch.backends.cudnn.allow_tf32:
+        fail(f"{label}: the f32 step should meet PyTorch's default "
+             f"cudnn.allow_tf32 = True")
+    grads[(DEVICE, "float32")] = step_grads(model_cfg, DEVICE, "float32",
+                                            f32_x, model_dir, f32_seed)
     ref = grads[("cpu", "float32")]
-    grad_errors = {}
+    grad_errors = {"f32_point": f32_at}
     for name in ref:
         e = {"f32_card_vs_f32_cpu": _rel(grads[(DEVICE, "float32")][name],
-                                         ref[name]),
+                                         f32_ref[name]),
              "bf16_card_vs_f32_cpu": _rel(grads[(DEVICE, "bfloat16")][name],
                                           ref[name]),
              "bf16_cpu_vs_f32_cpu": _rel(grads[("cpu", "bfloat16")][name],
                                          ref[name])}
         grad_errors[name] = e
-        print(f"train gradients {name}: {json.dumps(e)}", flush=True)
+        print(f"{label} gradients {name}: {json.dumps(e)}", flush=True)
         if not e["f32_card_vs_f32_cpu"] <= TRAIN_F32_REL:
-            fail(f"train {name}: f32 gradient error "
+            fail(f"{label} {name}: f32 gradient error "
                  f"{e['f32_card_vs_f32_cpu']} > {TRAIN_F32_REL}")
-        if not e["bf16_card_vs_f32_cpu"] <= (TRAIN_BF16_RATIO
+        if not e["bf16_card_vs_f32_cpu"] <= (RATIO
                                              * e["bf16_cpu_vs_f32_cpu"]):
-            fail(f"train {name}: bf16 gradient error "
-                 f"{e['bf16_card_vs_f32_cpu']} beyond {TRAIN_BF16_RATIO}x "
+            fail(f"{label} {name}: bf16 gradient error "
+                 f"{e['bf16_card_vs_f32_cpu']} beyond {RATIO}x "
                  f"the plain bf16 step's {e['bf16_cpu_vs_f32_cpu']}")
 
     # 5.4: five bf16 steps: finite losses, every network moves
@@ -712,15 +990,15 @@ def train(model_cfg, out_dir):
     for _ in range(4):
         losses.append(step16(state, *batch))
     losses = [{k: float(v) for k, v in m.items()} for m in losses]
-    print(f"train losses {json.dumps(losses)}", flush=True)
+    print(f"{label} losses {json.dumps(losses)}", flush=True)
     if not all(np.isfinite(v) for m in losses for v in m.values()):
-        fail("train: non-finite loss")
+        fail(f"{label}: non-finite loss")
     moved = {name: max(float((p.detach() - p0).abs().max())
                        for p, p0 in zip(m.parameters(), start[name]))
              for name, m in state.models.items()}
-    print(f"train largest parameter change after 5 steps {moved}")
+    print(f"{label} largest parameter change after 5 steps {moved}")
     if not all(v > 0 for v in moved.values()):
-        fail(f"train: a network did not move {moved}")
+        fail(f"{label}: a network did not move {moved}")
 
     # 5.5: throughput as cyclegan_tpu_torch.bench measures it
     for _ in range(2):
@@ -743,18 +1021,72 @@ def train(model_cfg, out_dir):
         issue.append(time.perf_counter() - t1)
     torch.cuda.synchronize()
     trace = device_trace(lambda: step16(state, *batch), out_dir, 3,
-                         "train_trace.json")
+                         f"{label}_trace.json")
     result = {"batch": BATCH, "size": SIZE, "compute_dtype": "bfloat16",
               "step_ms": step_s * 1e3, "img_per_s": BATCH / step_s,
               "peak_mib": peak_mib,
               "host_issue_ms_median": statistics.median(issue) * 1e3,
               "gradient_errors": grad_errors, "losses": losses,
               "trace": trace}
-    print(f"train batch {BATCH}: {result['img_per_s']:.2f} img/s "
+    print(f"{label} batch {BATCH}: {result['img_per_s']:.2f} img/s "
           f"({result['step_ms']:.1f} ms per step), peak "
           f"{peak_mib:.0f} MiB, host issue "
           f"{result['host_issue_ms_median']:.1f} ms", flush=True)
-    return main_launches, result
+    return main_launches, result, state
+
+
+def kernel_entries(rows, max_err, launches, forwards, serve_plans):
+    """The ``kernels`` JSON line: per kernel, its launches in every main
+    path's run (``launches`` their sum), and its times summed over the
+    launches of one train step of each recipe (``paths`` splits them by
+    train step and by serving forward)."""
+    from cyclegan_tpu_torch import kernels
+
+    train_paths = ("unet_train", "resnet_train")
+    entries = []
+    for name in kernels.KERNELS:
+        mine = [r for r in rows if r["kernel"] == name]
+        by_shape = {tuple(r["shape"]): r for r in mine}
+        paths = {}
+        for path in train_paths:
+            used = [(r, r["per_step"][path]) for r in mine
+                    if r["per_step"][path]]
+            paths[path] = _sums(used, launches[path].get(name, 0))
+        for path, plan in serve_plans.items():
+            used = [(by_shape[shape], n) for shape, n in
+                    collections.Counter(plan.get(name, [])).items()]
+            paths[path] = _sums(used, launches[path].get(name, 0))
+            paths[path]["forwards"] = forwards[path]
+        total = _sums([(r, sum(r["per_step"][p] for p in train_paths))
+                       for r in mine], 0)
+        source, replaces, also = SOURCES[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "also_replaces": also,
+            "launches": sum(launches[p].get(name, 0) for p in launches),
+            "max_abs_err": max_err[(name, torch.bfloat16)],
+            "max_abs_err_f32": max_err[(name, torch.float32)],
+            "ms": total["ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"], "bound_by": total["bound_by"],
+            "library_ms": total["library_ms"],
+            "timing": "bf16, the median per launch shape summed over the "
+                      "launches of one batch-8 256x256 train step of each "
+                      "recipe (unet_train + resnet_train)",
+            "paths": paths,
+        })
+    return entries
+
+
+def _sums(used, launches):
+    """ms, plain, bound and library ms over (row, launches) pairs."""
+    out = {"launches": launches}
+    for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms"):
+        out[key] = sum(r[key] * n for r, n in used)
+    out["library_ms"] = (None if any(r["library_ms"] is None for r, _ in used)
+                         else sum(r["library_ms"] * n for r, n in used))
+    out["bound_by"] = ("operations" if out.pop("ops_ms") > out.pop("bytes_ms")
+                       else "bytes")
+    return out
 
 
 def main(argv=None) -> int:
@@ -767,9 +1099,9 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     warnings.filterwarnings("ignore", message=".*padding='same'.*")
-    from cyclegan_tpu_torch import kernels
     from cyclegan_tpu_torch.config import yaml2namespace
     from cyclegan_tpu_torch.kernels import _build
+    from cyclegan_tpu_torch.utils.checkpoint import save_model_folder
 
     card = smi_line()
     print(card, flush=True)
@@ -781,67 +1113,56 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {log.stem}: {line.strip()}")
 
-    model_cfg = yaml2namespace(MODEL_DIR / "model_config.yaml")
-    serve_plan = generator_launches(model_cfg.generator, BATCH, SIZE)
-    if {k: len(v) for k, v in serve_plan.items()} != {
+    unet_cfg = yaml2namespace(MODEL_DIR / "model_config.yaml")
+    resnet_cfg = yaml2namespace(RESNET_CONFIG)
+    unet_serve = generator_launches(unet_cfg.generator, BATCH, SIZE)
+    unet_serve["conv_same"] = [s + (tf_pad(s[4]),)
+                               for s in unet_serve["conv_same"]]
+    resnet_serve = resnet_generator_launches(resnet_cfg.generator, BATCH,
+                                             SIZE)
+    if {k: len(v) for k, v in unet_serve.items()} != {
             "conv_same": 15, "instance_norm_act": 14, "sum2x2": 3,
             "concat_up2": 3}:
-        fail(f"generator launch plan {serve_plan}")
-    shapes = unique_shapes(train_launches(model_cfg, BATCH, SIZE))
-    max_err = check_kernels(shapes)
-    rows = time_kernels(shapes)
+        fail(f"generator launch plan {unet_serve}")
+    plans = {"unet_train": train_launches(unet_cfg, BATCH, SIZE),
+             "resnet_train": resnet_train_launches(resnet_cfg, BATCH, SIZE)}
+    paths = {path: unique_shapes(plan) for path, plan in plans.items()}
+    with no_tf32():
+        max_err = check_kernels(union_shapes(paths))
+        rows = time_kernels(paths)
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
-    serve_launches, n_forwards, serving = serve(model_cfg.generator, out_dir)
-    train_launches_run, training = train(model_cfg, out_dir)
 
-    serve_shapes = {name: collections.Counter(
-        s + ((tf_pad(s[4]),) if name == "conv_same" else ()) for s in v)
-        for name, v in serve_plan.items()}
-    entries = []
-    for name in kernels.KERNELS:
-        mine = [r for r in rows if r["kernel"] == name]
-        per_step = lambda key: sum(r[key] * r["per_step"]  # noqa: E731
-                                   for r in mine)
-        source, replaces, also = SOURCES[name]
-        library = (None if any(r["library_ms"] is None for r in mine)
-                   else per_step("library_ms"))
-        entry = {
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "also_replaces": also,
-            "launches": train_launches_run[name],
-            "max_abs_err": max_err[(name, torch.bfloat16)],
-            "max_abs_err_f32": max_err[(name, torch.float32)],
-            "ms": per_step("ms"),
-            "plain_ms": per_step("plain_ms"),
-            "bound_ms": per_step("bound_ms"),
-            "bound_by": ("operations" if per_step("ops_ms")
-                         > per_step("bytes_ms") else "bytes"),
-            "library_ms": library,
-            "timing": "bf16, sum over one batch-8 256x256 train step's "
-                      "launches of the median per launch shape",
-        }
-        if name in serve_shapes:
-            rows_by_shape = {tuple(r["shape"]): r for r in mine}
-            served = [(rows_by_shape[s], n)
-                      for s, n in serve_shapes[name].items()]
-            entry["serve"] = {
-                "launches": serve_launches[name], "forwards": n_forwards,
-                "launches_per_forward": sum(n for _, n in served),
-                **{key: sum(r[key] * n for r, n in served)
-                   for key in ("ms", "plain_ms", "bound_ms",
-                               "library_ms")}}
-        entries.append(entry)
-        if train_launches_run[name] == 0:
-            fail(f"{name}: no launch on the train step")
+    launches, forwards, metrics = {}, {}, {}
+    launches["unet_serve"], forwards["unet_serve"], metrics["unet_serve"] = \
+        serve("unet_serve", MODEL_DIR, unet_serve, out_dir)
+    launches["unet_train"], metrics["unet_train"], _ = train(
+        "unet_train", unet_cfg, plans["unet_train"], MODEL_DIR, out_dir)
+    launches["resnet_train"], metrics["resnet_train"], state = train(
+        "resnet_train", resnet_cfg, plans["resnet_train"], None, out_dir,
+        RESNET_F32_POINT)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_model_folder(Path(tmp), RESNET_CONFIG, state.models)
+        del state
+        (launches["resnet_serve"], forwards["resnet_serve"],
+         metrics["resnet_serve"]) = serve("resnet_serve", Path(tmp),
+                                          resnet_serve, out_dir)
+
+    entries = kernel_entries(rows, max_err, launches, forwards,
+                             {"unet_serve": unet_serve,
+                              "resnet_serve": resnet_serve})
+    for path, plan in {**plans, "unet_serve": unet_serve,
+                       "resnet_serve": resnet_serve}.items():
+        for name in plan:
+            if not launches[path].get(name):
+                fail(f"{name}: no launch on {path}")
     if out_dir is not None:
         (out_dir / "chip_smoke_detail.json").write_text(json.dumps(
             {"card": card, "kernels": entries, "launch_rows": rows,
-             "serving": serving, "training": training}, indent=1))
-    print(json.dumps({"serving": {k: v for k, v in serving.items()
-                                  if k != "quality"}}))
-    print(json.dumps({"training": {k: v for k, v in training.items()
-                                   if k != "losses"}}))
+             **metrics}, indent=1))
+    for path, m in metrics.items():
+        print(json.dumps({path: {k: v for k, v in m.items()
+                                 if k not in ("quality", "losses")}}))
     print(json.dumps({"kernels": entries}))
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed",

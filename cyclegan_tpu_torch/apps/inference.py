@@ -23,7 +23,7 @@ from cyclegan_tpu_torch.data.augment import denormalize_to_uint8, normalize
 from cyclegan_tpu_torch.models import create_model
 from cyclegan_tpu_torch.ops import layout
 from cyclegan_tpu_torch.utils.checkpoint import load_pytree
-from cyclegan_tpu_torch.weights import jax_params_to_torch, torch_params_to_jax
+from cyclegan_tpu_torch.weights import jax_params_to_torch, module_to_jax_params
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _GENERATORS = {"a2b": "g_AB", "b2a": "g_BA"}
@@ -63,7 +63,7 @@ class InferenceSession:
         self.models = {name: create_model(self.model_config.generator,
                                           torch.Generator().manual_seed(0))
                        for name in _GENERATORS.values()}
-        template = {"params": {name: torch_params_to_jax(m.state_dict())
+        template = {"params": {name: module_to_jax_params(m)
                                for name, m in self.models.items()}}
         restored = load_pytree(model_dir / "checkpoint.npz", template)
         for name, model in self.models.items():

@@ -1,27 +1,34 @@
-// K1 conv_same: stride-1 TF-'SAME' KxK convolution on NHCW activations.
+// K1 conv_same: stride-1 TF-'SAME' KxK convolution on NHCW activations, and
+// K9 conv_reflect: the same convolution of the reflect-padded input.
 //
-// Replaces cyclegan_tpu/ops/pallas_conv.py `_conv_fwd_call` (the factored
+// K1 replaces cyclegan_tpu/ops/pallas_conv.py `_conv_fwd_call` (the factored
 // im2col KxK forward) and `_conv1x1_call` (the 1x1 head): K = 1 is the same
-// function with no padding.
+// function with no padding. K9 replaces the forward of `conv2d_reflect_nhcw`
+// (a reflect pad, then `_conv_fwd_call` on the pre-padded input).
 //
 // x   [B, H, C, W]     activations, W innermost (the JAX kernels' NHCW)
 // w   [K, K, C, Cout]  HWIO weights, as stored in the checkpoint
 // b   [Cout] or null   bias, added to the f32 sum before the store
 // out [B, H, Cout, W]
-// pad rows and columns of zeros before the image, the rest after: the forward
-// of TF SAME pads (K-1)/2 before, (1, 2) for K = 4; the input gradient of that
-// conv (this kernel on dY with flipped, ci<->co-swapped weights, as
-// pallas_conv.py `_conv_bwd_rule`) pads K-1-(K-1)/2 before, 2 for K = 4.
+// pad rows and columns before the image, the rest after. K1 pads with zeros:
+// the forward of TF SAME pads (K-1)/2 before, (1, 2) for K = 4; the input
+// gradient of that conv (this kernel on dY with flipped, ci<->co-swapped
+// weights, as pallas_conv.py `_conv_bwd_rule`) pads K-1-(K-1)/2 before, 2 for
+// K = 4. K9 takes odd K only and pads K/2 on each side by REFLECT (the edge
+// is not repeated: row -1 is row 1, row H is row H-2), as the reference's
+// ReflectionPadding2D; it needs K/2 < H and K/2 < W.
 //
 // Bound on the H100: operations. The generator's convs do 16-100 multiply-adds
 // per byte moved, far above the ~1 the memory needs at CUDA-core rates. This
 // first version is a direct convolution on the CUDA cores in f32 (no tensor
 // cores yet): a block stages a (TILE_H + K - 1) x CI_CHUNK x (TILE_W + K - 1)
 // input window and the K*K*CI_CHUNK*CO_TILE weights it needs into shared
-// memory (zeros outside the image, so the padding costs no branch in the
-// inner loop), and each thread keeps CO_TILE output channels of one pixel in
-// registers. Every staged input value is reused K*K*CO_TILE times; the weight
-// reads are warp-wide broadcasts. A tensor-core implicit GEMM is later work.
+// memory (zeros outside the image for K1; for K9 the window is read through
+// the reflected index map, so no padded copy is written to device memory and
+// the padding costs no branch in the inner loop), and each thread keeps
+// CO_TILE output channels of one pixel in registers. Every staged input value
+// is reused K*K*CO_TILE times; the weight reads are warp-wide broadcasts. A
+// tensor-core implicit GEMM is later work.
 #include "common.cuh"
 
 namespace {
@@ -37,12 +44,18 @@ size_t smem_bytes(int K) {
   return (xs + ws) * sizeof(float);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(TILE_W * TILE_H)
-conv_same_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 const T* __restrict__ bias, T* __restrict__ out, int B,
-                 int H, int C, int W, int Cout, int K, int pad) {
-  extern __shared__ __align__(16) float smem[];
+// Source index of padded position i in an axis of n by REFLECT: -j -> j and
+// n-1+j -> n-1-j. Positions past the reflected range stay out of [0, n) and
+// read as zero; only outputs past the image edge, never stored, use them.
+__device__ __forceinline__ int reflect_index(int i, int n) {
+  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
+}
+
+template <typename T, bool REFLECT>
+__device__ __forceinline__ void conv_tile(
+    float* smem, const T* __restrict__ x, const T* __restrict__ w,
+    const T* __restrict__ bias, T* __restrict__ out, int B, int H, int C,
+    int W, int Cout, int K, int pad) {
   const int SW = TILE_W + K - 1;
   const int SH = TILE_H + K - 1;
   float* xs = smem;                         // [SH][CI_CHUNK][SW]
@@ -70,8 +83,12 @@ conv_same_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int rest = i / SW;
       const int ci = rest % CI_CHUNK;
       const int row = rest / CI_CHUNK;
-      const int hh = h0 + row - pad;
-      const int ww = w0 + col - pad;
+      int hh = h0 + row - pad;
+      int ww = w0 + col - pad;
+      if (REFLECT) {
+        hh = reflect_index(hh, H);
+        ww = reflect_index(ww, W);
+      }
       const int cc = c0 + ci;
       float v = 0.f;
       if (hh >= 0 && hh < H && ww >= 0 && ww < W && cc < C)
@@ -128,21 +145,41 @@ conv_same_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(TILE_W * TILE_H)
+conv_same_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                 const T* __restrict__ bias, T* __restrict__ out, int B,
+                 int H, int C, int W, int Cout, int K, int pad) {
+  extern __shared__ __align__(16) float smem[];
+  conv_tile<T, false>(smem, x, w, bias, out, B, H, C, W, Cout, K, pad);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(TILE_W * TILE_H)
+conv_reflect_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    const T* __restrict__ bias, T* __restrict__ out, int B,
+                    int H, int C, int W, int Cout, int K, int pad) {
+  extern __shared__ __align__(16) float smem[];
+  conv_tile<T, true>(smem, x, w, bias, out, B, H, C, W, Cout, K, pad);
+}
+
+template <typename T, bool REFLECT>
 int launch(const void* x, const void* w, const void* bias, void* out, int B,
            int H, int C, int W, int Cout, int K, int pad, void* stream) {
   if (pad < 0 || pad > K - 1) return (int)cudaErrorInvalidValue;
+  if (REFLECT && (K % 2 != 1 || pad != K / 2 || pad >= H || pad >= W))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = REFLECT ? conv_reflect_kernel<T> : conv_same_kernel<T>;
   const size_t smem = smem_bytes(K);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        conv_same_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int n_co_tiles = (Cout + CO_TILE - 1) / CO_TILE;
   dim3 grid((W + TILE_W - 1) / TILE_W, (H + TILE_H - 1) / TILE_H,
             B * n_co_tiles);
   dim3 block(TILE_W, TILE_H);
-  conv_same_kernel<T><<<grid, block, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       (const T*)x, (const T*)w, (const T*)bias, (T*)out, B, H, C, W, Cout, K,
       pad);
   return (int)cudaGetLastError();
@@ -153,12 +190,27 @@ int launch(const void* x, const void* w, const void* bias, void* out, int B,
 extern "C" int conv_same_f32(const void* x, const void* w, const void* bias,
                              void* out, int B, int H, int C, int W, int Cout,
                              int K, int pad, void* stream) {
-  return launch<float>(x, w, bias, out, B, H, C, W, Cout, K, pad, stream);
+  return launch<float, false>(x, w, bias, out, B, H, C, W, Cout, K, pad,
+                              stream);
 }
 
 extern "C" int conv_same_bf16(const void* x, const void* w, const void* bias,
                               void* out, int B, int H, int C, int W, int Cout,
                               int K, int pad, void* stream) {
-  return launch<__nv_bfloat16>(x, w, bias, out, B, H, C, W, Cout, K, pad,
-                               stream);
+  return launch<__nv_bfloat16, false>(x, w, bias, out, B, H, C, W, Cout, K,
+                                      pad, stream);
+}
+
+extern "C" int conv_reflect_f32(const void* x, const void* w,
+                                const void* bias, void* out, int B, int H,
+                                int C, int W, int Cout, int K, void* stream) {
+  return launch<float, true>(x, w, bias, out, B, H, C, W, Cout, K, K / 2,
+                             stream);
+}
+
+extern "C" int conv_reflect_bf16(const void* x, const void* w,
+                                 const void* bias, void* out, int B, int H,
+                                 int C, int W, int Cout, int K, void* stream) {
+  return launch<__nv_bfloat16, true>(x, w, bias, out, B, H, C, W, Cout, K,
+                                     K / 2, stream);
 }

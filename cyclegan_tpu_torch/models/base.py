@@ -18,12 +18,14 @@ from cyclegan_tpu_torch.ops.init import normal_002
 
 
 def init_conv(generator: Optional[torch.Generator], kernel: int, in_c: int,
-              out_c: int, use_bias: bool = True,
-              kernel_init=normal_002) -> nn.ParameterDict:
-    """Conv parameters: ``w`` HWIO [K, K, in_c, out_c], ``b`` zeros."""
+              out_c: int, use_bias: bool = True, kernel_init=normal_002,
+              transpose: bool = False) -> nn.ParameterDict:
+    """Conv parameters: ``w`` HWIO [K, K, in_c, out_c] (TF-style HWOI
+    [K, K, out_c, in_c] for a transposed conv), ``b`` zeros."""
+    shape = ((kernel, kernel, out_c, in_c) if transpose
+             else (kernel, kernel, in_c, out_c))
     params = nn.ParameterDict({
-        "w": nn.Parameter(kernel_init((kernel, kernel, in_c, out_c),
-                                      generator)),
+        "w": nn.Parameter(kernel_init(shape, generator)),
     })
     if use_bias:
         params["b"] = nn.Parameter(torch.zeros(out_c))

@@ -7,9 +7,18 @@ from typing import Any, Mapping, Optional
 import torch
 from torch import nn
 
+from cyclegan_tpu_torch.models.resnet import (
+    ResNetGenerator,
+    SimpleDiscriminator,
+)
 from cyclegan_tpu_torch.models.unet import UNetGenerator
 
-_NOT_YET = ("strided_unet", "resnet_generator", "simple_discriminator")
+_BUILDERS = {
+    "unet_generator": UNetGenerator,
+    "resnet_generator": ResNetGenerator,
+    "simple_discriminator": SimpleDiscriminator,
+}
+_NOT_YET = ("strided_unet",)
 
 
 def create_model(config: Mapping[str, Any],
@@ -18,8 +27,8 @@ def create_model(config: Mapping[str, Any],
     that is not ported yet raises NotImplementedError; an unknown type
     raises KeyError."""
     kind = config["type"]
-    if kind == "unet_generator":
-        return UNetGenerator(config, generator)
+    if kind in _BUILDERS:
+        return _BUILDERS[kind](config, generator)
     if kind in _NOT_YET:
         raise NotImplementedError(
             f"model type {kind!r} is not ported yet (ROADMAP.md queue 1, "

@@ -76,7 +76,7 @@ class UNetGenerator(nn.Module):
             raise NotImplementedError(
                 f"unet_generator expansion: {expansion!r} is not ported yet "
                 f"(ROADMAP.md queue 1, item 'the other recipes'; needs "
-                f"conv2d_transpose)")
+                f"the channel concat, Pallas #12)")
 
         down_specs = list(zip(filters, kernels))[:-1]
         up_filters = filters[::-1][:-1]

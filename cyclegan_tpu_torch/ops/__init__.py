@@ -5,8 +5,13 @@ decides between the two."""
 
 from cyclegan_tpu_torch.ops import layout
 from cyclegan_tpu_torch.ops.activations import apply_activation, leaky_relu
-from cyclegan_tpu_torch.ops.conv import conv2d
+from cyclegan_tpu_torch.ops.conv import (
+    conv2d,
+    conv2d_reflect,
+    conv2d_transpose,
+)
 from cyclegan_tpu_torch.ops.norm import instance_norm
+from cyclegan_tpu_torch.ops.pad import reflection_pad2d
 from cyclegan_tpu_torch.ops.pool import avg_pool2x2
 from cyclegan_tpu_torch.ops.resize import resize_bilinear, upsample_concat
 
@@ -14,9 +19,12 @@ __all__ = [
     "apply_activation",
     "avg_pool2x2",
     "conv2d",
+    "conv2d_reflect",
+    "conv2d_transpose",
     "instance_norm",
     "layout",
     "leaky_relu",
+    "reflection_pad2d",
     "resize_bilinear",
     "upsample_concat",
 ]

@@ -1,25 +1,143 @@
 """Convolution on NHCW activations with HWIO weights
-(cyclegan_tpu/ops/conv.py ``conv2d``).
+(cyclegan_tpu/ops/conv.py ``conv2d``, ``conv2d_reflect``,
+``conv2d_transpose``).
 
-The port takes stride-1 'SAME' convolutions only, which is every conv of
-the pooled U-Net; the tensor's device picks K1 (forward, input gradient) and
-K5 (weight gradient) or their plain versions (``ops/cuda_conv.py``).
+Where the JAX package runs a Pallas kernel, the port runs a hand-written
+one, chosen by the tensor's device and nothing else:
+
+- stride-1 TF-'SAME' ``conv2d``: K1 forward and input gradient, K5 weight
+  gradient (``ops/cuda_conv.py``);
+- ``conv2d_reflect`` (reflect pad K//2 + VALID, odd K): K9, K1 + K10 and
+  K9-dW (``ops/cuda_reflect.py``), for every such conv. The JAX package
+  sends the ResNet trunk's 128->128 k3 convs to XLA (its gate
+  ``profitable_reflect`` wants W % 128 == 0 and cin <= 64, a TPU tiling
+  matter); the port has no gate, so K9 takes all of them.
+
+The stride-2 ``conv2d`` (TF 'SAME', asymmetric) and ``conv2d_transpose``
+(TF ``Conv2DTranspose(padding='same')``, output H*s) run where the JAX
+package runs them: in XLA, outside any Pallas kernel. Their counterpart is
+the library convolution (cuDNN on the card, ATen on the CPU), as a plain
+matrix product outside a kernel stays ``torch.matmul``; they are not kernels
+of the port. Both pad explicitly, since TF's padding is asymmetric where
+PyTorch's is not, and run f32 with TF32 off in forward and backward, as the
+JAX f32 path runs ``Precision.HIGHEST``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import math
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from cyclegan_tpu_torch.ops.cuda_conv import conv_same
+from cyclegan_tpu_torch.ops.cuda_reflect import conv_reflect
+
+
+def _same_pad(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """TF 'SAME' (before, after) padding of one axis: output
+    ceil(size / stride), the odd pad after."""
+    out = math.ceil(size / stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+@contextlib.contextmanager
+def _full_f32(dtype: torch.dtype):
+    """cuDNN without TF32 for f32 operands."""
+    if dtype != torch.float32:
+        yield
+        return
+    previous = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = previous
+
+
+class LibraryConv(torch.autograd.Function):
+    """``aten.convolution`` on NCHW and its ``convolution_backward``, each
+    under ``_full_f32``: autograd's own backward would run under whatever
+    TF32 setting holds when it runs."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, stride, padding, transposed,
+                output_padding):
+        ctx.save_for_backward(x, w)
+        ctx.conf = ([stride] * 2, [padding] * 2, transposed,
+                    [output_padding] * 2)
+        ctx.has_bias = bias is not None
+        with _full_f32(x.dtype):
+            return torch.ops.aten.convolution(
+                x, w, bias, ctx.conf[0], ctx.conf[1], [1, 1], transposed,
+                ctx.conf[3], 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding, transposed, output_padding = ctx.conf
+        out_c = w.shape[1] if transposed else w.shape[0]
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                ctx.has_bias and ctx.needs_input_grad[2]]
+        with _full_f32(x.dtype):
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                g, x, w, [out_c], stride, padding, [1, 1], transposed,
+                output_padding, 1, mask)
+        return dx, dw, db, None, None, None, None
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 1, 3)
 
 
 def conv2d(x: torch.Tensor, kernel: torch.Tensor,
            bias: Optional[torch.Tensor] = None, stride: int = 1,
            padding: str = "SAME") -> torch.Tensor:
-    if stride != 1 or padding != "SAME":
+    """x [B,H,C,W], kernel [K,K,C,Cout] HWIO -> [B, ceil(H/s), Cout,
+    ceil(W/s)], TF 'SAME'. Stride 1 is K1; any other stride is the library
+    convolution on the explicitly padded input."""
+    if padding != "SAME":
         raise NotImplementedError(
-            f"conv2d(stride={stride}, padding={padding!r}): only stride-1 "
-            f"SAME is ported (ROADMAP.md queue 1, later slices)")
-    return conv_same(x, kernel, bias)
+            f"conv2d(padding={padding!r}): only 'SAME' is ported; the "
+            f"reflect-padded VALID conv is conv2d_reflect")
+    if stride == 1:
+        return conv_same(x, kernel, bias)
+    k = int(kernel.shape[0])
+    ph = _same_pad(int(x.shape[1]), k, stride)
+    pw = _same_pad(int(x.shape[3]), k, stride)
+    xp = F.pad(_nchw(x), (*pw, *ph))
+    y = LibraryConv.apply(xp, kernel.permute(3, 2, 0, 1), bias, stride, 0,
+                          False, 0)
+    return _nchw(y).contiguous()
+
+
+def conv2d_reflect(x: torch.Tensor, kernel: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Reflect-pad(K//2) + VALID convolution, odd K: output H, W == input
+    H, W (the reference's ReflectionPadding2D + Conv2D(padding='valid'))."""
+    return conv_reflect(x, kernel, bias)
+
+
+def conv2d_transpose(x: torch.Tensor, kernel: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None,
+                     stride: int = 2) -> torch.Tensor:
+    """TF ``Conv2DTranspose(padding='same')``: x [B,H,C,W], kernel stored
+    TF-style HWOI [K,K,Cout,C] -> [B, H*s, Cout, W*s].
+
+    JAX computes it as the stride-dilated input convolved with the flipped
+    kernel under padding (K-1-pb, s-1+pb), pb the TF 'SAME' pad before of a
+    stride-s conv. ``conv_transpose2d`` with padding pb pads K-1-pb on both
+    sides, plus ``output_padding`` after: s-K+2pb, which is -1 for k3 at
+    stride 2. There the output is computed one row and column longer and the
+    last ones are dropped."""
+    k = int(kernel.shape[0])
+    before = max(k - stride, 0) // 2
+    extra = stride - k + 2 * before
+    y = LibraryConv.apply(_nchw(x), kernel.permute(3, 2, 0, 1), bias, stride,
+                          before, True, max(extra, 0))
+    if extra < 0:
+        y = y[:, :, :y.shape[2] + extra, :y.shape[3] + extra]
+    return _nchw(y).contiguous()

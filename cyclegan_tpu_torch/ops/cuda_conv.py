@@ -118,22 +118,28 @@ def _check_dw(x, g, k, pad):
         raise ValueError(f"pad {pad} outside [0, {k - 1}]")
 
 
-def conv_dw_plain(x: torch.Tensor, g: torch.Tensor, k: int,
-                  pad: int) -> torch.Tensor:
-    """dW [K,K,C,Cout] f32 of a stride-1 conv that padded ``pad`` before:
-    per tap, the f32 contraction of the shifted input with g over
-    (B, H, W)."""
-    _check_dw(x, g, k, pad)
-    B, H, C, W = x.shape
-    xp = F.pad(x.float(), (pad, k - 1 - pad, 0, 0, pad, k - 1 - pad))
-    gf = g.float()
-    dw = torch.empty((k, k, C, g.shape[2]), dtype=torch.float32,
-                     device=x.device)
+def dw_of_padded(xp: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    """dW [K,K,C,Cout] f32 of a VALID stride-1 conv of the padded input
+    xp [B, H+K-1, C, W+K-1]: per tap, the f32 contraction of the shifted
+    input with g [B, H, Cout, W] over (B, H, W)."""
+    B, H, _, W = g.shape
+    xf, gf = xp.float(), g.float()
+    dw = torch.empty((k, k, xp.shape[2], g.shape[2]), dtype=torch.float32,
+                     device=xp.device)
     for dy in range(k):
         for dx in range(k):
             dw[dy, dx] = torch.einsum("bhcw,bhow->co",
-                                      xp[:, dy:dy + H, :, dx:dx + W], gf)
+                                      xf[:, dy:dy + H, :, dx:dx + W], gf)
     return dw
+
+
+def conv_dw_plain(x: torch.Tensor, g: torch.Tensor, k: int,
+                  pad: int) -> torch.Tensor:
+    """dW [K,K,C,Cout] f32 of a stride-1 conv that padded ``pad`` before,
+    with zeros."""
+    _check_dw(x, g, k, pad)
+    xp = F.pad(x.float(), (pad, k - 1 - pad, 0, 0, pad, k - 1 - pad))
+    return dw_of_padded(xp, g, k)
 
 
 def dw_splits(k: int, c: int, cout: int, rows: int) -> int:

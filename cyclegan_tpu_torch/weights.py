@@ -3,9 +3,10 @@
 The JAX package keeps a network's parameters as nested dicts and lists,
 saved under ``/``-joined paths (``down/0/0/conv/w``). The port's modules
 are built so that their ``state_dict`` keys are the same paths joined by
-``.`` (``down.0.0.conv.w``), with the same shapes: conv weights stay HWIO,
-as in the checkpoint and the kernels' signatures. So the bridge renames
-and converts, and never transposes. A training state's four networks cross
+``.`` (``down.0.0.conv.w``), with the same shapes: conv weights stay HWIO
+(HWOI for transposed convs), as in the checkpoint and the kernels'
+signatures. So the bridge renames and converts, and never transposes; the
+way back reads the tree off the module's structure. A training state's four networks cross
 as one ``params`` tree keyed by network name, as the JAX ``TrainState``
 holds them, so one numpy tree seeds both packages.
 """
@@ -37,33 +38,26 @@ def jax_params_to_torch(tree: Any) -> Dict[str, torch.Tensor]:
     return flat
 
 
-def torch_params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Any:
-    """The inverse: ``state_dict`` -> nested dicts, with lists where the
-    keys of a level are 0..n-1, of numpy arrays."""
-    root: Dict[str, Any] = {}
-    for key, value in state_dict.items():
-        node = root
-        parts = key.split(".")
-        for part in parts[:-1]:
-            node = node.setdefault(part, {})
-        node[parts[-1]] = value.detach().cpu().numpy()
-
-    def listify(node):
-        if not isinstance(node, dict):
-            return node
-        out = {k: listify(v) for k, v in node.items()}
-        if out and all(k.isdigit() for k in out) and sorted(
-                int(k) for k in out) == list(range(len(out))):
-            return [out[str(i)] for i in range(len(out))]
-        return out
-
-    return listify(root)
+def module_to_jax_params(module: nn.Module) -> Any:
+    """One network's parameters in the JAX package's tree, read off the
+    module's structure: a ``ModuleList`` is a list, any other module a dict
+    of its own parameters and its children. So a block without parameters
+    (the PatchGAN's non-affine ``norm``) stays the empty dict the JAX apply
+    reads, which a ``state_dict`` cannot show."""
+    if isinstance(module, nn.ModuleList):
+        return [module_to_jax_params(child) for child in module]
+    tree: Dict[str, Any] = {
+        name: p.detach().cpu().numpy()
+        for name, p in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        tree[name] = module_to_jax_params(child)
+    return tree
 
 
 def models_to_jax_params(models: Mapping[str, nn.Module]) -> Dict[str, Any]:
     """Networks by name (a ``TrainState``'s ``models``) -> the JAX
     package's ``params`` tree: {name: nested dicts/lists of numpy}."""
-    return {name: torch_params_to_jax(model.state_dict())
+    return {name: module_to_jax_params(model)
             for name, model in models.items()}
 
 

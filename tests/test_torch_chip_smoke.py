@@ -16,9 +16,9 @@ import chip_smoke
 from cyclegan_tpu_torch import steps
 from cyclegan_tpu_torch.config import yaml2namespace
 from cyclegan_tpu_torch.data.augment import random_jitter_batch
-from cyclegan_tpu_torch.models import UNetGenerator
+from cyclegan_tpu_torch.models import ResNetGenerator, UNetGenerator
 from cyclegan_tpu_torch.ops import (cuda_concat, cuda_conv, cuda_norm_act,
-                                    cuda_resize)
+                                    cuda_reflect, cuda_resize)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -55,7 +55,7 @@ def test_launch_plan_matches_a_recorded_forward(config, monkeypatch):
            lambda x, w, b=None: (x.shape[0], x.shape[1], x.shape[2],
                                  w.shape[3], w.shape[0], b is not None))
     record(cuda_norm_act, "instance_norm_act_plain", "instance_norm_act",
-           lambda x, *a: (x.shape[0], x.shape[1], x.shape[2]))
+           _norm_shape)
     record(cuda_resize, "sum2x2_plain", "sum2x2",
            lambda x, *a: (x.shape[0], x.shape[1], x.shape[2]))
     record(cuda_concat, "concat_up2_plain", "concat_up2",
@@ -65,6 +65,14 @@ def test_launch_plan_matches_a_recorded_forward(config, monkeypatch):
     with torch.no_grad():
         model(torch.zeros(batch, size, 3, size))
     assert chip_smoke.generator_launches(cfg, batch, size) == seen
+
+
+def _norm_shape(x, gamma, beta, eps, act, *args, **kwargs):
+    return (x.shape[0], x.shape[1], x.shape[2], act, gamma is not None)
+
+
+def _norm_bwd_shape(x, gz, gamma, beta, mu, rstd, act, *args):
+    return (x.shape[0], x.shape[1], x.shape[2], act, gamma is not None)
 
 
 def test_default_generator_launch_counts():
@@ -105,9 +113,18 @@ def _record_train_step(monkeypatch, model_cfg, batch, size):
            lambda x, g, k, pad: (x.shape[0], x.shape[1], x.shape[2],
                                  g.shape[2], k, pad))
     record(cuda_norm_act, "instance_norm_act_plain", "instance_norm_act",
-           plane)
+           _norm_shape)
     record(cuda_norm_act, "instance_norm_act_bwd_plain",
-           "instance_norm_act_bwd", plane)
+           "instance_norm_act_bwd", _norm_bwd_shape)
+    record(cuda_reflect, "conv_reflect_plain", "conv_reflect",
+           lambda x, w, b=None: (x.shape[0], x.shape[1], x.shape[2],
+                                 w.shape[3], w.shape[0], b is not None))
+    record(cuda_reflect, "conv_reflect_dw_plain", "conv_reflect_dw",
+           lambda x, g, k: (x.shape[0], x.shape[1], x.shape[2], g.shape[2],
+                            k))
+    record(cuda_reflect, "reflect_fold_plain", "reflect_fold",
+           lambda dxp, p: (dxp.shape[0], dxp.shape[1] - 2 * p, dxp.shape[2],
+                           p))
     record(cuda_resize, "sum2x2_plain", "sum2x2", plane)
     record(cuda_resize, "dup2x2_plain", "dup2x2", plane)
     record(cuda_concat, "concat_up2_plain", "concat_up2",
@@ -159,3 +176,75 @@ def test_default_train_step_launch_counts():
     # is a real image
     k4 = collections.Counter(s[6] for s in plan["conv_same"] if s[4] == 4)
     assert k4 == {1: 6 * 14, 2: 6 * 14 - 4}
+
+
+def test_resnet_launch_plan_matches_a_recorded_forward(monkeypatch):
+    cfg = yaml2namespace("configs/resnet.yaml").generator
+    seen = collections.defaultdict(list)
+    for module, name, key, shape_of in (
+            (cuda_reflect, "conv_reflect_plain", "conv_reflect",
+             lambda x, w, b=None: (x.shape[0], x.shape[1], x.shape[2],
+                                   w.shape[3], w.shape[0], b is not None)),
+            (cuda_norm_act, "instance_norm_act_plain", "instance_norm_act",
+             _norm_shape)):
+        def wrapper(*args, _plain=getattr(module, name), _key=key,
+                    _shape_of=shape_of, **kwargs):
+            seen[_key].append(_shape_of(*args, **kwargs))
+            return _plain(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, wrapper)
+    model = ResNetGenerator(cfg, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model(torch.zeros(1, 32, 3, 32))
+    plan = chip_smoke.resnet_generator_launches(cfg, 1, 32)
+    assert dict(seen) == plan
+    assert {k: len(v) for k, v in plan.items()} == {
+        "conv_reflect": 20, "instance_norm_act": 23}
+
+
+def test_resnet_train_launch_plan_matches_a_recorded_step(monkeypatch):
+    model_cfg = yaml2namespace("configs/resnet.yaml")
+    seen = _record_train_step(monkeypatch, model_cfg, 2, 32)
+    plan = chip_smoke.resnet_train_launches(model_cfg, 2, 32)
+    assert set(seen) == set(plan)
+    for name, shapes in plan.items():
+        assert collections.Counter(seen[name]) == \
+            collections.Counter(shapes), name
+
+
+def test_resnet_f32_point_is_kink_free():
+    """The full-width ResNet f32 step at chip_smoke's comparison point
+    meets no ReLU or LeakyReLU input within KINK_MARGIN of zero."""
+    model_cfg = yaml2namespace("configs/resnet.yaml")
+    point = chip_smoke.RESNET_F32_POINT
+    x = chip_smoke.f32_point_inputs(point)
+    grads, kink = chip_smoke.nearest_kink(lambda: chip_smoke.step_grads(
+        model_cfg, "cpu", "float32", x, seed=point["seed"]))
+    assert kink > chip_smoke.KINK_MARGIN
+    assert set(grads) == set(steps.NETWORKS)
+    assert all(bool(torch.isfinite(g).all()) and g.norm() > 0
+               for g in grads.values())
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 3, 3), (1, 6, 5, 1)])
+def test_reflect_fold_library_call_is_the_same_function(shape, monkeypatch):
+    """K10's library yardstick (the adjoint of reflect padding) computes
+    the plain fold's function."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    _, plain, library, *_ = chip_smoke.make_case("reflect_fold", shape,
+                                                 torch.float32, 0)
+    want = plain()[0].permute(0, 2, 1, 3)
+    torch.testing.assert_close(library(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_default_resnet_train_step_launch_counts():
+    cfg = yaml2namespace("configs/resnet.yaml")
+    plan = chip_smoke.resnet_train_launches(cfg, 8, 256)
+    assert {k: len(v) for k, v in plan.items()} == {
+        "conv_reflect": 120, "conv_reflect_dw": 120, "reflect_fold": 116,
+        "conv_same": 128, "conv_dw": 4, "instance_norm_act": 156,
+        "instance_norm_act_bwd": 156}
+    # the head's input gradient: K1 on dY (3 channels) padded to 262
+    assert (8, 262, 3, 32, 7, False, 3) in plan["conv_same"]
+    assert (8, 64, 128, 1) in plan["reflect_fold"]
+    assert (8, 32, 256, "leaky_relu", False) in plan["instance_norm_act"]

@@ -10,7 +10,7 @@ import yaml
 from cyclegan_tpu_torch.config import Namespace, parse_yaml, yaml2namespace
 from cyclegan_tpu_torch.models import UNetGenerator
 from cyclegan_tpu_torch.utils.checkpoint import load_pytree
-from cyclegan_tpu_torch.weights import jax_params_to_torch, torch_params_to_jax
+from cyclegan_tpu_torch.weights import jax_params_to_torch, module_to_jax_params
 
 YAML_FILES = sorted(glob.glob("configs/*.yaml")
                     + glob.glob("model_instances/*/*.yaml"))
@@ -62,8 +62,9 @@ def _small_model():
 
 
 def test_weight_round_trip():
-    state = _small_model().state_dict()
-    tree = torch_params_to_jax(state)
+    model = _small_model()
+    state = model.state_dict()
+    tree = module_to_jax_params(model)
     assert isinstance(tree["down"], list) and isinstance(tree["head"], dict)
     assert tree["down"][0][1]["conv"]["w"].shape == (3, 3, 8, 8)
     back = jax_params_to_torch(tree)
@@ -73,8 +74,9 @@ def test_weight_round_trip():
 
 
 def test_checkpoint_loads_and_checks(tmp_path):
-    state = _small_model().state_dict()
-    tree = {"params": {"g": torch_params_to_jax(state)}}
+    model = _small_model()
+    state = model.state_dict()
+    tree = {"params": {"g": module_to_jax_params(model)}}
     flat = {"params/g/" + k.replace(".", "/"): v.numpy()
             for k, v in state.items()}
     path = tmp_path / "ckpt.npz"

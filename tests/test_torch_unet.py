@@ -118,9 +118,23 @@ def test_random_init_is_seeded_and_distributed():
     ({"expansion": "transpose"}, NotImplementedError),
     ({"normalization": "batchnorm"}, NotImplementedError),
     ({"type": "strided_unet"}, NotImplementedError),
-    ({"type": "resnet_generator"}, NotImplementedError),
+    ({"type": "simple_discriminator", "normalization": "batchnorm"},
+     NotImplementedError),
     ({"type": "no_such_model"}, KeyError),
 ])
 def test_unported_configs_raise(change, error):
     with pytest.raises(error):
         create_model({**CONFIG, **change})
+
+
+@pytest.mark.parametrize("config", [
+    {"type": "resnet_generator", "filters": 4},
+    {"type": "simple_discriminator", "filters": [8, 16], "kernels": [4, 4],
+     "normalization": "instancenorm"},
+])
+def test_resnet_recipe_models_build(config):
+    model = create_model(config, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        y = model(torch.zeros(1, 16, 3, 16))
+    assert y.shape == ((1, 16, 3, 16) if "resnet" in config["type"]
+                       else (1, 4, 1, 4))
