@@ -8,10 +8,12 @@ It needs no network and writes only the kernel build
 (``cyclegan_tpu_torch/kernels/build``), a temporary model folder, and, with
 ``--out``, the per-launch details (``chip_smoke_detail.json``) and profiler
 traces of each serving forward and train step (``*_trace.json``) into DIR.
-Two recipes at full width and depth, batch 8, 256x256: the default U-Net
-recipe (``configs/cycle.yaml`` = converged256) and the canonical ResNet
+Four recipes at full width and depth, batch 8, 256x256: the default U-Net
+recipe (``configs/cycle.yaml`` = converged256), the canonical ResNet
 recipe (``configs/resnet.yaml``: ResNet-9 generator, filters 32, PatchGAN
-64/128/256). Phases, each failing the run if it fails:
+64/128/256), the transpose-expansion U-Nets (``configs/unet_transpose.yaml``)
+and the strided U-Net generator with the default U-Net discriminator
+(``configs/strided_unet.yaml``). Phases, each failing the run if it fails:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of the
    CUDA kernels from ``cyclegan_tpu_torch/kernels/csrc``;
@@ -20,8 +22,8 @@ recipe (``configs/resnet.yaml``: ResNet-9 generator, filters 32, PatchGAN
    forwards are the serving forwards' launches), in bf16 and f32, with
    TF32 off: K1-K4, K1 at the input gradient's pad and on the reflect
    conv's padded dY, K2's mu and rstd, K2 and K6 with and without
-   gamma/beta and with ReLU, none and LeakyReLU, K5-K8, and the reflect
-   conv's K9, K9-dW and K10;
+   gamma/beta and with ReLU, none and LeakyReLU, K5-K8, the reflect
+   conv's K9, K9-dW and K10, and the channel concat K11 and its split K12;
 3. each kernel's time at those shapes (CUDA events, median after warm-up)
    beside its plain version, one PyTorch library call for the same
    function where there is one, and the least time the card could take;
@@ -45,7 +47,16 @@ recipe (``configs/resnet.yaml``: ResNet-9 generator, filters 32, PatchGAN
    that the check covers the port turning it off for its library convs;
 7. ResNet serving: the networks phase 6 trained, saved by the port into a
    model folder, served as phase 4 (20 reflect-conv and 23 norm launches
-   per forward).
+   per forward);
+8. transpose-expansion U-Net training, as phase 6 against the plan
+   ``train_launches`` derives (K11 and K12 30 each per step), its f32
+   gradients compared at ``UNET_F32_POINT`` (batch 1 at 32x32, every
+   affine norm's beta at +-(3..4), kink-free, asserted);
+9. its serving, as phase 7 (15/17/3/3 conv/norm/pool/concat launches per
+   forward);
+10. strided U-Net training, as phase 8 (K11 and K12 18 each per step, the
+    discriminators' K4 and K8 12 each);
+11. its serving, as phase 7 (6 norm and 3 concat launches per forward).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' numbers as JSON.
@@ -74,6 +85,8 @@ ROOT = Path(__file__).resolve().parent
 MODEL_DIR = ROOT / "model_instances" / "converged256"
 TRAIN_CONFIG = ROOT / "configs" / "training_config.yaml"
 RESNET_CONFIG = ROOT / "configs" / "resnet.yaml"
+TRANSPOSE_CONFIG = ROOT / "configs" / "unet_transpose.yaml"
+STRIDED_CONFIG = ROOT / "configs" / "strided_unet.yaml"
 DEVICE = "cuda"
 BATCH = 8
 SIZE = 256
@@ -94,7 +107,8 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # s = sum |x| |g| over the same terms. K6's dx and t1, t2 take the largest
 # |value| of each output as s (its relu decision is made on the same f32
 # v = gamma xhat + beta in both, so no element flips). The pool, its
-# gradient and the junction's copy and adds are in the same order: exact.
+# gradient, the junction's copy and adds and the concat and split copies
+# are in the same order: exact.
 TOL = {
     ("conv_same", torch.bfloat16): (1e-2, 1e-2),
     ("conv_same", torch.float32): (1e-4, 1e-4),
@@ -122,6 +136,10 @@ TOL = {
     ("conv_reflect_dw", torch.float32): (0.0, 1e-5),
     ("reflect_fold", torch.bfloat16): (0.0, 0.0),
     ("reflect_fold", torch.float32): (0.0, 0.0),
+    ("concat2", torch.bfloat16): (0.0, 0.0),
+    ("concat2", torch.float32): (0.0, 0.0),
+    ("split2", torch.bfloat16): (0.0, 0.0),
+    ("split2", torch.float32): (0.0, 0.0),
 }
 _CSRC = "cyclegan_tpu_torch/kernels/csrc/"
 SOURCES = {
@@ -151,6 +169,15 @@ SOURCES = {
                         "cyclegan_tpu/ops/pallas_conv.py:1130", []),
     "reflect_fold": (_CSRC + "reflect_fold.cu",
                      "cyclegan_tpu/ops/pallas_conv.py:1130", []),
+    "concat2": (_CSRC + "concat2.cu",
+                "cyclegan_tpu/ops/pallas_concat.py:106", []),
+    "split2": (_CSRC + "concat2.cu",
+               "cyclegan_tpu/ops/pallas_concat.py:140", []),
+}
+# what a library yardstick is where it is not one call
+LIBRARY_NOTES = {
+    "split2": "two calls: g[:, :, :c1].contiguous() and "
+              "g[:, :, c1:].contiguous(), timed together",
 }
 # kernel-name fragments of the profiler trace -> kernel family
 TRACE_FAMILIES = (
@@ -164,7 +191,9 @@ TRACE_FAMILIES = (
     ("sum2x2_kernel", "sum2x2"), ("dup2x2_kernel", "dup2x2"),
     ("concat_up2_kernel", "concat_up2"),
     ("split_pool2_kernel", "split_pool2"),
+    ("concat2_kernel", "concat2"), ("split2_kernel", "split2"),
     # the library convolutions (stride 2, transposed) of the ResNet recipe
+    # and the transpose-expansion and strided U-Nets
     ("cudnn", "library conv"), ("xmma", "library conv"),
     ("cutlass", "library conv"), ("grad", "library conv"),
     ("conv", "library conv"),
@@ -180,8 +209,11 @@ SERVE_FAR = 8            # a pixel this far off counts as an outlier...
 SERVE_FAR_SHARE = 1e-3   # ...and at most this share of them may be
 SERVE_F32_MAX = 1
 # training: per network, |g_card - g_cpu| / |g_cpu| in f32 within
-# TRAIN_F32_REL; the bf16 card step's error within RATIO times the plain
-# bf16 step's
+# TRAIN_F32_REL over every parameter but the pre-norm biases, and each
+# pre-norm bias's largest |g_card - g_cpu| within TRAIN_F32_REL |g_cpu| of
+# the whole network (its gradient is zero up to rounding, see
+# ``pre_norm_bias``); the bf16 card step's error within RATIO times the
+# plain bf16 step's
 TRAIN_F32_REL = 1e-3
 RATIO = 1.5
 # The ResNet's f32 comparison point: seeded weights and input, batch 1 at
@@ -191,9 +223,20 @@ RATIO = 1.5
 # gradient by more than TRAIN_F32_REL. At 256x256 there are millions of
 # them; at this point none lies within KINK_MARGIN (asserted).
 RESNET_F32_POINT = {"size": 16, "batch": 1, "seed": 354}
+# The transpose-expansion and strided U-Nets' f32 point: seeded weights
+# with every affine norm's beta moved to +-(3..4), so that whole channels
+# sit on either side of the ReLU kink (as the CPU step tests of the default
+# recipe do), and seeded input, batch 1 at 32x32; no ReLU input within
+# KINK_MARGIN of zero (asserted).
+UNET_F32_POINT = {"size": 32, "batch": 1, "seed": 0, "beta": [3.0, 4.0]}
 KINK_MARGIN = 1e-5
 
 failures = []
+STARTED = time.perf_counter()
+
+
+def stamp(what):
+    print(f"{what} done at {time.perf_counter() - STARTED:.0f} s", flush=True)
 
 
 def fail(msg):
@@ -214,11 +257,16 @@ def tf_pad(k):
 
 
 def generator_launches(cfg, batch, size):
-    """The kernel launches of one forward of the pooled U-Net, in order:
-    conv (B, H, Cin, Cout, K, bias), norm (B, H, C, act, affine), pool
-    (B, H, C), junction (B, H, C1, C2) with H the output side."""
+    """The kernel launches of one forward of a U-Net (``unet_generator`` of
+    either expansion, or ``strided_unet``), in order, by kernel: conv (B,
+    H, Cin, Cout, K, bias), norm (B, H, C, act, affine), pool (B, H, C),
+    junction and concat (B, H, C1, C2) with H the output side. Kernels
+    that do not launch are left out. Conv-transposes and stride-2 convs
+    are library calls."""
+    if cfg["type"] == "strided_unet":
+        return strided_launches(cfg, batch, size)
     filters, ks = list(cfg["filters"]), list(cfg["kernels"])
-    conv, norm, pool, junction = [], [], [], []
+    conv, norm, pool, junction, concat = [], [], [], [], []
     c, s, skips = 3, size, []
 
     def double_conv(cin, f, k, s):
@@ -235,56 +283,94 @@ def generator_launches(cfg, batch, size):
     c = filters[-1]
     for f, k, (skip_c, skip_s) in zip(filters[::-1][:-1], ks[:0:-1],
                                       skips[::-1]):
-        junction.append((batch, skip_s, skip_c, c))
+        if cfg["expansion"] == "upsample":
+            junction.append((batch, skip_s, skip_c, c))
+        else:  # conv-transpose to f channels, its norm, then the concat
+            c = f
+            norm.append((batch, skip_s, f, "relu", True))
+            concat.append((batch, skip_s, skip_c, f))
         double_conv(skip_c + c, f, k, skip_s)
         c = f
     conv.append((batch, size, c, int(cfg["output_channels"]), 1, True))
-    return {"conv_same": conv, "instance_norm_act": norm, "sum2x2": pool,
-            "concat_up2": junction}
+    plan = {"conv_same": conv, "instance_norm_act": norm, "sum2x2": pool,
+            "concat_up2": junction, "concat2": concat}
+    return {name: shapes for name, shapes in plan.items() if shapes}
+
+
+def strided_launches(cfg, batch, size):
+    """The kernel launches of one ``strided_unet`` forward, in order: a
+    norm after each stride-2 down conv; per up level the concat of the skip
+    and the conv-transpose's f channels, then a norm over both. Its convs
+    are all library calls."""
+    filters = list(cfg["filters"])
+    norm, concat, skips, s = [], [], [], size
+    for f in filters[:-1]:
+        s //= 2
+        norm.append((batch, s, f, "relu", True))
+        skips.append((f, s))
+    for f, (skip_c, skip_s) in zip(filters[::-1][:-1], skips[::-1]):
+        concat.append((batch, skip_s, skip_c, f))
+        norm.append((batch, skip_s, skip_c + f, "relu", True))
+    return {"instance_norm_act": norm, "concat2": concat}
+
+
+def serve_launches(cfg, batch, size):
+    """``generator_launches`` with each conv's pad: the serving forward's
+    launches as the train plans key them."""
+    plan = generator_launches(cfg, batch, size)
+    if "conv_same" in plan:
+        plan["conv_same"] = [s + (tf_pad(s[4]),) for s in plan["conv_same"]]
+    return plan
+
+
+# each forward kernel of the U-Nets' plans and the kernel of its backward
+BACKWARD = {"instance_norm_act": "instance_norm_act_bwd", "sum2x2": "dup2x2",
+            "concat_up2": "split_pool2", "concat2": "split2"}
 
 
 def train_launches(model_cfg, batch, size):
-    """The kernel launches of one train step (``steps.make_train_step``),
-    by kernel, as unordered lists of shapes:
+    """The kernel launches of one train step (``steps.make_train_step``)
+    of a recipe of U-Nets (the default, ``configs/unet_transpose.yaml``,
+    ``configs/strided_unet.yaml``), by kernel, as unordered lists of
+    shapes:
 
     conv_same (B, H, Cin, Cout, K, bias, pad), conv_dw (B, H, Cin, Cout, K,
-    pad), instance_norm_act[_bwd] (B, H, C), sum2x2 (B, H, C) with H the
-    input side, dup2x2 (B, h, C) with h the pooled side, concat_up2 and
-    split_pool2 (B, H, C1, C2).
+    pad), instance_norm_act[_bwd] (B, H, C, act, affine), sum2x2 (B, H, C)
+    with H the input side, dup2x2 (B, h, C) with h the pooled side,
+    concat_up2, split_pool2, concat2 and split2 (B, H, C1, C2).
 
     Forward: 6 generator and 6 discriminator applications (each fake
     batch's generator view and discriminator view are two applications).
     Backward, per application: K6 for every norm, K7 for every pool, K8 for
-    every junction; K5 (dW) for every conv where the parameters train
-    (not under the generator view); K1 at the transposed pad (dX) for
-    every conv but the first, and for the first where the input needs a
-    gradient: the generators applied to the fakes (the cycle) and the
-    discriminators' generator view."""
+    every junction, K12 for every concat; K5 (dW) for every conv where the
+    parameters train (not under the generator view); K1 at the transposed
+    pad (dX) for every conv but the first, and for the first where the
+    input needs a gradient: the generators applied to the fakes (the
+    cycle) and the discriminators' generator view."""
     gen = generator_launches(model_cfg["generator"], batch, size)
     disc = generator_launches(model_cfg["discriminator"], batch, size)
     # (plan, parameters train, input needs a gradient)
     apps = ([(gen, True, False)] * 4 + [(gen, True, True)] * 2
             + [(disc, True, False)] * 4 + [(disc, False, True)] * 2)
-    out = {name: [] for name in UNET_KERNELS}
+    out = collections.defaultdict(list)
     for plan, params_train, input_grad in apps:
-        for i, (b, h, cin, cout, k, bias) in enumerate(plan["conv_same"]):
+        for i, (b, h, cin, cout, k, bias) in enumerate(
+                plan.get("conv_same", [])):
             out["conv_same"].append((b, h, cin, cout, k, bias, tf_pad(k)))
             if i > 0 or input_grad:
                 out["conv_same"].append(
                     (b, h, cout, cin, k, False, k - 1 - tf_pad(k)))
             if params_train:
                 out["conv_dw"].append((b, h, cin, cout, k, tf_pad(k)))
-        out["instance_norm_act"] += plan["instance_norm_act"]
-        out["instance_norm_act_bwd"] += plan["instance_norm_act"]
-        out["sum2x2"] += plan["sum2x2"]
-        out["dup2x2"] += [(b, h // 2, c) for b, h, c in plan["sum2x2"]]
-        out["concat_up2"] += plan["concat_up2"]
-        out["split_pool2"] += plan["concat_up2"]
-    return out
+        for name, shapes in plan.items():
+            if name == "conv_same":
+                continue
+            out[name] += shapes
+            out[BACKWARD[name]] += ([(b, h // 2, c) for b, h, c in shapes]
+                                    if name == "sum2x2" else shapes)
+    return dict(out)
 
 
-UNET_KERNELS = ("conv_same", "instance_norm_act", "sum2x2", "concat_up2",
-                "conv_dw", "instance_norm_act_bwd", "dup2x2", "split_pool2")
 RESNET_KERNELS = ("conv_reflect", "conv_reflect_dw", "reflect_fold",
                   "conv_same", "conv_dw", "instance_norm_act",
                   "instance_norm_act_bwd")
@@ -534,6 +620,22 @@ def make_case(name, shape, dtype, seed):
                 None,
                 (gy.numel() + B * H * c1 * H + pooled) * size, 3 * pooled,
                 [(name, 1.0), (name, 1.0)])
+    if name == "concat2":
+        B, H, c1, c2 = shape
+        a = rnd(B, H, c1, H)
+        b = rnd(B, H, c2, H)
+        return (lambda: (cuda_concat.concat2_cuda(a, b),),
+                lambda: (cuda_concat.concat2_plain(a, b),),
+                lambda: torch.cat([a, b], dim=2),
+                2 * B * H * (c1 + c2) * H * size, 0, [(name, 1.0)])
+    if name == "split2":
+        B, H, c1, c2 = shape
+        gy = rnd(B, H, c1 + c2, H)
+        return (lambda: cuda_concat.split2_cuda(gy, c1),
+                lambda: cuda_concat.split2_plain(gy, c1),
+                lambda: (gy[:, :, :c1].contiguous(),
+                         gy[:, :, c1:].contiguous()),
+                2 * gy.numel() * size, 0, [(name, 1.0), (name, 1.0)])
     raise KeyError(name)
 
 
@@ -823,10 +925,11 @@ def serve(label, model_dir, forward_plan, out_dir):
     return main_launches, len(requests), metrics
 
 
-def _train_state(model_cfg, device, model_dir=None, seed=0):
+def _train_state(model_cfg, device, model_dir=None, seed=0, beta=None):
     """The four networks (f32 masters) with fresh Adam: from the
     checkpoint in ``model_dir``, or random weights from ``seed`` without
-    one."""
+    one; with ``beta`` = (lo, hi), every affine norm's beta drawn from
+    +-(lo..hi) by the same seed."""
     from cyclegan_tpu_torch.config import yaml2namespace
     from cyclegan_tpu_torch.steps import build_models, init_train_state
     from cyclegan_tpu_torch.utils.checkpoint import load_pytree
@@ -838,28 +941,64 @@ def _train_state(model_cfg, device, model_dir=None, seed=0):
         restored = load_pytree(model_dir / "checkpoint.npz",
                                {"params": models_to_jax_params(models)})
         load_jax_params(models, restored["params"])
+    if beta is not None:
+        rng = np.random.default_rng(seed)
+        with torch.no_grad():
+            for name in sorted(models):
+                for key, p in models[name].named_parameters():
+                    if key.endswith("beta"):
+                        p.copy_(torch.from_numpy(
+                            rng.choice([-1.0, 1.0], p.shape)
+                            * rng.uniform(*beta, p.shape)))
     return init_train_state(models, yaml2namespace(TRAIN_CONFIG), 0, device)
 
 
-def _flat_grads(state):
-    """{network: all its gradients as one f32 CPU vector}."""
-    return {name: torch.cat([p.grad.detach().float().reshape(-1).cpu()
-                             for p in model.parameters()])
+def _grads(state):
+    """{network: {parameter: its gradient, f32 on the CPU}}."""
+    return {name: {key: p.grad.detach().float().cpu()
+                   for key, p in model.named_parameters()}
             for name, model in state.models.items()}
+
+
+def _flat(grads, keys=None):
+    return torch.cat([grads[k].reshape(-1)
+                      for k in (grads if keys is None else keys)])
 
 
 def _rel(a, b):
     return float((a - b).norm() / b.norm())
 
 
-def step_grads(model_cfg, device, dtype, x, model_dir=None, seed=0):
+def pre_norm_bias(key):
+    """Whether a parameter is a conv bias whose output an instance norm
+    takes whole: the norm removes any per-channel constant, so its gradient
+    is zero up to rounding. That is every bias of the recipes but the
+    heads' (``head``, ``last``) and the strided U-Net's bottom conv's, which
+    a conv-transpose takes first."""
+    return key.endswith(".b") and key.split(".")[0] not in (
+        "head", "last", "bottom")
+
+
+def f32_errors(got, want):
+    """(|got - want| / |want| over the parameters that are not pre-norm
+    biases, the largest |got - want| of a pre-norm bias over |want| of the
+    whole network)."""
+    rest = [k for k in want if not pre_norm_bias(k)]
+    biases = [float((got[k] - want[k]).abs().max()) for k in want
+              if pre_norm_bias(k)]
+    return (_rel(_flat(got, rest), _flat(want, rest)),
+            max(biases, default=0.0) / float(_flat(want).norm()))
+
+
+def step_grads(model_cfg, device, dtype, x, model_dir=None, seed=0,
+               beta=None):
     """The gradients one train step (no jitter) leaves on inputs ``x``."""
     from cyclegan_tpu_torch.steps import make_train_step
 
-    s = _train_state(model_cfg, device, model_dir, seed)
+    s = _train_state(model_cfg, device, model_dir, seed, beta)
     make_train_step(model_cfg["loss"], model_cfg["loss_weights"], dtype)(
         s, *(t.to(device) for t in x))
-    return _flat_grads(s)
+    return _grads(s)
 
 
 def f32_point_inputs(point):
@@ -876,8 +1015,8 @@ def f32_point_inputs(point):
 
 def nearest_kink(run):
     """``run()``'s result on the CPU, and the smallest |input| of any ReLU
-    or LeakyReLU it met: the output of a non-affine norm before its
-    activation."""
+    or LeakyReLU it met: the output of a norm (gamma x_hat + beta where
+    affine) before its activation."""
     from cyclegan_tpu_torch.ops import cuda_norm_act
 
     plain = cuda_norm_act.instance_norm_act_plain
@@ -885,11 +1024,12 @@ def nearest_kink(run):
 
     def recording(x, gamma, beta, eps=1e-3, act="relu", alpha=0.2,
                   with_stats=False):
-        assert gamma is None and beta is None, "affine norms not recorded"
         out, mu, rstd = plain(x, gamma, beta, eps, act, alpha,
                               with_stats=True)
         if act != "none":
             v = (x.float() - mu[:, None, :, None]) * rstd[:, None, :, None]
+            if gamma is not None:
+                v = v * gamma.float()[:, None] + beta.float()[:, None]
             nearest[0] = min(nearest[0], float(v.abs().min()))
         return (out, mu, rstd) if with_stats else out
 
@@ -902,13 +1042,13 @@ def nearest_kink(run):
 
 
 def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None):
-    """Phases 5 and 6: training ``model_cfg`` from ``model_dir``'s weights
-    (seeded random weights if None) against the launch ``plan`` ({kernel:
-    shapes}) of one step. The f32 gradients are compared on the step's
-    first GRAD_BATCH images, or at ``f32_point`` where given (inputs, and
-    weights where there is no ``model_dir``, from its seed; asserted
-    kink-free). Returns the main path's
-    launches, metrics and the trained state."""
+    """Phases 5, 6, 8 and 10: training ``model_cfg`` from ``model_dir``'s
+    weights (seeded random weights if None) against the launch ``plan``
+    ({kernel: shapes}) of one step. The f32 gradients are compared on the
+    step's first GRAD_BATCH images, or at ``f32_point`` where given
+    (inputs, and weights where there is no ``model_dir``, from its seed,
+    with its betas where it names them; asserted kink-free). Returns the
+    main path's launches, metrics and the trained state."""
     from cyclegan_tpu_torch import kernels
     from cyclegan_tpu_torch.data.augment import (normalize,
                                                  random_jitter_batch)
@@ -949,12 +1089,15 @@ def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None):
              for device, dtype in (("cpu", "float32"), (DEVICE, "bfloat16"),
                                    ("cpu", "bfloat16"))}
     f32_at = {"batch": GRAD_BATCH, "size": SIZE, "seed": None}
-    f32_x, f32_seed, f32_ref = x, 0, grads[("cpu", "float32")]
+    f32_x, f32_seed, f32_beta = x, 0, None
+    f32_ref = grads[("cpu", "float32")]
     if f32_point is not None:
         f32_at = dict(f32_point)
         f32_x, f32_seed = f32_point_inputs(f32_point), f32_point["seed"]
+        f32_beta = f32_point.get("beta")
         f32_ref, kink = nearest_kink(lambda: step_grads(
-            model_cfg, "cpu", "float32", f32_x, model_dir, f32_seed))
+            model_cfg, "cpu", "float32", f32_x, model_dir, f32_seed,
+            f32_beta))
         f32_at["nearest_kink"] = kink
         print(f"{label} f32 point {json.dumps(f32_at)}", flush=True)
         if not kink > KINK_MARGIN:
@@ -964,21 +1107,24 @@ def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None):
         fail(f"{label}: the f32 step should meet PyTorch's default "
              f"cudnn.allow_tf32 = True")
     grads[(DEVICE, "float32")] = step_grads(model_cfg, DEVICE, "float32",
-                                            f32_x, model_dir, f32_seed)
+                                            f32_x, model_dir, f32_seed,
+                                            f32_beta)
     ref = grads[("cpu", "float32")]
     grad_errors = {"f32_point": f32_at}
     for name in ref:
-        e = {"f32_card_vs_f32_cpu": _rel(grads[(DEVICE, "float32")][name],
-                                         f32_ref[name]),
-             "bf16_card_vs_f32_cpu": _rel(grads[(DEVICE, "bfloat16")][name],
-                                          ref[name]),
-             "bf16_cpu_vs_f32_cpu": _rel(grads[("cpu", "bfloat16")][name],
-                                         ref[name])}
+        f32_rel, f32_bias = f32_errors(grads[(DEVICE, "float32")][name],
+                                       f32_ref[name])
+        e = {"f32_card_vs_f32_cpu": f32_rel,
+             "f32_pre_norm_bias_card_vs_cpu": f32_bias,
+             "bf16_card_vs_f32_cpu": _rel(
+                 _flat(grads[(DEVICE, "bfloat16")][name]), _flat(ref[name])),
+             "bf16_cpu_vs_f32_cpu": _rel(
+                 _flat(grads[("cpu", "bfloat16")][name]), _flat(ref[name]))}
         grad_errors[name] = e
         print(f"{label} gradients {name}: {json.dumps(e)}", flush=True)
-        if not e["f32_card_vs_f32_cpu"] <= TRAIN_F32_REL:
-            fail(f"{label} {name}: f32 gradient error "
-                 f"{e['f32_card_vs_f32_cpu']} > {TRAIN_F32_REL}")
+        for key in ("f32_card_vs_f32_cpu", "f32_pre_norm_bias_card_vs_cpu"):
+            if not e[key] <= TRAIN_F32_REL:
+                fail(f"{label} {name}: {key} {e[key]} > {TRAIN_F32_REL}")
         if not e["bf16_card_vs_f32_cpu"] <= (RATIO
                                              * e["bf16_cpu_vs_f32_cpu"]):
             fail(f"{label} {name}: bf16 gradient error "
@@ -1042,7 +1188,7 @@ def kernel_entries(rows, max_err, launches, forwards, serve_plans):
     train step and by serving forward)."""
     from cyclegan_tpu_torch import kernels
 
-    train_paths = ("unet_train", "resnet_train")
+    train_paths = [p for p in launches if p not in serve_plans]
     entries = []
     for name in kernels.KERNELS:
         mine = [r for r in rows if r["kernel"] == name]
@@ -1060,6 +1206,8 @@ def kernel_entries(rows, max_err, launches, forwards, serve_plans):
         total = _sums([(r, sum(r["per_step"][p] for p in train_paths))
                        for r in mine], 0)
         source, replaces, also = SOURCES[name]
+        library = ({"library_call": LIBRARY_NOTES[name]}
+                   if name in LIBRARY_NOTES else {})
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "also_replaces": also,
@@ -1068,10 +1216,10 @@ def kernel_entries(rows, max_err, launches, forwards, serve_plans):
             "max_abs_err_f32": max_err[(name, torch.float32)],
             "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"], "bound_by": total["bound_by"],
-            "library_ms": total["library_ms"],
+            "library_ms": total["library_ms"], **library,
             "timing": "bf16, the median per launch shape summed over the "
                       "launches of one batch-8 256x256 train step of each "
-                      "recipe (unet_train + resnet_train)",
+                      f"recipe ({' + '.join(train_paths)})",
             "paths": paths,
         })
     return entries
@@ -1113,46 +1261,55 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {log.stem}: {line.strip()}")
 
-    unet_cfg = yaml2namespace(MODEL_DIR / "model_config.yaml")
-    resnet_cfg = yaml2namespace(RESNET_CONFIG)
-    unet_serve = generator_launches(unet_cfg.generator, BATCH, SIZE)
-    unet_serve["conv_same"] = [s + (tf_pad(s[4]),)
-                               for s in unet_serve["conv_same"]]
-    resnet_serve = resnet_generator_launches(resnet_cfg.generator, BATCH,
-                                             SIZE)
-    if {k: len(v) for k, v in unet_serve.items()} != {
+    # the seeded recipes after the default one, each trained then served
+    # from the folder the port saves: (name, config file, f32 point)
+    seeded = (("resnet", RESNET_CONFIG, RESNET_F32_POINT),
+              ("unet_transpose", TRANSPOSE_CONFIG, UNET_F32_POINT),
+              ("strided", STRIDED_CONFIG, UNET_F32_POINT))
+    cfgs = {"unet": yaml2namespace(MODEL_DIR / "model_config.yaml"),
+            **{name: yaml2namespace(path) for name, path, _ in seeded}}
+    serve_plans = {
+        f"{name}_serve": (resnet_generator_launches if name == "resnet"
+                          else serve_launches)(cfg.generator, BATCH, SIZE)
+        for name, cfg in cfgs.items()}
+    if {k: len(v) for k, v in serve_plans["unet_serve"].items()} != {
             "conv_same": 15, "instance_norm_act": 14, "sum2x2": 3,
             "concat_up2": 3}:
-        fail(f"generator launch plan {unet_serve}")
-    plans = {"unet_train": train_launches(unet_cfg, BATCH, SIZE),
-             "resnet_train": resnet_train_launches(resnet_cfg, BATCH, SIZE)}
+        fail(f"generator launch plan {serve_plans['unet_serve']}")
+    plans = {f"{name}_train": (resnet_train_launches if name == "resnet"
+                               else train_launches)(cfg, BATCH, SIZE)
+             for name, cfg in cfgs.items()}
     paths = {path: unique_shapes(plan) for path, plan in plans.items()}
     with no_tf32():
         max_err = check_kernels(union_shapes(paths))
+        stamp("phase 2 (kernel checks)")
         rows = time_kernels(paths)
+        stamp("phase 3 (kernel times)")
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
 
     launches, forwards, metrics = {}, {}, {}
     launches["unet_serve"], forwards["unet_serve"], metrics["unet_serve"] = \
-        serve("unet_serve", MODEL_DIR, unet_serve, out_dir)
+        serve("unet_serve", MODEL_DIR, serve_plans["unet_serve"], out_dir)
+    stamp("phase 4 (unet_serve)")
     launches["unet_train"], metrics["unet_train"], _ = train(
-        "unet_train", unet_cfg, plans["unet_train"], MODEL_DIR, out_dir)
-    launches["resnet_train"], metrics["resnet_train"], state = train(
-        "resnet_train", resnet_cfg, plans["resnet_train"], None, out_dir,
-        RESNET_F32_POINT)
-    with tempfile.TemporaryDirectory() as tmp:
-        save_model_folder(Path(tmp), RESNET_CONFIG, state.models)
-        del state
-        (launches["resnet_serve"], forwards["resnet_serve"],
-         metrics["resnet_serve"]) = serve("resnet_serve", Path(tmp),
-                                          resnet_serve, out_dir)
+        "unet_train", cfgs["unet"], plans["unet_train"], MODEL_DIR, out_dir)
+    stamp("phase 5 (unet_train)")
+    for name, cfg_path, point in seeded:
+        train_path, serve_path = f"{name}_train", f"{name}_serve"
+        launches[train_path], metrics[train_path], state = train(
+            train_path, cfgs[name], plans[train_path], None, out_dir, point)
+        stamp(train_path)
+        with tempfile.TemporaryDirectory() as tmp:
+            save_model_folder(Path(tmp), cfg_path, state.models)
+            del state
+            (launches[serve_path], forwards[serve_path],
+             metrics[serve_path]) = serve(serve_path, Path(tmp),
+                                          serve_plans[serve_path], out_dir)
+        stamp(serve_path)
 
-    entries = kernel_entries(rows, max_err, launches, forwards,
-                             {"unet_serve": unet_serve,
-                              "resnet_serve": resnet_serve})
-    for path, plan in {**plans, "unet_serve": unet_serve,
-                       "resnet_serve": resnet_serve}.items():
+    entries = kernel_entries(rows, max_err, launches, forwards, serve_plans)
+    for path, plan in {**plans, **serve_plans}.items():
         for name in plan:
             if not launches[path].get(name):
                 fail(f"{name}: no launch on {path}")

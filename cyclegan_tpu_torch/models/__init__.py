@@ -3,7 +3,7 @@ from cyclegan_tpu_torch.models.resnet import (
     ResNetGenerator,
     SimpleDiscriminator,
 )
-from cyclegan_tpu_torch.models.unet import UNetGenerator
+from cyclegan_tpu_torch.models.unet import StridedUNet, UNetGenerator
 
-__all__ = ["ResNetGenerator", "SimpleDiscriminator", "UNetGenerator",
-           "create_model"]
+__all__ = ["ResNetGenerator", "SimpleDiscriminator", "StridedUNet",
+           "UNetGenerator", "create_model"]

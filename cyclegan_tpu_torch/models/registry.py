@@ -11,26 +11,19 @@ from cyclegan_tpu_torch.models.resnet import (
     ResNetGenerator,
     SimpleDiscriminator,
 )
-from cyclegan_tpu_torch.models.unet import UNetGenerator
+from cyclegan_tpu_torch.models.unet import StridedUNet, UNetGenerator
 
 _BUILDERS = {
     "unet_generator": UNetGenerator,
+    "strided_unet": StridedUNet,
     "resnet_generator": ResNetGenerator,
     "simple_discriminator": SimpleDiscriminator,
 }
-_NOT_YET = ("strided_unet",)
 
 
 def create_model(config: Mapping[str, Any],
                  generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Build a model from its config's ``type``. A type of the JAX package
-    that is not ported yet raises NotImplementedError; an unknown type
-    raises KeyError."""
-    kind = config["type"]
-    if kind in _BUILDERS:
-        return _BUILDERS[kind](config, generator)
-    if kind in _NOT_YET:
-        raise NotImplementedError(
-            f"model type {kind!r} is not ported yet (ROADMAP.md queue 1, "
-            f"item 'the other recipes')")
-    raise KeyError(kind)
+    """Build a model from its config's ``type``; an unknown type raises
+    KeyError. Every type of the JAX package is ported; a config option that
+    is not (batch norm, dropout in training) raises NotImplementedError."""
+    return _BUILDERS[config["type"]](config, generator)

@@ -1,14 +1,27 @@
-"""The pooled U-Net (cyclegan_tpu/models/unet.py ``unet_generator``), on
-NHCW activations: the default recipe's generators (16/32/64/128, all k4,
-tanh) and, from the same builder, its discriminators (16/32/64 at k7/k5/k3,
-one output channel, sigmoid).
+"""The U-Nets (cyclegan_tpu/models/unet.py), on NHCW activations.
 
+``UNetGenerator`` (``unet_generator``): the default recipe's generators
+(16/32/64/128, all k4, tanh) and, from the same builder, its
+discriminators (16/32/64 at k7/k5/k3, one output channel, sigmoid).
 Double-conv blocks (conv without bias -> affine instance norm -> ReLU,
-twice) with a 2x2 average pool on the way down; nearest-2x upsample and
-skip concat (skip first) on the way up; a 1x1 conv with bias and the final
-activation as head. Parameter names and shapes are the JAX package's.
-Every op is differentiable through the kernels' autograd Functions, so the
-same module serves and trains.
+twice) with a 2x2 average pool on the way down. On the way up, per level,
+``expansion: upsample`` runs the nearest-2x upsample and skip concat (skip
+first) as one junction; any other expansion runs a stride-2 conv-transpose
+with bias -> affine instance norm -> ReLU, then the skip concat
+(``concat_channels``), as the JAX builder does. A 1x1 conv with bias and
+the final activation are the head.
+
+``StridedUNet`` (``strided_unet``): per down level a stride-2 conv with
+bias -> affine instance norm -> ReLU; a stride-2 bottom conv with bias and
+no norm; per up level a stride-2 conv-transpose with bias, the skip concat,
+then affine instance norm -> ReLU over both; a last k4 conv-transpose to
+the output channels and the final activation. Its stride-2 convs and
+conv-transposes are library convolutions (``ops/conv.py``), as the JAX
+package runs them in XLA; its norms and concats run kernels.
+
+Parameter names and shapes are the JAX package's. Every op is
+differentiable through the kernels' autograd Functions, so the same module
+serves and trains.
 
 Dropout (``dropout: True``) is applied in training mode in the JAX package;
 it is not ported yet, so a training-mode forward of such a config raises.
@@ -26,7 +39,9 @@ from cyclegan_tpu_torch.models.base import apply_norm_act, init_conv, init_norm
 from cyclegan_tpu_torch.ops import (
     apply_activation,
     avg_pool2x2,
+    concat_channels,
     conv2d,
+    conv2d_transpose,
     upsample_concat,
 )
 from cyclegan_tpu_torch.ops.init import glorot_uniform
@@ -72,11 +87,7 @@ class UNetGenerator(nn.Module):
         output_channels = config["output_channels"]
         self.final_activation = config["final_activation"]
         in_channels = int(config.get("in_channels", 3))
-        if expansion != "upsample":
-            raise NotImplementedError(
-                f"unet_generator expansion: {expansion!r} is not ported yet "
-                f"(ROADMAP.md queue 1, item 'the other recipes'; needs "
-                f"the channel concat, Pallas #12)")
+        self.transpose = expansion != "upsample"
 
         down_specs = list(zip(filters, kernels))[:-1]
         up_filters = filters[::-1][:-1]
@@ -94,8 +105,13 @@ class UNetGenerator(nn.Module):
         c = filters[-1]
         self.up = nn.ModuleList()
         for f, k, skip_c in zip(up_filters, up_kernels, skip_channels[::-1]):
-            self.up.append(nn.ModuleDict({
-                "dc": _double_conv(generator, skip_c + c, f, k, norm)}))
+            level = nn.ModuleDict()
+            if self.transpose:
+                level["convt"] = init_conv(generator, k, c, f, transpose=True)
+                level["convt_norm"] = init_norm(norm, f, affine=True)
+                c = f
+            level["dc"] = _double_conv(generator, skip_c + c, f, k, norm)
+            self.up.append(level)
             c = f
         # 1x1 head keeps the Keras-default glorot init and a bias
         self.head = init_conv(generator, 1, c, output_channels,
@@ -105,7 +121,7 @@ class UNetGenerator(nn.Module):
         if self.use_dropout and self.training:
             raise NotImplementedError(
                 "unet_generator dropout: True in training mode is not ported "
-                "yet (ROADMAP.md queue 1, item 'the other recipes')")
+                "yet (ROADMAP.md queue 1, item 2, with the trainer)")
         skips = []
         for blocks in self.down:
             x = _apply_double_conv(blocks, x)
@@ -113,7 +129,70 @@ class UNetGenerator(nn.Module):
             x = avg_pool2x2(x)
         x = _apply_double_conv(self.bottom, x)
         for level, skip in zip(self.up, skips):
-            x = upsample_concat(skip, x)
+            if self.transpose:
+                convt = level["convt"]
+                x = conv2d_transpose(x, convt["w"], convt["b"], stride=2)
+                x = apply_norm_act(level["convt_norm"], x, "relu")
+                x = concat_channels([skip, x])
+            else:
+                x = upsample_concat(skip, x)
             x = _apply_double_conv(level["dc"], x)
         x = conv2d(x, self.head["w"], self.head["b"])
+        return apply_activation(x, self.final_activation)
+
+
+class StridedUNet(nn.Module):
+    """Strided U-Net; ``forward`` takes NHCW ``[B, H, C, W]``, H and W
+    divisible by 2^len(filters), and returns ``[B, H, output_channels,
+    W]``.
+
+    Mandatory config fields, as in the JAX builder: filters, kernels,
+    normalization, output_channels, final_activation.
+    """
+
+    def __init__(self, config: Mapping[str, Any],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        filters = list(config["filters"])
+        kernels = list(config["kernels"])
+        norm = config["normalization"]
+        output_channels = config["output_channels"]
+        self.final_activation = config["final_activation"]
+        c = int(config.get("in_channels", 3))
+
+        self.down = nn.ModuleList()
+        skip_channels = []
+        for f, k in list(zip(filters, kernels))[:-1]:
+            self.down.append(nn.ModuleDict({
+                "conv": init_conv(generator, k, c, f),
+                "norm": init_norm(norm, f, affine=True)}))
+            skip_channels.append(f)
+            c = f
+        self.bottom = init_conv(generator, kernels[-1], c, filters[-1])
+        c = filters[-1]
+        self.up = nn.ModuleList()
+        for f, k, skip_c in zip(filters[::-1][:-1], kernels[:0:-1],
+                                skip_channels[::-1]):
+            # the norm runs after the concat, over skip and up channels
+            self.up.append(nn.ModuleDict({
+                "convt": init_conv(generator, k, c, f, transpose=True),
+                "norm": init_norm(norm, skip_c + f, affine=True)}))
+            c = skip_c + f
+        self.last = init_conv(generator, 4, c, output_channels,
+                              transpose=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        skips = []
+        for level in self.down:
+            conv = level["conv"]
+            x = conv2d(x, conv["w"], conv["b"], stride=2)
+            x = apply_norm_act(level["norm"], x, "relu")
+            skips.insert(0, x)
+        x = conv2d(x, self.bottom["w"], self.bottom["b"], stride=2)
+        for level, skip in zip(self.up, skips):
+            convt = level["convt"]
+            x = conv2d_transpose(x, convt["w"], convt["b"], stride=2)
+            x = concat_channels([skip, x])
+            x = apply_norm_act(level["norm"], x, "relu")
+        x = conv2d_transpose(x, self.last["w"], self.last["b"], stride=2)
         return apply_activation(x, self.final_activation)

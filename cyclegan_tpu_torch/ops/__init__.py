@@ -10,6 +10,7 @@ from cyclegan_tpu_torch.ops.conv import (
     conv2d_reflect,
     conv2d_transpose,
 )
+from cyclegan_tpu_torch.ops.layout import concat_channels
 from cyclegan_tpu_torch.ops.norm import instance_norm
 from cyclegan_tpu_torch.ops.pad import reflection_pad2d
 from cyclegan_tpu_torch.ops.pool import avg_pool2x2
@@ -18,6 +19,7 @@ from cyclegan_tpu_torch.ops.resize import resize_bilinear, upsample_concat
 __all__ = [
     "apply_activation",
     "avg_pool2x2",
+    "concat_channels",
     "conv2d",
     "conv2d_reflect",
     "conv2d_transpose",

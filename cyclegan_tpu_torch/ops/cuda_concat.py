@@ -1,17 +1,24 @@
-"""The pooled U-Net's up-path junction, concat(skip, upsample2x(x)) over
-channels on NHCW activations, and its adjoint: kernels K4 and K8, their
-plain versions, and the autograd Function that joins them.
+"""The U-Nets' channel concats on NHCW activations and their adjoints:
+kernels K4, K8, K11 and K12, their plain versions, and the autograd
+Functions that join them.
 
-Replaces cyclegan_tpu/ops/pallas_concat.py ``concat_up2_nhcw``: its forward
-``_concat_up2_call`` (K4, ``kernels/csrc/concat_up2.cu``) and its backward
-``_split_pool2_call`` (K8, ``kernels/csrc/split_pool2.cu``).
+- The pooled U-Net's up-path junction, concat(skip, upsample2x(x)), replaces
+  cyclegan_tpu/ops/pallas_concat.py ``concat_up2_nhcw``: its forward
+  ``_concat_up2_call`` (K4, ``kernels/csrc/concat_up2.cu``) and its backward
+  ``_split_pool2_call`` (K8, ``kernels/csrc/split_pool2.cu``). Fusing the
+  upsample into the concat saves a write and a read of the upsampled
+  tensor, and fusing the split with the sums saves the same in the
+  backward. One thread per output element, coalesced writes. K4 copies
+  values unconverted and K8 adds in f32 in the Pallas order (row pair, then
+  column pair), so both equal their plain versions exactly.
+- The plain two-piece channel concat (``ops/layout.concat_channels``)
+  replaces ``concat2_nhcw``: its forward ``_concat2_call`` (K11) and its
+  backward ``_split2_call`` (K12), both in ``kernels/csrc/concat2.cu``: row
+  segmented copies in 16-byte units where the lengths and pointers allow.
+  K12 reads the gradient once and writes both pieces. Exact.
 
-Bound on the H100: bytes; the forward is a copy, the backward a copy plus
-2x2 sums. Fusing the upsample into the concat saves a write and a read of
-the upsampled tensor, and fusing the split with the sums saves the same in
-the backward. One thread per output element, coalesced writes. K4 copies
-values unconverted and K8 adds in f32 in the Pallas order (row pair, then
-column pair), so both equal their plain versions exactly.
+Bound on the H100: bytes; the forwards are copies, the backwards copies
+plus (K8) 2x2 sums. There is no gate: any W and C run, in bf16 and f32.
 """
 
 from __future__ import annotations
@@ -125,3 +132,96 @@ def concat_up2_nhcw(skip: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """skip [B,2h,C1,2w], x [B,h,C2,w] -> [B,2h,C1+C2,2w], skip first;
     differentiable in both."""
     return ConcatUp2.apply(skip.contiguous(), x.contiguous())
+
+
+def _check2(a, b):
+    if (a.dim() != 4 or b.dim() != 4 or a.shape[:2] != b.shape[:2]
+            or a.shape[3] != b.shape[3] or a.dtype != b.dtype):
+        raise ValueError(f"concat2 takes a [B,H,C1,W] and b [B,H,C2,W] of "
+                         f"one dtype, got {tuple(a.shape)} {a.dtype} and "
+                         f"{tuple(b.shape)} {b.dtype}")
+
+
+def concat2_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a ++ b over channels (dim 2)."""
+    _check2(a, b)
+    return torch.cat([a, b], dim=2)
+
+
+def concat2_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch K11 on CUDA tensors."""
+    _check2(a, b)
+    kernels.check_cuda("concat2", a, b)
+    B, H, C1, W = a.shape
+    C2 = b.shape[2]
+    out = torch.empty((B, H, C1 + C2, W), dtype=a.dtype, device=a.device)
+    fn = kernels.function("concat2", f"concat2_{kernels.dtype_suffix(a)}",
+                          [P, P, P, I, I, I, P])
+    err = fn(kernels.ptr(a), kernels.ptr(b), kernels.ptr(out), B * H,
+             C1 * W, C2 * W, kernels.stream())
+    kernels.check("concat2", err)
+    kernels.launches["concat2"] += 1
+    return out
+
+
+def _concat2(a, b):
+    if a.is_cuda:
+        return concat2_cuda(a, b)
+    if a.device.type == "cpu":
+        return concat2_plain(a, b)
+    raise ValueError(f"concat2: no kernel for device {a.device}")
+
+
+def _check_split2(g, c1):
+    if g.dim() != 4 or not 0 < c1 < g.shape[2]:
+        raise ValueError(f"split2 takes g [B,H,C,W] and 0 < C1 < C, got "
+                         f"{tuple(g.shape)} and C1 = {c1}")
+
+
+def split2_plain(g: torch.Tensor, c1: int):
+    """(g[:, :, :c1], g[:, :, c1:]), each contiguous."""
+    _check_split2(g, c1)
+    return g[:, :, :c1].contiguous(), g[:, :, c1:].contiguous()
+
+
+def split2_cuda(g: torch.Tensor, c1: int):
+    """Launch K12 on a CUDA tensor; returns (da, db)."""
+    _check_split2(g, c1)
+    kernels.check_cuda("split2", g)
+    B, H, C, W = g.shape
+    da = torch.empty((B, H, c1, W), dtype=g.dtype, device=g.device)
+    db = torch.empty((B, H, C - c1, W), dtype=g.dtype, device=g.device)
+    fn = kernels.function("concat2", f"split2_{kernels.dtype_suffix(g)}",
+                          [P, P, P, I, I, I, P])
+    err = fn(kernels.ptr(g), kernels.ptr(da), kernels.ptr(db), B * H,
+             c1 * W, (C - c1) * W, kernels.stream())
+    kernels.check("concat2", err)
+    kernels.launches["split2"] += 1
+    return da, db
+
+
+def split2(g: torch.Tensor, c1: int):
+    if g.is_cuda:
+        return split2_cuda(g, c1)
+    if g.device.type == "cpu":
+        return split2_plain(g, c1)
+    raise ValueError(f"split2: no kernel for device {g.device}")
+
+
+class Concat2(torch.autograd.Function):
+    """The channel concat: forward K11, backward K12."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.c1 = a.shape[2]
+        return _concat2(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split2(g.contiguous(), ctx.c1)
+
+
+def concat2_nhcw(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [B,H,C1,W] ++ b [B,H,C2,W] -> [B,H,C1+C2,W]; differentiable in
+    both."""
+    return Concat2.apply(a.contiguous(), b.contiguous())

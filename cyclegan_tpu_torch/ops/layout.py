@@ -7,7 +7,11 @@ what its TPU counterpart took. Parameters are layout-free.
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
+
+from cyclegan_tpu_torch.ops.cuda_concat import concat2_nhcw
 
 
 def to_nhcw(x: torch.Tensor) -> torch.Tensor:
@@ -18,6 +22,16 @@ def to_nhcw(x: torch.Tensor) -> torch.Tensor:
 def from_nhcw(x: torch.Tensor) -> torch.Tensor:
     """NHCW -> NHWC, contiguous."""
     return x.transpose(2, 3).contiguous()
+
+
+def concat_channels(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Concat over the channel axis (2). Two pieces go through K11 and its
+    split K12 (``cuda_concat.concat2_nhcw``) on the card and their plain
+    versions on the CPU; any other number is ``torch.cat``, as the JAX
+    package sends it to ``jnp.concatenate``."""
+    if len(xs) == 2:
+        return concat2_nhcw(*xs)
+    return torch.cat(list(xs), dim=2)
 
 
 def channel_param(p: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,7 @@ wrappers call there.
 
 import collections
 
+import numpy as np
 import pytest
 import torch
 
@@ -16,9 +17,11 @@ import chip_smoke
 from cyclegan_tpu_torch import steps
 from cyclegan_tpu_torch.config import yaml2namespace
 from cyclegan_tpu_torch.data.augment import random_jitter_batch
-from cyclegan_tpu_torch.models import ResNetGenerator, UNetGenerator
+from cyclegan_tpu_torch.models import ResNetGenerator, create_model
 from cyclegan_tpu_torch.ops import (cuda_concat, cuda_conv, cuda_norm_act,
                                     cuda_reflect, cuda_resize)
+
+NEW_RECIPES = ["configs/unet_transpose.yaml", "configs/strided_unet.yaml"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -35,12 +38,12 @@ def _one_torch_thread():
 @pytest.mark.parametrize("config", [
     "model_instances/converged256/model_config.yaml",
     "configs/smoke.yaml",
+    *NEW_RECIPES,
 ])
 def test_launch_plan_matches_a_recorded_forward(config, monkeypatch):
     cfg = yaml2namespace(config).generator
     batch, size = 2, 32
-    seen = {"conv_same": [], "instance_norm_act": [], "sum2x2": [],
-            "concat_up2": []}
+    seen = collections.defaultdict(list)
 
     def record(module, name, key, shape_of):
         plain = getattr(module, name)
@@ -61,10 +64,12 @@ def test_launch_plan_matches_a_recorded_forward(config, monkeypatch):
     record(cuda_concat, "concat_up2_plain", "concat_up2",
            lambda skip, x: (skip.shape[0], skip.shape[1], skip.shape[2],
                             x.shape[2]))
-    model = UNetGenerator(cfg, torch.Generator().manual_seed(0))
+    record(cuda_concat, "concat2_plain", "concat2",
+           lambda a, b: (a.shape[0], a.shape[1], a.shape[2], b.shape[2]))
+    model = create_model(cfg, torch.Generator().manual_seed(0))
     with torch.no_grad():
         model(torch.zeros(batch, size, 3, size))
-    assert chip_smoke.generator_launches(cfg, batch, size) == seen
+    assert chip_smoke.generator_launches(cfg, batch, size) == dict(seen)
 
 
 def _norm_shape(x, gamma, beta, eps, act, *args, **kwargs):
@@ -132,6 +137,10 @@ def _record_train_step(monkeypatch, model_cfg, batch, size):
                             x.shape[2]))
     record(cuda_concat, "split_pool2_plain", "split_pool2",
            lambda g, c1: (g.shape[0], g.shape[1], c1, g.shape[2] - c1))
+    record(cuda_concat, "concat2_plain", "concat2",
+           lambda a, b: (a.shape[0], a.shape[1], a.shape[2], b.shape[2]))
+    record(cuda_concat, "split2_plain", "split2",
+           lambda g, c1: (g.shape[0], g.shape[1], c1, g.shape[2] - c1))
 
     def jitter(generator, a, b):
         return (random_jitter_batch(generator, a, size),
@@ -150,6 +159,7 @@ def _record_train_step(monkeypatch, model_cfg, batch, size):
 @pytest.mark.parametrize("config", [
     "model_instances/converged256/model_config.yaml",
     "configs/cycle.yaml",
+    *NEW_RECIPES,
 ])
 def test_train_launch_plan_matches_a_recorded_step(config, monkeypatch):
     model_cfg = yaml2namespace(config)
@@ -176,6 +186,45 @@ def test_default_train_step_launch_counts():
     # is a real image
     k4 = collections.Counter(s[6] for s in plan["conv_same"] if s[4] == 4)
     assert k4 == {1: 6 * 14, 2: 6 * 14 - 4}
+
+
+@pytest.mark.parametrize("config,forward,step", [
+    ("configs/unet_transpose.yaml",
+     {"conv_same": 15, "instance_norm_act": 17, "sum2x2": 3, "concat2": 3},
+     {"conv_same": 304, "conv_dw": 134, "instance_norm_act": 174,
+      "instance_norm_act_bwd": 174, "sum2x2": 30, "dup2x2": 30,
+      "concat2": 30, "split2": 30}),
+    ("configs/strided_unet.yaml",
+     {"instance_norm_act": 6, "concat2": 3},
+     {"conv_same": 128, "conv_dw": 44, "instance_norm_act": 96,
+      "instance_norm_act_bwd": 96, "sum2x2": 12, "dup2x2": 12,
+      "concat_up2": 12, "split_pool2": 12, "concat2": 18, "split2": 18}),
+])
+def test_new_recipe_launch_counts(config, forward, step):
+    """Per serving forward and per batch-8 256x256 train step: K11 and K12
+    at every concat (3 per generator, 2 per transpose-expansion
+    discriminator; 6 generator and 6 discriminator applications)."""
+    cfg = yaml2namespace(config)
+    serve = chip_smoke.serve_launches(cfg.generator, 8, 256)
+    assert {k: len(v) for k, v in serve.items()} == forward
+    plan = chip_smoke.train_launches(cfg, 8, 256)
+    assert {k: len(v) for k, v in plan.items()} == step
+    # every serving launch is a launch of the train step's forwards
+    for name, shapes in serve.items():
+        assert set(shapes) <= set(plan[name]), name
+
+
+def test_new_recipe_concat_shapes():
+    t = chip_smoke.train_launches(yaml2namespace(NEW_RECIPES[0]), 8, 256)
+    # the generators' three levels, and the discriminators' two, which
+    # concat the same widths at 128 and 256
+    assert collections.Counter(t["concat2"]) == {
+        (8, 64, 64, 128): 6, (8, 128, 32, 64): 12, (8, 256, 16, 32): 12}
+    s = chip_smoke.train_launches(yaml2namespace(NEW_RECIPES[1]), 8, 256)
+    assert set(s["concat2"]) == {(8, 32, 64, 128), (8, 64, 32, 64),
+                                 (8, 128, 16, 32)}
+    # the strided up norms take skip + up channels
+    assert (8, 32, 192, "relu", True) in s["instance_norm_act"]
 
 
 def test_resnet_launch_plan_matches_a_recorded_forward(monkeypatch):
@@ -222,8 +271,50 @@ def test_resnet_f32_point_is_kink_free():
         model_cfg, "cpu", "float32", x, seed=point["seed"]))
     assert kink > chip_smoke.KINK_MARGIN
     assert set(grads) == set(steps.NETWORKS)
-    assert all(bool(torch.isfinite(g).all()) and g.norm() > 0
-               for g in grads.values())
+    flat = [chip_smoke._flat(g) for g in grads.values()]
+    assert all(bool(torch.isfinite(g).all()) and g.norm() > 0 for g in flat)
+
+
+@pytest.mark.parametrize("config", NEW_RECIPES)
+def test_unet_f32_point_is_kink_free(config):
+    """The full-width f32 steps of the transpose-expansion and strided
+    recipes at chip_smoke's comparison point (betas at +-(3..4)) meet no
+    ReLU input within KINK_MARGIN of zero."""
+    model_cfg = yaml2namespace(config)
+    point = chip_smoke.UNET_F32_POINT
+    x = chip_smoke.f32_point_inputs(point)
+    grads, kink = chip_smoke.nearest_kink(lambda: chip_smoke.step_grads(
+        model_cfg, "cpu", "float32", x, seed=point["seed"],
+        beta=point["beta"]))
+    assert kink > chip_smoke.KINK_MARGIN
+    assert set(grads) == set(steps.NETWORKS)
+    flat = [chip_smoke._flat(g) for g in grads.values()]
+    assert all(bool(torch.isfinite(g).all()) and g.norm() > 0 for g in flat)
+
+
+@pytest.mark.parametrize("config", [
+    "configs/cycle.yaml", "configs/resnet.yaml", *NEW_RECIPES])
+def test_pre_norm_bias_names_the_biases_a_norm_removes(config):
+    """Adding a constant to a bias that ``pre_norm_bias`` names leaves the
+    network's output as it was (up to rounding); adding it to any other
+    bias moves the output."""
+    cfg = yaml2namespace(config)
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (1, 32, 3, 32)).astype(np.float32))
+    for part in ("generator", "discriminator"):
+        model = create_model(cfg[part], torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            base = model(x)
+            for key, p in model.named_parameters():
+                if not key.endswith(".b"):
+                    continue
+                p += 0.5
+                moved = float((model(x) - base).abs().max())
+                p -= 0.5
+                if chip_smoke.pre_norm_bias(key):
+                    assert moved <= 1e-4, (part, key, moved)
+                else:
+                    assert moved > 1e-3, (part, key, moved)
 
 
 @pytest.mark.parametrize("shape", [(2, 8, 3, 3), (1, 6, 5, 1)])

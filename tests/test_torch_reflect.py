@@ -7,8 +7,8 @@ They are held against ``pallas_conv.conv2d_reflect_nhcw`` in interpret mode
 and its ``jax.vjp`` at W = 128 and a small H (the shapes of
 ``tests/test_pallas_conv.py``), in f32, with JAX's own tolerances there:
 2e-5 for the output and dX, 2e-4 for dW. The stride-2 conv, the
-transposed conv (k3 and k4) and the reflection pad are held against the
-JAX ops (XLA, f32 HIGHEST) at 1e-5.
+transposed conv (k3, k4, k5 and k7) and the reflection pad are held against
+the JAX ops (XLA, f32 HIGHEST) at 1e-5.
 """
 
 import jax
@@ -157,7 +157,7 @@ def test_stride2_conv_and_vjp_match_jax(k):
                                    np.asarray(ref), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("k", [3, 4])
+@pytest.mark.parametrize("k", [3, 4, 5, 7])
 def test_conv_transpose_and_vjp_match_jax(k):
     x = _np((2, 5, 6, 4), 70)  # NHWC -> output 10x12
     w = _np((k, k, 3, 4), 71, 0.2)  # HWOI

@@ -115,9 +115,11 @@ def test_random_init_is_seeded_and_distributed():
 
 
 @pytest.mark.parametrize("change,error", [
-    ({"expansion": "transpose"}, NotImplementedError),
+    ({"expansion": "transpose", "normalization": "batchnorm"},
+     NotImplementedError),
     ({"normalization": "batchnorm"}, NotImplementedError),
-    ({"type": "strided_unet"}, NotImplementedError),
+    ({"type": "strided_unet", "normalization": "batchnorm"},
+     NotImplementedError),
     ({"type": "simple_discriminator", "normalization": "batchnorm"},
      NotImplementedError),
     ({"type": "no_such_model"}, KeyError),
