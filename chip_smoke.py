@@ -5,9 +5,10 @@
 
 from the root of the repository, on a machine with a CUDA card and nvcc.
 It needs no network and writes only the kernel build
-(``cyclegan_tpu_torch/kernels/build``), a temporary model folder, and, with
-``--out``, the per-launch details (``chip_smoke_detail.json``) and profiler
-traces of each serving forward and train step (``*_trace.json``) into DIR.
+(``cyclegan_tpu_torch/kernels/build``), temporary model and data folders,
+and, with ``--out``, the per-launch details (``chip_smoke_detail.json``)
+and profiler traces of each serving forward and train step
+(``*_trace.json``) into DIR.
 Four recipes at full width and depth, batch 8, 256x256: the default U-Net
 recipe (``configs/cycle.yaml`` = converged256), the canonical ResNet
 recipe (``configs/resnet.yaml``: ResNet-9 generator, filters 32, PatchGAN
@@ -23,7 +24,9 @@ and the strided U-Net generator with the default U-Net discriminator
    TF32 off: K1-K4, K1 at the input gradient's pad and on the reflect
    conv's padded dY, K2's mu and rstd, K2 and K6 with and without
    gamma/beta and with ReLU, none and LeakyReLU, K5-K8, the reflect
-   conv's K9, K9-dW and K10, and the channel concat K11 and its split K12;
+   conv's K9, K9-dW and K10, the channel concat K11 and its split K12, and
+   the NHWC instance norm K13 (with its mean and rstd) at every norm of
+   the NHWC train steps of phases 12-13, affine and not;
 3. each kernel's time at those shapes (CUDA events, median after warm-up)
    beside its plain version, one PyTorch library call for the same
    function where there is one, and the least time the card could take;
@@ -56,7 +59,21 @@ and the strided U-Net generator with the default U-Net discriminator
    forward);
 10. strided U-Net training, as phase 8 (K11 and K12 18 each per step, the
     discriminators' K4 and K8 12 each);
-11. its serving, as phase 7 (6 norm and 3 concat launches per forward).
+11. its serving, as phase 7 (6 norm and 3 concat launches per forward);
+12. U-Net training in the NHWC layout with ``pallas_norm``, as phase 5:
+    library convolutions (cuDNN), every instance norm on K13 (144 launches
+    per step, ``nhwc_train_launches``) and no launch of K1-K12, its f32
+    gradients at ``UNET_NHWC_F32_POINT`` (converged256 with every beta at
+    +-(3..4), batch 1 at 32x32, kink-free, asserted);
+13. ResNet training in the NHWC layout with ``pallas_norm``, as phase 6
+    (156 K13 launches per step), its f32 gradients at ``RESNET_F32_POINT``;
+14. the trainer through its CLI (``cyclegan_tpu_torch.train.main``) on
+    TFRecords the port writes (seeded uint8 images, ``CLI_IMAGES`` per
+    domain): ``configs/cycle.yaml`` at batch 8, two epochs in NHWC with
+    ``pallas_norm`` (K13 only), a reload that must give back the saved
+    parameters, Adam moments, step and generator, one more epoch from the
+    checkpoint (the step and ``current_epoch`` carry on), then one epoch
+    with ``tpu_layout: auto``, which is NHCW on the card (K1-K8, no K13).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' numbers as JSON.
@@ -91,6 +108,7 @@ DEVICE = "cuda"
 BATCH = 8
 SIZE = 256
 GRAD_BATCH = 2           # the card-vs-CPU gradient comparison
+CLI_IMAGES = 40          # per domain: 32 train and 8 validation images
 TIMED_REPS = 20
 TRAIN_STEPS_TIMED = 10
 
@@ -140,6 +158,10 @@ TOL = {
     ("concat2", torch.float32): (0.0, 0.0),
     ("split2", torch.bfloat16): (0.0, 0.0),
     ("split2", torch.float32): (0.0, 0.0),
+    ("instance_norm_nhwc", torch.bfloat16): (1e-2, 1e-2),
+    ("instance_norm_nhwc", torch.float32): (1e-4, 1e-4),
+    ("instance_norm_nhwc.stats", torch.bfloat16): (1e-4, 1e-5),
+    ("instance_norm_nhwc.stats", torch.float32): (1e-4, 1e-5),
 }
 _CSRC = "cyclegan_tpu_torch/kernels/csrc/"
 SOURCES = {
@@ -173,6 +195,8 @@ SOURCES = {
                 "cyclegan_tpu/ops/pallas_concat.py:106", []),
     "split2": (_CSRC + "concat2.cu",
                "cyclegan_tpu/ops/pallas_concat.py:140", []),
+    "instance_norm_nhwc": (_CSRC + "instance_norm_nhwc.cu",
+                           "cyclegan_tpu/ops/pallas_norm.py:120", []),
 }
 # what a library yardstick is where it is not one call
 LIBRARY_NOTES = {
@@ -192,6 +216,8 @@ TRACE_FAMILIES = (
     ("concat_up2_kernel", "concat_up2"),
     ("split_pool2_kernel", "split_pool2"),
     ("concat2_kernel", "concat2"), ("split2_kernel", "split2"),
+    ("partial_sums_kernel", "instance_norm_nhwc"),
+    ("normalize_kernel", "instance_norm_nhwc"),
     # the library convolutions (stride 2, transposed) of the ResNet recipe
     # and the transpose-expansion and strided U-Nets
     ("cudnn", "library conv"), ("xmma", "library conv"),
@@ -229,6 +255,11 @@ RESNET_F32_POINT = {"size": 16, "batch": 1, "seed": 354}
 # recipe do), and seeded input, batch 1 at 32x32; no ReLU input within
 # KINK_MARGIN of zero (asserted).
 UNET_F32_POINT = {"size": 32, "batch": 1, "seed": 0, "beta": [3.0, 4.0]}
+# The NHWC U-Net's f32 point (phase 12), converged256 with the betas moved
+# likewise: at batch 2, 256² the cuDNN step on an H100 put d_A 1.09e-3
+# from the CPU's (kinks), and seed 0 leaves a ReLU input only 1.5e-5 from
+# its kink in NHWC, seed 2 1.5e-4.
+UNET_NHWC_F32_POINT = {"size": 32, "batch": 1, "seed": 2, "beta": [3.0, 4.0]}
 KINK_MARGIN = 1e-5
 
 failures = []
@@ -446,12 +477,36 @@ def resnet_train_launches(model_cfg, batch, size):
     return out
 
 
+def forward_norms(cfg, batch, size):
+    """The instance norms of one forward of any network, in order, as
+    (B, H, C, affine)."""
+    if cfg["type"] == "resnet_generator":
+        plan = resnet_generator_launches(cfg, batch, size)
+    elif cfg["type"] == "simple_discriminator":
+        plan = patchgan_launches(cfg, batch, size)
+    else:
+        plan = generator_launches(cfg, batch, size)
+    return [(b, h, c, affine)
+            for b, h, c, _, affine in plan.get("instance_norm_act", [])]
+
+
+def nhwc_train_launches(model_cfg, batch, size):
+    """The kernel launches of one NHWC train step with ``pallas_norm``
+    (``make_train_step(tpu_layout=False, pallas_norm=True)``): K13, one
+    per instance norm of each of the 6 generator and 6 discriminator
+    applications, (B, H, C, affine). Its backward is torch ops and its
+    convolutions are the library's: nothing else launches."""
+    return {"instance_norm_nhwc":
+            forward_norms(model_cfg["generator"], batch, size) * 6
+            + forward_norms(model_cfg["discriminator"], batch, size) * 6}
+
+
 def make_case(name, shape, dtype, seed):
     """Inputs of one launch, made on the card from a seed. Returns
     (kernel call, plain call, library call or None, bytes, operations,
     checks): both calls return a tuple of outputs, and checks names each
     output's tolerance key and scale."""
-    from cyclegan_tpu_torch.ops import (cuda_concat, cuda_conv,
+    from cyclegan_tpu_torch.ops import (cuda_concat, cuda_conv, cuda_norm,
                                         cuda_norm_act, cuda_reflect,
                                         cuda_resize)
 
@@ -636,6 +691,24 @@ def make_case(name, shape, dtype, seed):
                 lambda: (gy[:, :, :c1].contiguous(),
                          gy[:, :, c1:].contiguous()),
                 2 * gy.numel() * size, 0, [(name, 1.0), (name, 1.0)])
+    if name == "instance_norm_nhwc":
+        B, H, c, affine = shape
+        x = rnd(B, H, H, c, scale=1.5, offset=0.5)
+        gamma = rnd(c, scale=0.1, offset=1.0) if affine else None
+        beta = rnd(c, scale=0.1) if affine else None
+        n = x.numel()
+        # x read and y written once, gamma, beta, mean and rstd; Σx, Σx²,
+        # (x - mean)·rstd [·γ + β]: 5 operations per element, 7 affine
+        return (lambda: cuda_norm.instance_norm_nhwc_cuda(
+                    x, gamma, beta, 1e-3),
+                lambda: cuda_norm.instance_norm_nhwc_plain(
+                    x, gamma, beta, 1e-3),
+                lambda: F.instance_norm(x.permute(0, 3, 1, 2), weight=gamma,
+                                        bias=beta, eps=1e-3),
+                (2 * n + (2 * c if affine else 0)) * size + 2 * B * c * 4,
+                (7 if affine else 5) * n,
+                [(name, 1.0), (name + ".stats", 1.0),
+                 (name + ".stats", 1.0)])
     raise KeyError(name)
 
 
@@ -714,8 +787,10 @@ def check_kernels(shapes):
                              f"err {err} beyond rtol {rtol} atol {atol} "
                              f"x scale")
             max_err[(name, dtype)] = worst
+            rtol, atol = TOL[(name, dtype)]
             print(f"check {name:22s} {str(dtype):14s} {len(counter):2d} "
-                  f"shapes  max_abs_err {worst:.3e}", flush=True)
+                  f"shapes  max_abs_err {worst:.3e}  bound |d| <= {rtol:g} "
+                  f"|plain| + {atol:g} x scale", flush=True)
     return max_err
 
 
@@ -890,21 +965,22 @@ def serve(label, model_dir, forward_plan, out_dir):
     x = layout.to_nhcw(normalize(torch.as_tensor(image).to(DEVICE)).to(
         torch.bfloat16))
     model = session.models["g_AB"]
-    with torch.inference_mode():
+    # the generator alone runs in the session's NHCW layout scope
+    with torch.inference_mode(), layout.nhcw():
         fwd_ms = time_ms(lambda: model(x))
     torch.cuda.reset_peak_memory_stats()
-    with torch.inference_mode():
+    with torch.inference_mode(), layout.nhcw():
         model(x)
     torch.cuda.synchronize()
     enqueue = []  # host time to issue one forward, the card idle before
-    with torch.inference_mode():
+    with torch.inference_mode(), layout.nhcw():
         for _ in range(TIMED_REPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             model(x)
             enqueue.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    with torch.inference_mode():
+    with torch.inference_mode(), layout.nhcw():
         trace = device_trace(lambda: model(x), out_dir, 5,
                              f"{label}_forward_trace.json")
     metrics = {
@@ -991,13 +1067,15 @@ def f32_errors(got, want):
 
 
 def step_grads(model_cfg, device, dtype, x, model_dir=None, seed=0,
-               beta=None):
-    """The gradients one train step (no jitter) leaves on inputs ``x``."""
+               beta=None, **step_kw):
+    """The gradients one train step (no jitter) leaves on inputs ``x``;
+    ``step_kw`` picks the layout (``make_train_step``'s ``tpu_layout`` and
+    ``pallas_norm``)."""
     from cyclegan_tpu_torch.steps import make_train_step
 
     s = _train_state(model_cfg, device, model_dir, seed, beta)
-    make_train_step(model_cfg["loss"], model_cfg["loss_weights"], dtype)(
-        s, *(t.to(device) for t in x))
+    make_train_step(model_cfg["loss"], model_cfg["loss_weights"], dtype,
+                    **step_kw)(s, *(t.to(device) for t in x))
     return _grads(s)
 
 
@@ -1016,11 +1094,19 @@ def f32_point_inputs(point):
 def nearest_kink(run):
     """``run()``'s result on the CPU, and the smallest |input| of any ReLU
     or LeakyReLU it met: the output of a norm (gamma x_hat + beta where
-    affine) before its activation."""
+    affine) before its activation, fused (NHCW) or not (NHWC)."""
     from cyclegan_tpu_torch.ops import cuda_norm_act
+    from cyclegan_tpu_torch.ops import norm as norm_ops
 
     plain = cuda_norm_act.instance_norm_act_plain
+    activation = norm_ops.activation
     nearest = [math.inf]
+
+    def recording_activation(y, act, alpha):
+        if act != "none":
+            nearest[0] = min(nearest[0],
+                             float(y.detach().float().abs().min()))
+        return activation(y, act, alpha)
 
     def recording(x, gamma, beta, eps=1e-3, act="relu", alpha=0.2,
                   with_stats=False):
@@ -1034,21 +1120,26 @@ def nearest_kink(run):
         return (out, mu, rstd) if with_stats else out
 
     cuda_norm_act.instance_norm_act_plain = recording
+    norm_ops.activation = recording_activation
     try:
         result = run()
     finally:
         cuda_norm_act.instance_norm_act_plain = plain
+        norm_ops.activation = activation
     return result, nearest[0]
 
 
-def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None):
-    """Phases 5, 6, 8 and 10: training ``model_cfg`` from ``model_dir``'s
-    weights (seeded random weights if None) against the launch ``plan``
-    ({kernel: shapes}) of one step. The f32 gradients are compared on the
-    step's first GRAD_BATCH images, or at ``f32_point`` where given
-    (inputs, and weights where there is no ``model_dir``, from its seed,
-    with its betas where it names them; asserted kink-free). Returns the
-    main path's launches, metrics and the trained state."""
+def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None,
+          **step_kw):
+    """Phases 5, 6, 8, 10, 12 and 13: training ``model_cfg`` from
+    ``model_dir``'s weights (seeded random weights if None) against the
+    launch ``plan`` ({kernel: shapes}) of one step, in the layout
+    ``step_kw`` gives ``make_train_step`` (NHCW by default; phases 12 and
+    13 pass ``tpu_layout=False, pallas_norm=True``). The f32 gradients are
+    compared on the step's first GRAD_BATCH images, or at ``f32_point``
+    where given (inputs, and weights where there is no ``model_dir``, from
+    its seed, with its betas where it names them; asserted kink-free).
+    Returns the main path's launches, metrics and the trained state."""
     from cyclegan_tpu_torch import kernels
     from cyclegan_tpu_torch.data.augment import (normalize,
                                                  random_jitter_batch)
@@ -1067,7 +1158,7 @@ def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None):
     start = {name: [p.detach().clone() for p in m.parameters()]
              for name, m in state.models.items()}
     step16 = make_train_step(model_cfg["loss"], model_cfg["loss_weights"],
-                             "bfloat16", preprocess=jitter)
+                             "bfloat16", preprocess=jitter, **step_kw)
 
     # 5.1: the main path, one bf16 step with the counts zeroed around it
     kernels.reset_launches()
@@ -1085,7 +1176,7 @@ def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None):
     # setting, which the port must override where it matters
     x = [normalize(t[:GRAD_BATCH]) for t in batch]
     grads = {(device, dtype): step_grads(model_cfg, device, dtype, x,
-                                         model_dir)
+                                         model_dir, **step_kw)
              for device, dtype in (("cpu", "float32"), (DEVICE, "bfloat16"),
                                    ("cpu", "bfloat16"))}
     f32_at = {"batch": GRAD_BATCH, "size": SIZE, "seed": None}
@@ -1097,7 +1188,7 @@ def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None):
         f32_beta = f32_point.get("beta")
         f32_ref, kink = nearest_kink(lambda: step_grads(
             model_cfg, "cpu", "float32", f32_x, model_dir, f32_seed,
-            f32_beta))
+            f32_beta, **step_kw))
         f32_at["nearest_kink"] = kink
         print(f"{label} f32 point {json.dumps(f32_at)}", flush=True)
         if not kink > KINK_MARGIN:
@@ -1108,7 +1199,7 @@ def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None):
              f"cudnn.allow_tf32 = True")
     grads[(DEVICE, "float32")] = step_grads(model_cfg, DEVICE, "float32",
                                             f32_x, model_dir, f32_seed,
-                                            f32_beta)
+                                            f32_beta, **step_kw)
     ref = grads[("cpu", "float32")]
     grad_errors = {"f32_point": f32_at}
     for name in ref:
@@ -1169,6 +1260,7 @@ def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None):
     trace = device_trace(lambda: step16(state, *batch), out_dir, 3,
                          f"{label}_trace.json")
     result = {"batch": BATCH, "size": SIZE, "compute_dtype": "bfloat16",
+              "step": step_kw or {"tpu_layout": True},
               "step_ms": step_s * 1e3, "img_per_s": BATCH / step_s,
               "peak_mib": peak_mib,
               "host_issue_ms_median": statistics.median(issue) * 1e3,
@@ -1181,6 +1273,153 @@ def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None):
     return main_launches, result, state
 
 
+def _same_state(a, b):
+    """Where two ``steps.TrainState``s differ: parameters, Adam moments and
+    counts, the step and the augmentation generator, compared exactly."""
+    diffs = []
+    for name, model in a.models.items():
+        other = dict(b.models[name].named_parameters())
+        opt_a, opt_b = a.optimizers[name].state, b.optimizers[name].state
+        for key, p in model.named_parameters():
+            q = other[key]
+            if not torch.equal(p, q):
+                diffs.append(f"{name}.{key}")
+            for slot in ("exp_avg", "exp_avg_sq", "step"):
+                if not torch.equal(opt_a[p][slot], opt_b[q][slot]):
+                    diffs.append(f"{name}.{key} {slot}")
+    if a.step != b.step:
+        diffs.append(f"step {a.step} vs {b.step}")
+    if not torch.equal(a.generator.get_state(), b.generator.get_state()):
+        diffs.append("augmentation generator")
+    return diffs
+
+
+def trainer_cli(workdir):
+    """Phase 14: ``cyclegan_tpu_torch.train.main`` on TFRecords written
+    into ``workdir`` (CLI_IMAGES seeded uint8 SIZE² images per domain, the
+    port's own PNG and CRC32C), ``configs/cycle.yaml`` at batch BATCH,
+    bf16. Returns ({run: launches}, metrics)."""
+    from cyclegan_tpu_torch import kernels
+    from cyclegan_tpu_torch.config import (Namespace, namespace2yaml,
+                                           yaml2namespace)
+    from cyclegan_tpu_torch.data import png
+    from cyclegan_tpu_torch.data.codec import image2example
+    from cyclegan_tpu_torch.data.tfrecord import write_tfrecord_file
+    from cyclegan_tpu_torch.train import main as train_main
+    from cyclegan_tpu_torch.trainer import CycleGan
+
+    rng = np.random.default_rng(0)
+    data = workdir / "data"
+    start = time.perf_counter()
+    for domain in ("tabby_records", "tortie_records"):
+        (data / domain).mkdir(parents=True)
+        images = rng.integers(0, 256, (CLI_IMAGES, SIZE, SIZE, 3),
+                              dtype=np.uint8)
+        write_tfrecord_file(data / domain / "00000.tfrecords",
+                            (image2example(im) for im in images))
+    metrics = {"records": 2 * CLI_IMAGES,
+               "write_records_s": time.perf_counter() - start,
+               "png_decode_ms_by_row_filter": {}}
+    # the stdlib PNG decoder on one SIZE² image per row filter (host only)
+    for row_filter in range(5):
+        blob = png.encode_png(images[0], row_filter)
+        start = time.perf_counter()
+        decoded = png.decode_png(blob)
+        metrics["png_decode_ms_by_row_filter"][row_filter] = (
+            time.perf_counter() - start) * 1e3
+        if not np.array_equal(decoded, images[0]):
+            fail(f"PNG row filter {row_filter}: decode differs")
+
+    model_cfg = yaml2namespace(ROOT / "configs" / "cycle.yaml")
+    model_cfg.location = str(workdir / "models")
+    train_cfg = yaml2namespace(TRAIN_CONFIG)
+    train_cfg.update(batch_size=BATCH, image_size=SIZE, epochs=2,
+                     tpu_layout=False, pallas_norm=True)
+    train_cfg.summary = dict(train_cfg.summary, model=1)
+    steps_per_epoch = (CLI_IMAGES - int(0.2 * CLI_IMAGES)) // BATCH
+    runs, launches = {}, {}
+
+    def run(label, model_yaml, tc):
+        train_yaml = workdir / f"{label}_train_config.yaml"
+        namespace2yaml(train_yaml, tc)
+        kernels.reset_launches()
+        start = time.perf_counter()
+        gan = train_main(["--model_config", str(model_yaml),
+                          "--train_config", str(train_yaml),
+                          "--data_dir", str(data), "--device", DEVICE])
+        torch.cuda.synchronize()
+        launches[label] = {k: v for k, v in kernels.launches.items() if v}
+        runs[label] = {"seconds": time.perf_counter() - start,
+                       "tpu_layout": gan.tpu_layout, "step": gan.state.step,
+                       "launches": launches[label], "epochs": gan.history,
+                       "train_img_per_s": [
+                           r["train_steps"] * BATCH / r["train_seconds"]
+                           for r in gan.history]}
+        print(f"trainer {label}: {json.dumps(runs[label])}", flush=True)
+        for record in gan.history:
+            values = [*record["train"].values(),
+                      *record["validation"].values()]
+            if not all(np.isfinite(v) for v in values):
+                fail(f"trainer {label}: non-finite metrics {record}")
+        return gan
+
+    # 14.1: two epochs in NHWC with pallas_norm, from scratch
+    first = workdir / "model_config.yaml"
+    namespace2yaml(first, model_cfg)
+    gan = run("nhwc", first, train_cfg)
+    folder = Path(gan.model_folder)
+    saved = yaml2namespace(folder / "model_config.yaml")
+    if gan.tpu_layout or set(launches["nhwc"]) != {"instance_norm_nhwc"}:
+        fail(f"trainer nhwc: layout NHCW {gan.tpu_layout}, launches "
+             f"{launches['nhwc']}, expected K13 only")
+    if gan.state.step != 2 * steps_per_epoch or saved.current_epoch != 2 \
+            or saved.new is not False:
+        fail(f"trainer nhwc: step {gan.state.step}, current_epoch "
+             f"{saved.get('current_epoch')}, new {saved.get('new')}")
+
+    # 14.2: the checkpoint reloads what was saved
+    resume_cfg = Namespace(dict(train_cfg, epochs=1))
+    reloaded = CycleGan(yaml2namespace(folder / "model_config.yaml"),
+                        resume_cfg, device=DEVICE)
+    diffs = _same_state(gan.state, reloaded.state)
+    if not np.array_equal(reloaded.a_samples, gan.a_samples):
+        diffs.append("sample images")
+    metrics["reload_differences"] = diffs
+    if diffs:
+        fail(f"trainer reload differs from the saved state: {diffs[:8]}")
+    del reloaded, gan
+
+    # 14.3: one more epoch from the checkpoint
+    gan = run("resume", folder / "model_config.yaml", resume_cfg)
+    saved = yaml2namespace(folder / "model_config.yaml")
+    metrics["resumed_step"] = gan.state.step
+    metrics["resumed_current_epoch"] = saved.current_epoch
+    if gan.state.step != 3 * steps_per_epoch or saved.current_epoch != 3:
+        fail(f"trainer resume: step {gan.state.step}, current_epoch "
+             f"{saved.current_epoch}, expected {3 * steps_per_epoch} and 3")
+    if set(launches["resume"]) != {"instance_norm_nhwc"}:
+        fail(f"trainer resume: launches {launches['resume']}")
+    del gan
+
+    # 14.4: one epoch with tpu_layout auto: NHCW on the card
+    auto_cfg = Namespace(dict(resume_cfg))
+    del auto_cfg["tpu_layout"]
+    auto = workdir / "model_config_auto.yaml"
+    namespace2yaml(auto, dict(model_cfg, name="model_auto", new=True))
+    gan = run("auto", auto, auto_cfg)
+    nhcw = ("conv_same", "instance_norm_act", "sum2x2", "concat_up2",
+            "conv_dw", "instance_norm_act_bwd", "dup2x2", "split_pool2")
+    if not gan.tpu_layout or "instance_norm_nhwc" in launches["auto"] or \
+            not all(launches["auto"].get(k) for k in nhcw):
+        fail(f"trainer auto: NHCW {gan.tpu_layout}, launches "
+             f"{launches['auto']}, expected K1-K8 and no K13")
+    metrics["runs"] = runs
+    total = collections.Counter(launches["nhwc"])
+    total.update(launches["resume"])
+    return ({"trainer_cli_nhwc": dict(total),
+             "trainer_cli_nhcw": launches["auto"]}, metrics)
+
+
 def kernel_entries(rows, max_err, launches, forwards, serve_plans):
     """The ``kernels`` JSON line: per kernel, its launches in every main
     path's run (``launches`` their sum), and its times summed over the
@@ -1188,7 +1427,8 @@ def kernel_entries(rows, max_err, launches, forwards, serve_plans):
     train step and by serving forward)."""
     from cyclegan_tpu_torch import kernels
 
-    train_paths = [p for p in launches if p not in serve_plans]
+    planned = set(rows[0]["per_step"]) if rows else set()
+    train_paths = [p for p in launches if p in planned]
     entries = []
     for name in kernels.KERNELS:
         mine = [r for r in rows if r["kernel"] == name]
@@ -1203,6 +1443,10 @@ def kernel_entries(rows, max_err, launches, forwards, serve_plans):
                     collections.Counter(plan.get(name, [])).items()]
             paths[path] = _sums(used, launches[path].get(name, 0))
             paths[path]["forwards"] = forwards[path]
+        for path in launches:  # the trainer's runs: launches only
+            if path not in paths:
+                paths[path] = {"launches": launches[path].get(name, 0)}
+        paths = {path: v for path, v in paths.items() if v["launches"]}
         total = _sums([(r, sum(r["per_step"][p] for p in train_paths))
                        for r in mine], 0)
         source, replaces, also = SOURCES[name]
@@ -1279,6 +1523,12 @@ def main(argv=None) -> int:
     plans = {f"{name}_train": (resnet_train_launches if name == "resnet"
                                else train_launches)(cfg, BATCH, SIZE)
              for name, cfg in cfgs.items()}
+    # phases 12-13: the NHWC layout with pallas_norm
+    nhwc = (("unet", MODEL_DIR, UNET_NHWC_F32_POINT),
+            ("resnet", None, RESNET_F32_POINT))
+    for name, _, _ in nhwc:
+        plans[f"{name}_train_nhwc"] = nhwc_train_launches(cfgs[name], BATCH,
+                                                          SIZE)
     paths = {path: unique_shapes(plan) for path, plan in plans.items()}
     with no_tf32():
         max_err = check_kernels(union_shapes(paths))
@@ -1307,6 +1557,16 @@ def main(argv=None) -> int:
              metrics[serve_path]) = serve(serve_path, Path(tmp),
                                           serve_plans[serve_path], out_dir)
         stamp(serve_path)
+    for name, model_dir, point in nhwc:
+        path = f"{name}_train_nhwc"
+        launches[path], metrics[path], _ = train(
+            path, cfgs[name], plans[path], model_dir, out_dir, point,
+            tpu_layout=False, pallas_norm=True)
+        stamp(path)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches, metrics["trainer_cli"] = trainer_cli(Path(tmp))
+    launches.update(cli_launches)
+    stamp("phase 14 (trainer CLI)")
 
     entries = kernel_entries(rows, max_err, launches, forwards, serve_plans)
     for path, plan in {**plans, **serve_plans}.items():

@@ -2,9 +2,10 @@
 (cyclegan_tpu/apps/inference.py ``InferenceSession``).
 
 Loads the model config and the two generators' weights from a model
-folder and stylizes uint8 image batches. The generator runs on NHCW
-activations between one transpose in and one out, so on the card every
-conv, norm, pool and junction of the forward is a hand-written kernel. The
+folder and stylizes uint8 image batches. The generator runs in the NHCW
+layout (``layout.nhcw()``) between one transpose in and one out, so on the
+card every conv, norm, pool and junction of the forward is a hand-written
+kernel. The
 generators are the modules training updates; serving freezes them
 (``requires_grad_(False)``, eval mode) and runs under ``inference_mode``,
 so no backward state is kept and the norm kernel writes no statistics.
@@ -81,5 +82,6 @@ class InferenceSession:
         x = torch.as_tensor(np.asarray(images)).to(self.device)
         x = normalize(x) if x.dtype == torch.uint8 else x.to(torch.float32)
         x = x.to(self.compute_dtype)
-        y = layout.from_nhcw(model(layout.to_nhcw(x)))
+        with layout.nhcw():
+            y = layout.from_nhcw(model(layout.to_nhcw(x)))
         return denormalize_to_uint8(y.to(torch.float32)).cpu().numpy()

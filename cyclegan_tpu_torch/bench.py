@@ -4,17 +4,20 @@
     python -m cyclegan_tpu_torch.bench [--batch 8] [--image-size 256]
         [--steps 30] [--warmup 5] [--dtype bfloat16|float32]
         [--model_config configs/cycle.yaml] [--device cuda|cpu]
+        [--layout nhcw|nhwc] [--pallas]
 
 from the root of the repository. It builds the four networks and their
 optimizers from ``--model_config`` and ``configs/training_config.yaml``
 (random weights from seed 0), feeds seeded uint8 noise through the jitter
 inside every step, and times ``--steps`` steps after ``--warmup`` on the
 host clock between two ``torch.cuda.synchronize()``. It prints one JSON
-line: ``metric``, ``value``, ``unit`` (images/sec/chip), the device's name
-and the mean step time. ``--device`` defaults to ``cuda`` and
-the run raises where there is no card; ``--device cpu`` runs the kernels'
-plain versions on the CPU (a check that the path runs, not a device
-number).
+line: ``metric``, ``value``, ``unit`` (images/sec/chip), the device's name,
+the layout and the mean step time. ``--layout nhcw`` (the default) is the
+kernel path K1-K12; ``--layout nhwc`` the library convolutions, with
+``--pallas`` every instance norm on K13 (the JAX bench's flags).
+``--device`` defaults to ``cuda`` and the run raises where there is no
+card; ``--device cpu`` runs the kernels' plain versions on the CPU (a check
+that the path runs, not a device number).
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ TRAIN_CONFIG = "configs/training_config.yaml"
 
 
 def build(batch: int, image_size: int, dtype: str, model_config_path: str,
-          device: str, seed: int = 0):
+          device: str, seed: int = 0, tpu_layout: bool = True,
+          pallas_norm: bool = False):
     """(train_step, state, real_a, real_b): the default recipe's step with
     the jitter inside it, and one seeded uint8 batch per domain on
     ``device``."""
@@ -51,7 +55,8 @@ def build(batch: int, image_size: int, dtype: str, model_config_path: str,
                 random_jitter_batch(generator, b, image_size))
 
     step = make_train_step(model_config.loss, model_config.loss_weights,
-                           dtype, preprocess)
+                           dtype, preprocess, tpu_layout=tpu_layout,
+                           pallas_norm=pallas_norm)
     noise = torch.Generator(device=device).manual_seed(seed)
     shape = (batch, image_size, image_size, 3)
     real_a, real_b = (torch.randint(0, 256, shape, generator=noise,
@@ -76,6 +81,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                         help="compute dtype of the networks (parameters "
                         "stay f32, losses are f32)")
     parser.add_argument("--model_config", default="configs/cycle.yaml")
+    parser.add_argument("--layout", default="nhcw", choices=["nhcw", "nhwc"],
+                        help="activation layout of the step: nhcw (the "
+                        "kernels K1-K12) or nhwc (library convolutions)")
+    parser.add_argument("--pallas", action="store_true",
+                        help="with --layout nhwc, every instance norm on "
+                        "K13")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default; raises without a card) or "
                         "cpu (the kernels' plain versions)")
@@ -85,9 +96,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         raise RuntimeError("bench: no CUDA device; pass --device cpu to run "
                            "on the CPU")
 
-    step, state, real_a, real_b = build(args.batch, args.image_size,
-                                        args.dtype, args.model_config,
-                                        args.device)
+    step, state, real_a, real_b = build(
+        args.batch, args.image_size, args.dtype, args.model_config,
+        args.device, tpu_layout=args.layout == "nhcw",
+        pallas_norm=args.pallas)
     for _ in range(args.warmup):
         step(state, real_a, real_b)
     _sync(device)
@@ -99,6 +111,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     result = {
         "metric": f"train_images_per_sec_{args.image_size}px_b{args.batch}_"
                   f"{args.dtype}",
+        "layout": args.layout, "pallas_norm": args.pallas,
         "value": args.batch / seconds,
         "unit": "images/sec/chip",
         "device": (torch.cuda.get_device_name(device)

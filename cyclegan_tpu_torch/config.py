@@ -1,11 +1,14 @@
-"""Config I/O: YAML files into attribute namespaces
-(cyclegan_tpu/config.py ``Namespace`` and ``yaml2namespace``).
+"""Config I/O: YAML files to and from attribute namespaces
+(cyclegan_tpu/config.py ``Namespace``, ``yaml2namespace`` and
+``namespace2yaml``).
 
 PyYAML is not a dependency of the port, so this module reads the subset
 of YAML the repo's configs use: nested block mappings, block lists (at or
 below their key's indentation), flow lists ``[a, b]``, plain and quoted
 scalars resolved as PyYAML's safe loader resolves them (null, bool, int,
 float, string), and ``#`` comments. Anything else raises ``ValueError``.
+It writes the same subset, which PyYAML's safe loader reads back to the
+same values.
 """
 
 from __future__ import annotations
@@ -102,14 +105,20 @@ def _value(text: str) -> Any:
 
 def _strip_comment(line: str) -> str:
     quote = None
-    for i, ch in enumerate(line):
+    i = 0
+    while i < len(line):
+        ch = line[i]
         if quote:
             if ch == quote:
+                if quote == "'" and line[i + 1:i + 2] == "'":
+                    i += 2  # '' is a quote inside a single-quoted scalar
+                    continue
                 quote = None
         elif ch in "'\"" and (i == 0 or line[i - 1] in " :[,-"):
             quote = ch
         elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
             return line[:i]
+        i += 1
     return line
 
 
@@ -198,3 +207,79 @@ def yaml2namespace(yaml_path) -> Namespace:
     """Load a YAML file into a Namespace."""
     with open(yaml_path, "r") as f:
         return Namespace(parse_yaml(f.read()))
+
+
+_PLAIN = re.compile(r"^[A-Za-z0-9_./][A-Za-z0-9_./ -]*$")
+
+
+def _emit_scalar(value: Any) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if value != value:
+            return ".nan"
+        if value in (float("inf"), float("-inf")):
+            return ".inf" if value > 0 else "-.inf"
+        # PyYAML's representer: a float without a dot gets one before the
+        # exponent, since 1e-07 alone resolves to a string
+        text = repr(value).lower()
+        if "." not in text and "e" in text:
+            text = text.replace("e", ".0e", 1)
+        return text
+    if isinstance(value, str):
+        if _PLAIN.match(value) and value == value.strip() and \
+                _scalar(value) == value:
+            return value
+        return "'" + value.replace("'", "''") + "'"
+    raise TypeError(f"cannot write {type(value).__name__} {value!r} as YAML")
+
+
+def _emit(value: Any, indent: int, lines: List[str]) -> None:
+    pad = " " * indent
+    if isinstance(value, dict):
+        for key, item in value.items():
+            head = f"{pad}{_emit_scalar(str(key))}:"
+            if isinstance(item, dict) and item:
+                lines.append(head)
+                _emit(item, indent + 2, lines)
+            elif isinstance(item, (list, tuple)) and item:
+                lines.append(head)
+                _emit(list(item), indent + 2, lines)
+            else:
+                lines.append(f"{head} {_emit_inline(item)}")
+    else:
+        for item in value:
+            if isinstance(item, (dict, list, tuple)) and item:
+                raise TypeError(f"cannot write a nested collection in a "
+                                f"list as YAML: {item!r}")
+            lines.append(f"{pad}- {_emit_inline(item)}")
+
+
+def _emit_inline(value: Any) -> str:
+    if isinstance(value, dict):
+        return "{}"
+    if isinstance(value, (list, tuple)):
+        return "[]"
+    return _emit_scalar(value)
+
+
+def dump_yaml(data: Any) -> str:
+    """A mapping of scalars, mappings and lists of scalars as block YAML."""
+    if not isinstance(data, dict):
+        raise TypeError("the top level of a config is a mapping")
+    lines: List[str] = []
+    _emit(data, 0, lines)
+    return "\n".join(lines) + "\n"
+
+
+def namespace2yaml(yaml_path, namespace: Namespace) -> None:
+    """Write a Namespace (or dict) to a YAML file that ``yaml2namespace``
+    (and PyYAML) read back to the same values."""
+    data = namespace.to_dict() if isinstance(namespace, Namespace) else \
+        Namespace(namespace).to_dict()
+    with open(yaml_path, "w") as f:
+        f.write(dump_yaml(data))

@@ -16,11 +16,12 @@ from cyclegan_tpu_torch.kernels._build import build_dir, check, function
 # K1-K4 serve and train; K5-K8 are their backward kernels; K9 (the reflect
 # conv), its weight gradient K9-dW and K10 (the fold of its input gradient)
 # serve and train the ResNet recipe; K11 (the plain channel concat) and
-# K12 (its split) those of the transpose-expansion and strided U-Nets.
+# K12 (its split) those of the transpose-expansion and strided U-Nets; K13
+# (the NHWC instance norm) the NHWC layout's norms with ``pallas_norm``.
 KERNELS = ("conv_same", "instance_norm_act", "sum2x2", "concat_up2",
            "conv_dw", "instance_norm_act_bwd", "dup2x2", "split_pool2",
            "conv_reflect", "conv_reflect_dw", "reflect_fold", "concat2",
-           "split2")
+           "split2", "instance_norm_nhwc")
 launches = {name: 0 for name in KERNELS}
 
 P = ctypes.c_void_p

@@ -48,7 +48,9 @@ def init_norm(norm_type: str, channels: int,
 
 def apply_norm_act(params: nn.ParameterDict, x: torch.Tensor,
                    act: str = "relu", alpha: float = 0.2) -> torch.Tensor:
-    """Instance norm then activation, one fused op (K2 on the card)."""
+    """Instance norm then activation: in NHCW one fused op (K2 on the
+    card), in NHWC the norm (K13 with ``pallas_norm``, else torch ops) and
+    then the activation (``ops/norm.py``)."""
     return instance_norm(x, params["gamma"] if "gamma" in params else None,
                          params["beta"] if "beta" in params else None,
                          act=act, alpha=alpha)

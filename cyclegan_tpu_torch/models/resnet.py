@@ -1,5 +1,6 @@
-"""The canonical CycleGAN networks (cyclegan_tpu/models/resnet.py), on NHCW
-activations: the ResNet generator and the PatchGAN discriminator.
+"""The canonical CycleGAN networks (cyclegan_tpu/models/resnet.py), on
+activations in the current layout (``ops/layout.py``): the ResNet generator
+and the PatchGAN discriminator.
 
 ``ResNetGenerator`` (``resnet_generator``): a reflect-padded 7x7 stem, two
 stride-2 3x3 downsamples, nine residual blocks of two reflect-padded 3x3
@@ -36,9 +37,9 @@ N_RESIDUAL_BLOCKS = 9
 
 
 class ResNetGenerator(nn.Module):
-    """ResNet-9 generator; ``forward`` takes and returns NHCW
-    ``[B, H, 3, W]``, H and W divisible by 4. Mandatory config field:
-    ``filters`` (an int)."""
+    """ResNet-9 generator; ``forward`` takes and returns 3-channel
+    activations in the current layout, H and W divisible by 4. Mandatory
+    config field: ``filters`` (an int)."""
 
     def __init__(self, config: Mapping[str, Any],
                  generator: Optional[torch.Generator] = None):
@@ -73,9 +74,9 @@ class ResNetGenerator(nn.Module):
 
 
 class SimpleDiscriminator(nn.Module):
-    """PatchGAN; ``forward`` takes NHCW ``[B, H, C, W]`` and returns the
-    patch logits ``[B, H / 2^N, 1, W / 2^N]``. Mandatory config fields:
-    filters, kernels, normalization."""
+    """PatchGAN; ``forward`` takes activations in the current layout and
+    returns one channel of patch logits at H / 2^N, W / 2^N. Mandatory
+    config fields: filters, kernels, normalization."""
 
     def __init__(self, config: Mapping[str, Any],
                  generator: Optional[torch.Generator] = None):

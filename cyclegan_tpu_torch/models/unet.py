@@ -1,4 +1,5 @@
-"""The U-Nets (cyclegan_tpu/models/unet.py), on NHCW activations.
+"""The U-Nets (cyclegan_tpu/models/unet.py), on activations in the current
+layout (``ops/layout.py``).
 
 ``UNetGenerator`` (``unet_generator``): the default recipe's generators
 (16/32/64/128, all k4, tanh) and, from the same builder, its
@@ -17,7 +18,7 @@ no norm; per up level a stride-2 conv-transpose with bias, the skip concat,
 then affine instance norm -> ReLU over both; a last k4 conv-transpose to
 the output channels and the final activation. Its stride-2 convs and
 conv-transposes are library convolutions (``ops/conv.py``), as the JAX
-package runs them in XLA; its norms and concats run kernels.
+package runs them in XLA; in NHCW its norms and concats run kernels.
 
 Parameter names and shapes are the JAX package's. Every op is
 differentiable through the kernels' autograd Functions, so the same module
@@ -68,8 +69,9 @@ def _apply_double_conv(blocks: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
 
 
 class UNetGenerator(nn.Module):
-    """Pooled U-Net; ``forward`` takes and returns NHCW ``[B, H, C, W]``
-    and is differentiable in the input and the parameters.
+    """Pooled U-Net; ``forward`` takes and returns activations in the
+    current layout (NHWC ``[B, H, W, C]`` or NHCW ``[B, H, C, W]``) and is
+    differentiable in the input and the parameters.
 
     Mandatory config fields, as in the JAX builder (KeyError if absent):
     filters, kernels, expansion, normalization, dropout, output_channels,
@@ -142,9 +144,9 @@ class UNetGenerator(nn.Module):
 
 
 class StridedUNet(nn.Module):
-    """Strided U-Net; ``forward`` takes NHCW ``[B, H, C, W]``, H and W
-    divisible by 2^len(filters), and returns ``[B, H, output_channels,
-    W]``.
+    """Strided U-Net; ``forward`` takes activations in the current layout,
+    H and W divisible by 2^len(filters), and returns output_channels of the
+    same H and W.
 
     Mandatory config fields, as in the JAX builder: filters, kernels,
     normalization, output_channels, final_activation.

@@ -1,7 +1,8 @@
-"""Image ops on NHCW activations. Each op with a hand-written kernel is an
-autograd Function whose forward and backward launch the kernels for a CUDA
-tensor and run their plain PyTorch versions for a CPU tensor; nothing else
-decides between the two."""
+"""Image ops on activations in the current layout (``ops/layout.py``): NHWC
+by default, NHCW inside ``layout.nhcw()``. Each op with a hand-written
+kernel is an autograd Function whose forward and backward launch the
+kernels for a CUDA tensor and run their plain PyTorch versions for a CPU
+tensor; nothing else decides between the two."""
 
 from cyclegan_tpu_torch.ops import layout
 from cyclegan_tpu_torch.ops.activations import apply_activation, leaky_relu

@@ -1,9 +1,12 @@
-"""Convolution on NHCW activations with HWIO weights
+"""Convolution with HWIO weights on activations in the current layout
 (cyclegan_tpu/ops/conv.py ``conv2d``, ``conv2d_reflect``,
 ``conv2d_transpose``).
 
-Where the JAX package runs a Pallas kernel, the port runs a hand-written
-one, chosen by the tensor's device and nothing else:
+In NHWC every conv is the library convolution (cuDNN on the card, ATen on
+the CPU) on the channels_last NCHW view of the activation, as the JAX
+package runs that layout in XLA. In NHCW, where the JAX package runs a
+Pallas kernel, the port runs a hand-written one, chosen by the tensor's
+device and nothing else:
 
 - stride-1 TF-'SAME' ``conv2d``: K1 forward and input gradient, K5 weight
   gradient (``ops/cuda_conv.py``);
@@ -32,8 +35,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from cyclegan_tpu_torch.ops import layout
 from cyclegan_tpu_torch.ops.cuda_conv import conv_same
 from cyclegan_tpu_torch.ops.cuda_reflect import conv_reflect
+from cyclegan_tpu_torch.ops.pad import reflection_pad2d
 
 
 def _same_pad(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -90,42 +95,70 @@ class LibraryConv(torch.autograd.Function):
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 2, 1, 3)
+    """The NCHW view of an activation in the current layout (no copy): in
+    NHWC it is the channels_last view, which cuDNN convolves as it is."""
+    return x.permute(0, 2, 1, 3) if layout.is_nhcw() else x.permute(0, 3, 1, 2)
+
+
+def _from_nchw(y: torch.Tensor) -> torch.Tensor:
+    """A conv output viewed NCHW back in the current layout, contiguous; in
+    NHWC that copies nothing where the library kept channels_last."""
+    if layout.is_nhcw():
+        return y.permute(0, 2, 1, 3).contiguous()
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _library_conv(x: torch.Tensor, kernel: torch.Tensor,
+                  bias: Optional[torch.Tensor], stride: int) -> torch.Tensor:
+    """TF-'SAME' conv as the library's, on the explicitly padded input: in
+    NHWC the pad is on dims 1-2, so the NCHW view stays channels_last."""
+    k = int(kernel.shape[0])
+    h_axis, w_axis = layout.spatial_axes()
+    ph = _same_pad(int(x.shape[h_axis]), k, stride)
+    pw = _same_pad(int(x.shape[w_axis]), k, stride)
+    if layout.is_nhcw():
+        xp = F.pad(_nchw(x), (*pw, *ph))
+    else:
+        xp = _nchw(F.pad(x, (0, 0, *pw, *ph)))
+    y = LibraryConv.apply(xp, kernel.permute(3, 2, 0, 1), bias, stride, 0,
+                          False, 0)
+    return _from_nchw(y)
 
 
 def conv2d(x: torch.Tensor, kernel: torch.Tensor,
            bias: Optional[torch.Tensor] = None, stride: int = 1,
            padding: str = "SAME") -> torch.Tensor:
-    """x [B,H,C,W], kernel [K,K,C,Cout] HWIO -> [B, ceil(H/s), Cout,
-    ceil(W/s)], TF 'SAME'. Stride 1 is K1; any other stride is the library
-    convolution on the explicitly padded input."""
+    """x in the current layout, kernel [K,K,C,Cout] HWIO -> ceil(H/s) x
+    ceil(W/s) x Cout, TF 'SAME'. In NHCW stride 1 is K1; anything else is
+    the library convolution on the explicitly padded input."""
     if padding != "SAME":
         raise NotImplementedError(
             f"conv2d(padding={padding!r}): only 'SAME' is ported; the "
             f"reflect-padded VALID conv is conv2d_reflect")
-    if stride == 1:
+    if stride == 1 and layout.is_nhcw():
         return conv_same(x, kernel, bias)
-    k = int(kernel.shape[0])
-    ph = _same_pad(int(x.shape[1]), k, stride)
-    pw = _same_pad(int(x.shape[3]), k, stride)
-    xp = F.pad(_nchw(x), (*pw, *ph))
-    y = LibraryConv.apply(xp, kernel.permute(3, 2, 0, 1), bias, stride, 0,
-                          False, 0)
-    return _nchw(y).contiguous()
+    return _library_conv(x, kernel, bias, stride)
 
 
 def conv2d_reflect(x: torch.Tensor, kernel: torch.Tensor,
                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Reflect-pad(K//2) + VALID convolution, odd K: output H, W == input
-    H, W (the reference's ReflectionPadding2D + Conv2D(padding='valid'))."""
-    return conv_reflect(x, kernel, bias)
+    H, W (the reference's ReflectionPadding2D + Conv2D(padding='valid')).
+    In NHCW it is K9; in NHWC ``reflection_pad2d`` and the library
+    convolution, as the JAX package's XLA path composes them."""
+    if layout.is_nhcw():
+        return conv_reflect(x, kernel, bias)
+    p = int(kernel.shape[0]) // 2
+    y = LibraryConv.apply(_nchw(reflection_pad2d(x, (p, p))),
+                          kernel.permute(3, 2, 0, 1), bias, 1, 0, False, 0)
+    return _from_nchw(y)
 
 
 def conv2d_transpose(x: torch.Tensor, kernel: torch.Tensor,
                      bias: Optional[torch.Tensor] = None,
                      stride: int = 2) -> torch.Tensor:
-    """TF ``Conv2DTranspose(padding='same')``: x [B,H,C,W], kernel stored
-    TF-style HWOI [K,K,Cout,C] -> [B, H*s, Cout, W*s].
+    """TF ``Conv2DTranspose(padding='same')``: x in the current layout,
+    kernel stored TF-style HWOI [K,K,Cout,C] -> H*s x W*s x Cout.
 
     JAX computes it as the stride-dilated input convolved with the flipped
     kernel under padding (K-1-pb, s-1+pb), pb the TF 'SAME' pad before of a
@@ -140,4 +173,4 @@ def conv2d_transpose(x: torch.Tensor, kernel: torch.Tensor,
                           before, True, max(extra, 0))
     if extra < 0:
         y = y[:, :, :y.shape[2] + extra, :y.shape[3] + extra]
-    return _nchw(y).contiguous()
+    return _from_nchw(y)

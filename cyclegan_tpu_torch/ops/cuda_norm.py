@@ -1,0 +1,191 @@
+"""Instance norm on NHWC activations: kernel K13, its plain version, and
+the autograd Function that joins them (cyclegan_tpu/ops/pallas_norm.py).
+
+K13 (``kernels/csrc/instance_norm_nhwc.cu``) replaces the Pallas kernel
+``_forward_call``, the layout's opt-in instance norm (``pallas_norm: true``
+in a train config). Like it, it computes the statistics in f32 in one sweep,
+mean = E[x] and var = max(E[x^2] - mean^2, 0) whatever the input type, and
+writes y = (x - mean) * rsqrt(var + eps) [* gamma + beta] in x's type with
+mean and rstd (f32 [N, 1, C]) for the backward. The backward is torch ops
+computing the Pallas VJP (``pallas_norm.py`` ``_instance_norm_bwd``),
+which is plain XLA there: no kernel. The JAX package takes the kernel only
+where ``profitable(C)`` (a 128-lane padding rule of the TPU); the port has
+no gate, so with ``pallas_norm`` every NHWC instance norm runs K13.
+
+``scope(enabled)`` turns the kernel on for one train or validation step
+and restores the previous setting after it (the JAX trainer flips a process
+flag once and never resets it).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional, Tuple
+
+import torch
+
+from cyclegan_tpu_torch import kernels
+from cyclegan_tpu_torch.kernels import F as CF
+from cyclegan_tpu_torch.kernels import I, P
+
+TFA_EPSILON = 1e-3
+THREADS = 256           # kernels/csrc/instance_norm_nhwc.cu
+TARGET_BLOCKS = 4 * 132  # a few waves over the H100's 132 SMs
+
+_ENABLED = False
+
+
+def is_enabled() -> bool:
+    return _ENABLED
+
+
+@contextlib.contextmanager
+def scope(enabled: bool = True):
+    """Route NHWC instance norms through K13 (on a CPU tensor its plain
+    version) inside the block."""
+    global _ENABLED
+    prev = _ENABLED
+    _ENABLED = bool(enabled)
+    try:
+        yield
+    finally:
+        _ENABLED = prev
+
+
+def _check(x, gamma, beta):
+    if x.dim() != 4:
+        raise ValueError(f"instance_norm_nhwc takes x [N,H,W,C], got "
+                         f"{tuple(x.shape)}")
+    if (gamma is None) != (beta is None):
+        raise ValueError("instance_norm_nhwc takes gamma and beta together")
+    for p in (gamma, beta):
+        if p is not None and tuple(p.shape) != (x.shape[3],):
+            raise ValueError(f"per-channel parameter {tuple(p.shape)} for "
+                             f"{x.shape[3]} channels")
+
+
+def instance_norm_nhwc_plain(x: torch.Tensor, gamma: Optional[torch.Tensor],
+                             beta: Optional[torch.Tensor],
+                             eps: float = TFA_EPSILON
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The kernel's function with explicit f32 sums over the N's HW rows:
+    (y [N,H,W,C] in x's type, mean, rstd f32 [N, 1, C])."""
+    _check(x, gamma, beta)
+    n, h, w, c = x.shape
+    x3 = x.reshape(n, h * w, c).float()
+    count = float(h * w)
+    mean = x3.sum(dim=1, keepdim=True) / count
+    var = torch.clamp((x3 * x3).sum(dim=1, keepdim=True) / count
+                      - mean * mean, min=0.0)
+    rstd = torch.rsqrt(var + eps)
+    y = (x3 - mean) * rstd
+    if gamma is not None:
+        y = y * gamma.float() + beta.float()
+    return y.to(x.dtype).reshape(n, h, w, c), mean, rstd
+
+
+def plan_of(shape, dtype: torch.dtype,
+            aligned: bool) -> Tuple[bool, int, int]:
+    """(16-byte vectors, channel tile in vectors, row splits) of a launch
+    on x of ``shape`` [N, H, W, C], as the kernel lays out its grid: a
+    thread moves 16 bytes where C allows and the pointers are ``aligned``,
+    a block takes up to 32 channel vectors and THREADS / tile row lanes,
+    and the rows of each sample are split so the grid reaches
+    TARGET_BLOCKS blocks, each split keeping at least four rows per
+    lane."""
+    n, h, w, c = shape
+    per_vec = 16 // torch.empty((), dtype=dtype).element_size()
+    vec = aligned and c % per_vec == 0
+    cv = c // per_vec if vec else c
+    tile = min(cv, 32)
+    rows = THREADS // tile
+    tiles = -(-cv // tile)
+    splits = -(-TARGET_BLOCKS // (n * tiles))
+    splits = max(1, min(splits, (h * w) // (4 * rows), 65535))
+    return vec, tile, splits
+
+
+def instance_norm_nhwc_cuda(x: torch.Tensor, gamma: Optional[torch.Tensor],
+                            beta: Optional[torch.Tensor],
+                            eps: float = TFA_EPSILON):
+    """Launch K13 on CUDA tensors; returns (y, mean, rstd) as the plain
+    version does."""
+    _check(x, gamma, beta)
+    kernels.check_cuda("instance_norm_nhwc", x, gamma, beta)
+    n, h, w, c = x.shape
+    vec, _, splits = plan_of(x.shape, x.dtype, x.data_ptr() % 16 == 0)
+    y = torch.empty_like(x)
+    mean = torch.empty((n, 1, c), dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mean)
+    ws = torch.empty((2, n, splits, c), dtype=torch.float32, device=x.device)
+    fn = kernels.function(
+        "instance_norm_nhwc", f"instance_norm_nhwc_{kernels.dtype_suffix(x)}",
+        [P, P, P, P, P, P, P, P, I, I, I, I, CF, I, P])
+    err = fn(kernels.ptr(x), kernels.ptr(gamma), kernels.ptr(beta),
+             kernels.ptr(y), kernels.ptr(mean), kernels.ptr(rstd),
+             kernels.ptr(ws[0]), kernels.ptr(ws[1]), n, h * w, c, splits,
+             float(eps), int(vec), kernels.stream())
+    kernels.check("instance_norm_nhwc", err)
+    kernels.launches["instance_norm_nhwc"] += 1
+    return y, mean, rstd
+
+
+def _instance_norm_nhwc(x, gamma, beta, eps):
+    """K13 or its plain version, by the tensor's device."""
+    if x.is_cuda:
+        return instance_norm_nhwc_cuda(x, gamma, beta, eps)
+    if x.device.type == "cpu":
+        return instance_norm_nhwc_plain(x, gamma, beta, eps)
+    raise ValueError(f"instance_norm_nhwc: no kernel for device {x.device}")
+
+
+def instance_norm_nhwc_bwd(x, dy, gamma, mean, rstd):
+    """(dx, dgamma, dbeta) of the Pallas VJP (``pallas_norm.py``
+    ``_instance_norm_bwd``): with x_hat = (x - mean) rstd and dyg = dy gamma,
+    dx = rstd (dyg - mean(dyg) - x_hat mean(dyg x_hat)) over the HW rows,
+    dgamma = sum dy x_hat and dbeta = sum dy over (N, HW); f32 math, dx in
+    x's type, dgamma and dbeta in gamma's (None without gamma)."""
+    n, h, w, c = x.shape
+    xf = x.reshape(n, h * w, c).float()
+    dyf = dy.reshape(n, h * w, c).float()
+    xhat = (xf - mean) * rstd
+    dyg = dyf * gamma.float() if gamma is not None else dyf
+    m1 = dyg.mean(dim=1, keepdim=True)
+    m2 = (dyg * xhat).mean(dim=1, keepdim=True)
+    dx = (rstd * (dyg - m1 - xhat * m2)).to(x.dtype).reshape(n, h, w, c)
+    if gamma is None:
+        return dx, None, None
+    return (dx, (dyf * xhat).sum(dim=(0, 1)).to(gamma.dtype),
+            dyf.sum(dim=(0, 1)).to(gamma.dtype))
+
+
+class InstanceNormNHWC(torch.autograd.Function):
+    """y = instance_norm(x) [* gamma + beta]: forward K13 (which keeps mean
+    and rstd), backward ``instance_norm_nhwc_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        y, mean, rstd = _instance_norm_nhwc(x, gamma, beta, eps)
+        ctx.save_for_backward(x, gamma, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, mean, rstd = ctx.saved_tensors
+        dx, dgamma, dbeta = instance_norm_nhwc_bwd(x, dy, gamma, mean, rstd)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dgamma if ctx.needs_input_grad[1] else None,
+                dbeta if ctx.needs_input_grad[2] else None, None)
+
+
+def instance_norm_nhwc(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
+                       beta: Optional[torch.Tensor] = None,
+                       eps: float = TFA_EPSILON) -> torch.Tensor:
+    """x [N,H,W,C]; gamma, beta [C] or None (non-affine); differentiable in
+    x, gamma and beta."""
+    x = x.contiguous()
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, gamma, beta)):
+        return InstanceNormNHWC.apply(x, gamma, beta, eps)
+    return _instance_norm_nhwc(x, gamma, beta, eps)[0]

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from cyclegan_tpu_torch import kernels
 from cyclegan_tpu_torch.kernels import I, P
 from cyclegan_tpu_torch.ops import cuda_conv
-from cyclegan_tpu_torch.ops.pad import reflection_pad2d
+from cyclegan_tpu_torch.ops.pad import reflection_pad2d_nhcw
 
 
 def _check_pad(k: int, h: int, w: int) -> None:
@@ -58,7 +58,7 @@ def conv_reflect_plain(x: torch.Tensor, w: torch.Tensor,
     conv in f32 (bias in the f32 sum), one rounding to the input dtype."""
     _check(x, w, bias)
     p = int(w.shape[0]) // 2
-    xp = reflection_pad2d(x.float(), (p, p)).permute(0, 2, 1, 3)
+    xp = reflection_pad2d_nhcw(x.float(), (p, p)).permute(0, 2, 1, 3)
     y = F.conv2d(xp, w.float().permute(3, 2, 0, 1),
                  None if bias is None else bias.float())
     return y.permute(0, 2, 1, 3).contiguous().to(x.dtype)
@@ -103,7 +103,7 @@ def conv_reflect_dw_plain(x: torch.Tensor, g: torch.Tensor,
     summed over (B, H, W)."""
     _check_dw(x, g, k)
     return cuda_conv.dw_of_padded(
-        reflection_pad2d(x.float(), (k // 2, k // 2)), g, k)
+        reflection_pad2d_nhcw(x.float(), (k // 2, k // 2)), g, k)
 
 
 def conv_reflect_dw_cuda(x: torch.Tensor, g: torch.Tensor,

@@ -1,17 +1,54 @@
-"""The NHCW activation layout (cyclegan_tpu/ops/layout.py).
+"""Activation layout: NHWC (the default) or NHCW (cyclegan_tpu/ops/layout.py).
 
-The port keeps the JAX kernels' ``[B, H, C, W]`` layout through the
-generator, with one transpose in and one out, so each kernel here takes
-what its TPU counterpart took. Parameters are layout-free.
+NHWC ``[B, H, W, C]`` is the JAX package's default and its XLA path; its
+counterpart here runs the library convolutions and torch ops. NHCW
+``[B, H, C, W]`` is the layout of the TPU kernels, and the port's kernels
+K1-K12 take what their TPU counterparts took. A train step or a serving
+session picks one with the ``nhcw()`` scope, with one transpose of the
+batch in (and one out); every op in ``ops`` reads the scope for its axes.
+Parameters, checkpoints and configs are the same in both layouts.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+from typing import Optional, Sequence
 
 import torch
 
 from cyclegan_tpu_torch.ops.cuda_concat import concat2_nhcw
+
+_LAYOUT = "NHWC"
+
+
+def current() -> str:
+    return _LAYOUT
+
+
+def is_nhcw() -> bool:
+    return _LAYOUT == "NHCW"
+
+
+@contextlib.contextmanager
+def _scoped(name: str, enabled: bool):
+    global _LAYOUT
+    prev = _LAYOUT
+    _LAYOUT = name if enabled else prev
+    try:
+        yield
+    finally:
+        _LAYOUT = prev
+
+
+def nhcw(enabled: bool = True):
+    """Scope the NHCW layout (a no-op with ``enabled=False``)."""
+    return _scoped("NHCW", enabled)
+
+
+def nhwc(enabled: bool = True):
+    """Scope the NHWC layout inside an NHCW scope (a no-op with
+    ``enabled=False``)."""
+    return _scoped("NHWC", enabled)
 
 
 def to_nhcw(x: torch.Tensor) -> torch.Tensor:
@@ -24,16 +61,27 @@ def from_nhcw(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(2, 3).contiguous()
 
 
+def channel_axis() -> int:
+    return 2 if is_nhcw() else 3
+
+
+def spatial_axes() -> tuple:
+    return (1, 3) if is_nhcw() else (1, 2)
+
+
 def concat_channels(xs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Concat over the channel axis (2). Two pieces go through K11 and its
-    split K12 (``cuda_concat.concat2_nhcw``) on the card and their plain
-    versions on the CPU; any other number is ``torch.cat``, as the JAX
+    """Concat over the channel axis. In NHCW two pieces go through K11 and
+    its split K12 (``cuda_concat.concat2_nhcw``) on the card and their
+    plain versions on the CPU; anything else is ``torch.cat``, as the JAX
     package sends it to ``jnp.concatenate``."""
-    if len(xs) == 2:
+    if is_nhcw() and len(xs) == 2:
         return concat2_nhcw(*xs)
-    return torch.cat(list(xs), dim=2)
+    return torch.cat(list(xs), dim=channel_axis())
 
 
-def channel_param(p: torch.Tensor) -> torch.Tensor:
-    """Shape a per-channel vector [C] to broadcast over NHCW: [C, 1]."""
-    return p[:, None]
+def channel_param(p: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Shape a per-channel vector [C] to broadcast over the layout:
+    [C, 1] in NHCW, [C] in NHWC."""
+    if p is None:
+        return None
+    return p[:, None] if is_nhcw() else p

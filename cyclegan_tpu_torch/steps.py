@@ -25,9 +25,16 @@ discriminator view.
 Mixed precision as in JAX: with ``compute_dtype="bfloat16"`` the f32 master
 parameters are cast to bf16 inside the differentiated function (the cast's
 backward lands the gradients on the masters in f32), the networks run in
-bf16, and every loss is computed in f32. The networks run on NHCW
-activations between one transpose of each input batch and the losses,
-which are layout-free means.
+bf16, and every loss is computed in f32.
+
+Layout (JAX ``steps.py`` ``tpu_layout``): with ``tpu_layout`` the networks
+run on NHCW activations, one transpose of each input batch away, through
+the kernels K1-K12; without, on the NHWC batch as it comes, through the
+library convolutions and torch ops, with ``pallas_norm`` sending every
+instance norm to K13. Both are scoped to the step's forward (the backward
+of each op is fixed when the forward runs); the losses are layout-free
+means. The port's steps default to ``tpu_layout=True``, its kernel path;
+the JAX package's default is the other layout.
 
 Not ported yet (ROADMAP.md queue 1, item 2): ``fuse_apps``, ``paired``,
 ``remat``, ``steps_per_call``, meshes.
@@ -51,7 +58,7 @@ from cyclegan_tpu_torch.losses import (
     identity_loss,
 )
 from cyclegan_tpu_torch.models import create_model
-from cyclegan_tpu_torch.ops import layout
+from cyclegan_tpu_torch.ops import cuda_norm, layout
 from cyclegan_tpu_torch.optimizers import get_optimizer
 
 NETWORKS = ("g_AB", "g_BA", "d_A", "d_B")
@@ -117,16 +124,28 @@ def disc_views(model: nn.Module, params: Mapping[str, torch.Tensor],
 def _forward_losses(models: Mapping[str, nn.Module], loss_obj: Callable,
                     weights: Mapping[str, float], real_a: torch.Tensor,
                     real_b: torch.Tensor, compute_dtype: torch.dtype,
-                    stop_grads: bool
+                    stop_grads: bool, tpu_layout: bool = True,
+                    pallas_norm: bool = False
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The shared forward set and the losses (cyclegan_tpu/steps.py
-    ``_forward_losses``, unfused, unpaired, no remat). ``real_a``,
-    ``real_b``: NHWC f32 in [-1, 1]. Returns (surrogate, metrics); with
-    ``stop_grads`` the surrogate's gradient per network equals the
-    reference's per-network gradient. Without, the two views of each fake
-    batch are one application (validation and the reference gradients)."""
-    real_a = layout.to_nhcw(real_a)
-    real_b = layout.to_nhcw(real_b)
+    ``_forward_losses``, unfused, unpaired, no remat), in the NHCW layout
+    with ``tpu_layout`` and in NHWC (K13 for the norms with
+    ``pallas_norm``) without. ``real_a``, ``real_b``: NHWC f32 in [-1, 1].
+    Returns (surrogate, metrics); with ``stop_grads`` the surrogate's
+    gradient per network equals the reference's per-network gradient.
+    Without, the two views of each fake batch are one application
+    (validation and the reference gradients)."""
+    scope = layout.nhcw() if tpu_layout else layout.nhwc()
+    with scope, cuda_norm.scope(pallas_norm):
+        if tpu_layout:
+            real_a = layout.to_nhcw(real_a)
+            real_b = layout.to_nhcw(real_b)
+        return _forward_losses_scoped(models, loss_obj, weights, real_a,
+                                      real_b, compute_dtype, stop_grads)
+
+
+def _forward_losses_scoped(models, loss_obj, weights, real_a, real_b,
+                           compute_dtype, stop_grads):
     a_net = real_a.to(compute_dtype)
     b_net = real_b.to(compute_dtype)
     params = {name: {k: p.to(compute_dtype)
@@ -192,13 +211,15 @@ def _weights(loss_weights: Mapping[str, float]) -> Dict[str, float]:
 
 def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
                     compute_dtype: str = "float32",
-                    preprocess: Optional[Callable] = None) -> Callable:
+                    preprocess: Optional[Callable] = None,
+                    tpu_layout: bool = True,
+                    pallas_norm: bool = False) -> Callable:
     """The train step ``(state, real_a, real_b) -> metrics``: preprocess
     (``preprocess(generator, a, b) -> (a, b)``, e.g. the jitter), one
-    forward set, ONE backward, four optimizer updates, in place on
-    ``state``. After it each parameter's ``.grad`` holds the step's
-    gradient. Metrics are detached f32 scalars on the batch's device; the
-    step never waits for the card."""
+    forward set in the layout ``tpu_layout`` picks, ONE backward, four
+    optimizer updates, in place on ``state``. After it each parameter's
+    ``.grad`` holds the step's gradient. Metrics are detached f32 scalars
+    on the batch's device; the step never waits for the card."""
     loss_obj = get_loss_obj(loss_name)
     weights = _weights(loss_weights)
     cdtype = DTYPES[compute_dtype]
@@ -211,7 +232,7 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
             opt.zero_grad(set_to_none=True)
         surrogate, metrics = _forward_losses(
             state.models, loss_obj, weights, real_a, real_b, cdtype,
-            stop_grads=True)
+            stop_grads=True, tpu_layout=tpu_layout, pallas_norm=pallas_norm)
         surrogate.backward()
         for name in NETWORKS:
             state.optimizers[name].step()
@@ -223,11 +244,14 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
 
 def make_validate_step(loss_name: str, loss_weights: Mapping[str, float],
                        compute_dtype: str = "float32",
-                       preprocess: Optional[Callable] = None) -> Callable:
+                       preprocess: Optional[Callable] = None,
+                       tpu_layout: bool = True,
+                       pallas_norm: bool = False) -> Callable:
     """The eval step ``(state, real_a, real_b) -> metrics``: the forward
     set without stop-gradients and without a backward (4 discriminator
-    applications); ``preprocess(images)`` (e.g. ``prepare_eval_batch``)
-    runs first on each batch."""
+    applications), in the layout ``tpu_layout`` picks;
+    ``preprocess(images)`` (e.g. ``prepare_eval_batch``) runs first on each
+    batch."""
     loss_obj = get_loss_obj(loss_name)
     weights = _weights(loss_weights)
     cdtype = DTYPES[compute_dtype]
@@ -239,7 +263,8 @@ def make_validate_step(loss_name: str, loss_weights: Mapping[str, float],
             real_a, real_b = preprocess(real_a), preprocess(real_b)
         _, metrics = _forward_losses(state.models, loss_obj, weights,
                                      real_a, real_b, cdtype,
-                                     stop_grads=False)
+                                     stop_grads=False, tpu_layout=tpu_layout,
+                                     pallas_norm=pallas_norm)
         return metrics
 
     return validate_step

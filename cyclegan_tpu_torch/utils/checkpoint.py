@@ -6,6 +6,16 @@ A checkpoint holds one array per leaf of the saved tree, under its
 is a ``model_config.yaml`` beside a ``checkpoint.npz`` holding at least
 ``params/{g_AB,g_BA,d_A,d_B}``; both packages' ``InferenceSession``s read
 it.
+
+The trainer's checkpoint is the JAX ``TrainState``'s tree, so either
+package resumes the other's: ``params/<net>/...``; ``opt_state/<net>/0/``
+``count``, ``mu/...`` and ``nu/...``, optax Adam's state (the chain's
+second element, the learning-rate scale, holds nothing), which are torch
+Adam's per-parameter ``step`` (one count per network), ``exp_avg`` and
+``exp_avg_sq``; ``rng``, the JAX key, which the port does not use and
+writes through as it was loaded; ``step``. The instance-norm networks'
+``model_state`` has no leaves. The torch generator that draws the
+augmentation is kept under ``GENERATOR_KEY``, which the JAX loader skips.
 """
 
 from __future__ import annotations
@@ -17,9 +27,17 @@ from pathlib import Path
 from typing import Any, Dict, Mapping, Union
 
 import numpy as np
+import torch
 from torch import nn
 
-from cyclegan_tpu_torch.weights import models_to_jax_params
+from cyclegan_tpu_torch.weights import (
+    jax_params_to_torch,
+    load_jax_params,
+    models_to_jax_params,
+    module_to_jax_params,
+)
+
+GENERATOR_KEY = "torch_augment_generator"
 
 
 def _leaves(node: Any, prefix: list, out: Dict[str, np.ndarray]) -> None:
@@ -91,3 +109,69 @@ def load_pytree(path: Union[str, Path], template: Any) -> Any:
         return value.astype(leaf.dtype)
 
     return restore(template, [])
+
+
+def _adam_tree(model: nn.Module, optimizer: torch.optim.Optimizer) -> list:
+    """optax ``adam``'s state of one network: [ScaleByAdamState, the
+    learning-rate scale's empty state]."""
+    if not isinstance(optimizer, torch.optim.Adam):
+        raise NotImplementedError(
+            f"checkpointing {type(optimizer).__name__} is not ported yet "
+            f"(ROADMAP.md queue 1, item 2)")
+    state = optimizer.state
+    steps = {int(state[p]["step"]) for p in model.parameters() if p in state}
+    if len(steps) > 1:
+        raise ValueError(f"Adam steps differ across parameters: {steps}")
+
+    def moment(name):
+        return lambda p: (state[p][name].detach().float().cpu().numpy()
+                          if p in state else
+                          np.zeros(tuple(p.shape), np.float32))
+
+    return [{"count": np.int32(steps.pop() if steps else 0),
+             "mu": module_to_jax_params(model, moment("exp_avg")),
+             "nu": module_to_jax_params(model, moment("exp_avg_sq"))}, {}]
+
+
+def train_state_tree(state, rng: np.ndarray) -> dict:
+    """The JAX ``TrainState`` tree of a port ``steps.TrainState`` (numpy
+    leaves), with the JAX key ``rng``."""
+    return {"params": models_to_jax_params(state.models),
+            "opt_state": {name: _adam_tree(model, state.optimizers[name])
+                          for name, model in state.models.items()},
+            "rng": np.asarray(rng, np.uint32),
+            "step": np.int32(state.step)}
+
+
+def save_train_state(path: Union[str, Path], state, rng: np.ndarray) -> None:
+    """Write a ``steps.TrainState`` as the JAX trainer's checkpoint, plus
+    the augmentation generator's state under ``GENERATOR_KEY``."""
+    tree = train_state_tree(state, rng)
+    tree[GENERATOR_KEY] = state.generator.get_state().numpy()
+    save_pytree(path, tree)
+
+
+def load_train_state(path: Union[str, Path], state) -> np.ndarray:
+    """Restore a checkpoint of either trainer into ``state`` in place:
+    parameters, Adam moments and counts, the step and, where the port wrote
+    it, the augmentation generator. Returns the JAX key ``rng``."""
+    restored = load_pytree(path, train_state_tree(
+        state, np.zeros(2, np.uint32)))
+    load_jax_params(state.models, restored["params"])
+    for name, model in state.models.items():
+        adam = restored["opt_state"][name][0]
+        mu, nu = jax_params_to_torch(adam["mu"]), jax_params_to_torch(
+            adam["nu"])
+        step = torch.tensor(float(adam["count"]), dtype=torch.float32)
+        optimizer = state.optimizers[name]
+        saved = optimizer.state_dict()
+        saved["state"] = {
+            i: {"step": step.clone(), "exp_avg": mu[key],
+                "exp_avg_sq": nu[key]}
+            for i, (key, _) in enumerate(model.named_parameters())}
+        optimizer.load_state_dict(saved)
+    state.step = int(restored["step"])
+    with np.load(path) as data:
+        if GENERATOR_KEY in data.files:
+            state.generator.set_state(torch.from_numpy(data[GENERATOR_KEY]))
+    return restored["rng"]

@@ -13,7 +13,7 @@ holds them, so one numpy tree seeds both packages.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping
 
 import numpy as np
 import torch
@@ -38,19 +38,25 @@ def jax_params_to_torch(tree: Any) -> Dict[str, torch.Tensor]:
     return flat
 
 
-def module_to_jax_params(module: nn.Module) -> Any:
+def _numpy(p: torch.Tensor) -> np.ndarray:
+    return p.detach().cpu().numpy()
+
+
+def module_to_jax_params(module: nn.Module,
+                         leaf: Callable[[nn.Parameter], Any] = _numpy) -> Any:
     """One network's parameters in the JAX package's tree, read off the
     module's structure: a ``ModuleList`` is a list, any other module a dict
     of its own parameters and its children. So a block without parameters
     (the PatchGAN's non-affine ``norm``) stays the empty dict the JAX apply
-    reads, which a ``state_dict`` cannot show."""
+    reads, which a ``state_dict`` cannot show. ``leaf(p)`` gives each
+    parameter's entry (by default its value as numpy), so an optimizer's
+    per-parameter state takes the same tree."""
     if isinstance(module, nn.ModuleList):
-        return [module_to_jax_params(child) for child in module]
+        return [module_to_jax_params(child, leaf) for child in module]
     tree: Dict[str, Any] = {
-        name: p.detach().cpu().numpy()
-        for name, p in module.named_parameters(recurse=False)}
+        name: leaf(p) for name, p in module.named_parameters(recurse=False)}
     for name, child in module.named_children():
-        tree[name] = module_to_jax_params(child)
+        tree[name] = module_to_jax_params(child, leaf)
     return tree
 
 

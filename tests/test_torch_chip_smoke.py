@@ -18,8 +18,9 @@ from cyclegan_tpu_torch import steps
 from cyclegan_tpu_torch.config import yaml2namespace
 from cyclegan_tpu_torch.data.augment import random_jitter_batch
 from cyclegan_tpu_torch.models import ResNetGenerator, create_model
-from cyclegan_tpu_torch.ops import (cuda_concat, cuda_conv, cuda_norm_act,
-                                    cuda_reflect, cuda_resize)
+from cyclegan_tpu_torch.ops import (cuda_concat, cuda_conv, cuda_norm,
+                                    cuda_norm_act, cuda_reflect, cuda_resize,
+                                    layout)
 
 NEW_RECIPES = ["configs/unet_transpose.yaml", "configs/strided_unet.yaml"]
 
@@ -33,6 +34,14 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _nhcw_layout():
+    """These tests feed the ops and networks NHCW activations, the layout
+    of the port's kernels; the default layout scope is NHWC."""
+    with layout.nhcw():
+        yield
 
 
 @pytest.mark.parametrize("config", [
@@ -90,9 +99,10 @@ def test_default_generator_launch_counts():
     assert plan["conv_same"][-1] == (8, 256, 32, 3, 1, True)
 
 
-def _record_train_step(monkeypatch, model_cfg, batch, size):
+def _record_train_step(monkeypatch, model_cfg, batch, size, **step_kw):
     """Every kernel launch of one bf16 train step (jitter inside), recorded
-    on the CPU through the plain versions the Functions call there."""
+    on the CPU through the plain versions the Functions call there;
+    ``step_kw`` picks the step's layout."""
     seen = collections.defaultdict(list)
 
     def record(module, name, key, shape_of):
@@ -141,6 +151,9 @@ def _record_train_step(monkeypatch, model_cfg, batch, size):
            lambda a, b: (a.shape[0], a.shape[1], a.shape[2], b.shape[2]))
     record(cuda_concat, "split2_plain", "split2",
            lambda g, c1: (g.shape[0], g.shape[1], c1, g.shape[2] - c1))
+    record(cuda_norm, "instance_norm_nhwc_plain", "instance_norm_nhwc",
+           lambda x, gamma, beta, eps: (x.shape[0], x.shape[1], x.shape[3],
+                                        gamma is not None))
 
     def jitter(generator, a, b):
         return (random_jitter_batch(generator, a, size),
@@ -150,7 +163,7 @@ def _record_train_step(monkeypatch, model_cfg, batch, size):
         steps.build_models(model_cfg),
         yaml2namespace("configs/training_config.yaml"), device="cpu")
     step = steps.make_train_step(model_cfg.loss, model_cfg.loss_weights,
-                                 "bfloat16", preprocess=jitter)
+                                 "bfloat16", preprocess=jitter, **step_kw)
     images = torch.zeros(batch, size, size, 3, dtype=torch.uint8)
     step(state, images, images)
     return seen
@@ -339,3 +352,101 @@ def test_default_resnet_train_step_launch_counts():
     assert (8, 262, 3, 32, 7, False, 3) in plan["conv_same"]
     assert (8, 64, 128, 1) in plan["reflect_fold"]
     assert (8, 32, 256, "leaky_relu", False) in plan["instance_norm_act"]
+
+
+@pytest.mark.parametrize("config", [
+    "model_instances/converged256/model_config.yaml", "configs/resnet.yaml",
+    *NEW_RECIPES])
+def test_nhwc_train_launch_plan_matches_a_recorded_step(config,
+                                                        monkeypatch):
+    """The NHWC step with ``pallas_norm`` launches K13 at every instance
+    norm of its 12 applications and no other kernel."""
+    model_cfg = yaml2namespace(config)
+    seen = _record_train_step(monkeypatch, model_cfg, 2, 32,
+                              tpu_layout=False, pallas_norm=True)
+    plan = chip_smoke.nhwc_train_launches(model_cfg, 2, 32)
+    assert set(seen) == {"instance_norm_nhwc"} == set(plan)
+    assert collections.Counter(seen["instance_norm_nhwc"]) == \
+        collections.Counter(plan["instance_norm_nhwc"])
+
+
+def test_nhwc_train_step_launch_counts():
+    """Per batch-8 256x256 step, as K2's forward count in NHCW."""
+    for config, count, nhcw_plan in (
+            ("model_instances/converged256/model_config.yaml", 144,
+             chip_smoke.train_launches),
+            ("configs/resnet.yaml", 156, chip_smoke.resnet_train_launches)):
+        cfg = yaml2namespace(config)
+        plan = chip_smoke.nhwc_train_launches(cfg, 8, 256)
+        assert len(plan["instance_norm_nhwc"]) == count == len(
+            nhcw_plan(cfg, 8, 256)["instance_norm_act"])
+    unet = chip_smoke.nhwc_train_launches(
+        yaml2namespace(NEW_RECIPES[0]), 8, 256)["instance_norm_nhwc"]
+    assert (8, 256, 16, True) in unet and (8, 128, 32, True) in unet
+    resnet = chip_smoke.nhwc_train_launches(
+        yaml2namespace("configs/resnet.yaml"), 8, 256)["instance_norm_nhwc"]
+    assert (8, 64, 128, False) in resnet and (8, 32, 256, False) in resnet
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 16, True), (1, 4, 3, False)])
+def test_instance_norm_nhwc_library_call_is_the_same_function(shape,
+                                                              monkeypatch):
+    """K13's case: its library yardstick computes the plain version's y."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    _, plain, library, nbytes, ops, checks = chip_smoke.make_case(
+        "instance_norm_nhwc", shape, torch.float32, 0)
+    y, mean, rstd = plain()
+    torch.testing.assert_close(library().permute(0, 2, 3, 1), y,
+                               rtol=1e-4, atol=1e-4)
+    b, h, c, affine = shape
+    assert nbytes == (2 * b * h * h * c + (2 * c if affine else 0)) * 4 \
+        + 2 * b * c * 4
+    assert [k for k, _ in checks] == ["instance_norm_nhwc"] + [
+        "instance_norm_nhwc.stats"] * 2
+
+
+def test_trainer_phase_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 14 end to end on the CPU at 32x32, batch 2, 5 images a domain,
+    with K13's dispatcher counted as its launches are on the card: every
+    check holds but the last run's, since on the CPU ``tpu_layout: auto``
+    is NHWC."""
+    from cyclegan_tpu_torch import kernels
+
+    for name, value in (("DEVICE", "cpu"), ("SIZE", 32), ("BATCH", 2),
+                        ("CLI_IMAGES", 5)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "failures", [])
+    plain = cuda_norm._instance_norm_nhwc
+
+    def counted(*args):
+        kernels.launches["instance_norm_nhwc"] += 1
+        return plain(*args)
+
+    monkeypatch.setattr(cuda_norm, "_instance_norm_nhwc", counted)
+    launches, metrics = chip_smoke.trainer_cli(tmp_path)
+    assert [f.split(":")[0] for f in chip_smoke.failures] == ["trainer auto"]
+    assert metrics["reload_differences"] == []
+    assert metrics["resumed_step"] == 6 and metrics["resumed_current_epoch"] \
+        == 3
+    assert set(launches["trainer_cli_nhwc"]) == {"instance_norm_nhwc"}
+    assert sorted(metrics["png_decode_ms_by_row_filter"]) == list(range(5))
+    runs = metrics["runs"]
+    assert [runs[r]["step"] for r in ("nhwc", "resume", "auto")] == [4, 6, 2]
+
+
+@pytest.mark.parametrize("config,model_dir,point", [
+    ("model_instances/converged256/model_config.yaml", chip_smoke.MODEL_DIR,
+     chip_smoke.UNET_NHWC_F32_POINT),
+    ("configs/resnet.yaml", None, chip_smoke.RESNET_F32_POINT)])
+def test_nhwc_f32_points_are_kink_free(config, model_dir, point):
+    """Phases 12-13's f32 comparison points in the NHWC layout with
+    ``pallas_norm``: no ReLU or LeakyReLU input within KINK_MARGIN."""
+    model_cfg = yaml2namespace(config)
+    x = chip_smoke.f32_point_inputs(point)
+    grads, kink = chip_smoke.nearest_kink(lambda: chip_smoke.step_grads(
+        model_cfg, "cpu", "float32", x, model_dir, point["seed"],
+        point.get("beta"), tpu_layout=False, pallas_norm=True))
+    assert kink > chip_smoke.KINK_MARGIN
+    flat = [chip_smoke._flat(g) for g in grads.values()]
+    assert all(bool(torch.isfinite(g).all()) and g.norm() > 0 for g in flat)

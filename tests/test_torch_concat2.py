@@ -19,7 +19,7 @@ import torch
 
 from cyclegan_tpu.ops import layout as jax_layout
 from cyclegan_tpu.ops import pallas_concat
-from cyclegan_tpu_torch.ops import concat_channels, cuda_concat
+from cyclegan_tpu_torch.ops import concat_channels, cuda_concat, layout
 
 # (B, H, C1, C2, W)
 SHAPES = [(2, 4, 16, 32, 128), (2, 3, 5, 7, 9), (1, 6, 48, 16, 40)]
@@ -32,6 +32,14 @@ def _interpret_mode():
     pallas_concat.set_interpret(True)
     yield
     pallas_concat.set_interpret(False)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _nhcw_layout():
+    """These tests feed the ops and networks NHCW activations, the layout
+    of the port's kernels; the default layout scope is NHWC."""
+    with layout.nhcw():
+        yield
 
 
 def _pair(shape, seed, dtype):

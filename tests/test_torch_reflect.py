@@ -25,6 +25,7 @@ from cyclegan_tpu_torch.ops import (
     conv2d,
     conv2d_transpose,
     cuda_reflect,
+    layout,
     reflection_pad2d,
 )
 
@@ -38,6 +39,14 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _nhcw_layout():
+    """These tests feed the ops and networks NHCW activations, the layout
+    of the port's kernels; the default layout scope is NHWC."""
+    with layout.nhcw():
+        yield
 
 
 @pytest.fixture

@@ -77,6 +77,14 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _nhcw_layout():
+    """These tests feed the ops and networks NHCW activations, the layout
+    of the port's kernels; the default layout scope is NHWC."""
+    with layout.nhcw():
+        yield
+
+
 def _config(name):
     return CFG["generator"] if name.startswith("g") else CFG["discriminator"]
 

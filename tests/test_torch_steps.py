@@ -30,7 +30,7 @@ from cyclegan_tpu.optimizers import get_optimizer as jax_get_optimizer
 from cyclegan_tpu_torch import steps
 from cyclegan_tpu_torch.config import yaml2namespace
 from cyclegan_tpu_torch.losses import get_loss_obj
-from cyclegan_tpu_torch.ops import cuda_norm_act
+from cyclegan_tpu_torch.ops import cuda_norm_act, layout
 from cyclegan_tpu_torch.weights import (
     jax_params_to_torch,
     load_jax_params,
@@ -53,6 +53,14 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _nhcw_layout():
+    """These tests feed the ops and networks NHCW activations, the layout
+    of the port's kernels; the default layout scope is NHWC."""
+    with layout.nhcw():
+        yield
 
 
 def _shift_affine(tree, rng):

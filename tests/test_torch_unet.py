@@ -17,6 +17,15 @@ from cyclegan_tpu_torch.models import UNetGenerator, create_model
 from cyclegan_tpu_torch.ops import layout
 from cyclegan_tpu_torch.weights import jax_params_to_torch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _nhcw_layout():
+    """These tests feed the ops and networks NHCW activations, the layout
+    of the port's kernels; the default layout scope is NHWC."""
+    with layout.nhcw():
+        yield
+
+
 CONFIG = {
     "type": "unet_generator",
     "filters": [16, 32, 64, 128],
