@@ -17,7 +17,9 @@ and the strided U-Net generator with the default U-Net discriminator
 (``configs/strided_unet.yaml``). Phases, each failing the run if it fails:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of the
-   CUDA kernels from ``cyclegan_tpu_torch/kernels/csrc``;
+   CUDA kernels from ``cyclegan_tpu_torch/kernels/csrc``; ``cuobjdump
+   -sass`` of the built ``conv_dw`` library must hold wgmma (``HGMMA``) and
+   TMA load (``UTMALDG``) instructions;
 2. every kernel against its plain PyTorch version on the card, at every
    unique launch shape of one train step of each recipe (their generator
    forwards are the serving forwards' launches), in bf16 and f32, with
@@ -26,7 +28,9 @@ and the strided U-Net generator with the default U-Net discriminator
    gamma/beta and with ReLU, none and LeakyReLU, K5-K8, the reflect
    conv's K9, K9-dW and K10, the channel concat K11 and its split K12, and
    the NHWC instance norm K13 (with its mean and rstd) at every norm of
-   the NHWC train steps of phases 12-13, affine and not;
+   the NHWC train steps of phases 12-13, affine and not; bf16 K5 and K9-dW
+   must run their TMA design there, and ``conv_dw_simt`` (their CUDA-core
+   design, which f32 runs) is held at the same shapes in bf16 too;
 3. each kernel's time at those shapes (CUDA events, median after warm-up)
    beside its plain version, one PyTorch library call for the same
    function where there is one, and the least time the card could take;
@@ -152,6 +156,8 @@ TOL = {
     ("conv_reflect", torch.float32): (1e-4, 1e-4),
     ("conv_reflect_dw", torch.bfloat16): (0.0, 1e-5),
     ("conv_reflect_dw", torch.float32): (0.0, 1e-5),
+    ("conv_dw_simt", torch.bfloat16): (0.0, 1e-5),
+    ("conv_dw_simt", torch.float32): (0.0, 1e-5),
     ("reflect_fold", torch.bfloat16): (0.0, 0.0),
     ("reflect_fold", torch.float32): (0.0, 0.0),
     ("concat2", torch.bfloat16): (0.0, 0.0),
@@ -197,19 +203,30 @@ SOURCES = {
                "cyclegan_tpu/ops/pallas_concat.py:140", []),
     "instance_norm_nhwc": (_CSRC + "instance_norm_nhwc.cu",
                            "cyclegan_tpu/ops/pallas_norm.py:120", []),
+    "conv_dw_simt": (_CSRC + "conv_dw.cu",
+                     "cyclegan_tpu/ops/pallas_conv.py:686",
+                     ["cyclegan_tpu/ops/pallas_conv.py:991",
+                      "cyclegan_tpu/ops/pallas_conv.py:1130"]),
 }
 # what a library yardstick is where it is not one call
 LIBRARY_NOTES = {
     "split2": "two calls: g[:, :, :c1].contiguous() and "
               "g[:, :, c1:].contiguous(), timed together",
 }
+# K5's and K9-dW's CUDA-core design, timed in bf16 on the launches of
+# conv_dw and conv_reflect_dw (a shape with pad -1 is a conv_reflect_dw
+# launch): what the PR 2/3 design takes in the same run
+SIMT = "conv_dw_simt"
 # kernel-name fragments of the profiler trace -> kernel family
 TRACE_FAMILIES = (
     ("conv_same_kernel", "conv_same"), ("conv_reflect_kernel", "conv_reflect"),
-    ("conv_reflect_dw_partial_kernel", "conv_reflect_dw"),
+    ("conv_reflect_dw_tma_kernel", "conv_reflect_dw"),
+    ("reflect_dw_shift_copies_kernel", "conv_reflect_dw"),
     ("reflect_sum_splits_kernel", "conv_reflect_dw"),
+    ("conv_reflect_dw_partial_kernel", SIMT),
     ("reflect_fold_kernel", "reflect_fold"),
-    ("conv_dw_partial_kernel", "conv_dw"), ("sum_splits_kernel", "conv_dw"),
+    ("conv_dw_tma_kernel", "conv_dw"), ("dw_shift_copies_kernel", "conv_dw"),
+    ("conv_dw_partial_kernel", SIMT), ("sum_splits_kernel", "conv_dw"),
     ("norm_act_bwd_kernel", "instance_norm_act_bwd"),
     ("norm_act_kernel", "instance_norm_act"),
     ("sum2x2_kernel", "sum2x2"), ("dup2x2_kernel", "dup2x2"),
@@ -281,6 +298,19 @@ def smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_counts(lib, ops):
+    """How many instructions of each of ``ops`` ``cuobjdump -sass`` finds in
+    the shared library ``lib``."""
+    from cyclegan_tpu_torch.kernels import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    words = [line.split() for line in text.splitlines()]
+    return {op: sum(1 for w in words for t in w if t.startswith(op + ".")
+                    or t == op) for op in ops}
 
 
 def tf_pad(k):
@@ -532,14 +562,16 @@ def make_case(name, shape, dtype, seed):
                 lambda: F.conv2d(xp, w_oihw, b),
                 nbytes, 2 * B * H * H * k * k * cin * cout,
                 [(name, 1.0)])
-    if name == "conv_dw":
+    if name == "conv_dw" or (name == SIMT and shape[5] >= 0):
         B, H, cin, cout, k, pad = shape
         x = rnd(B, H, cin, H)
         gy = rnd(B, H, cout, H)
         xp = F.pad(nchw(x), (pad, k - 1 - pad, pad, k - 1 - pad))
         gy_nchw = nchw(gy)
         scale = cuda_conv.conv_dw_plain(x.abs(), gy.abs(), k, pad)
-        return (lambda: (cuda_conv.conv_dw_cuda(x, gy, k, pad),),
+        kernel = (cuda_conv.conv_dw_cuda if name == "conv_dw"
+                  else cuda_conv.conv_dw_simt_cuda)
+        return (lambda: (kernel(x, gy, k, pad),),
                 lambda: (cuda_conv.conv_dw_plain(x, gy, k, pad),),
                 lambda: torch.nn.grad.conv2d_weight(
                     xp, (cout, cin, k, k), gy_nchw),
@@ -559,14 +591,19 @@ def make_case(name, shape, dtype, seed):
                 lambda: F.conv2d(xp, w_oihw, b),
                 nbytes, 2 * B * H * H * k * k * cin * cout,
                 [(name, 1.0)])
-    if name == "conv_reflect_dw":
-        B, H, cin, cout, k = shape
+    if name in ("conv_reflect_dw", SIMT):
+        B, H, cin, cout, k = shape[:5]
         x = rnd(B, H, cin, H)
         gy = rnd(B, H, cout, H)
         xp = F.pad(nchw(x), (k // 2,) * 4, mode="reflect")
         gy_nchw = nchw(gy)
         scale = cuda_reflect.conv_reflect_dw_plain(x.abs(), gy.abs(), k)
-        return (lambda: (cuda_reflect.conv_reflect_dw_cuda(x, gy, k),),
+        kernel = (cuda_reflect.conv_reflect_dw_cuda
+                  if name == "conv_reflect_dw"
+                  else cuda_reflect.conv_reflect_dw_simt_cuda)
+        # bytes: x and g read once, dW written once (the shifted copies of
+        # the TMA design are the kernel's own traffic, not the function's)
+        return (lambda: (kernel(x, gy, k),),
                 lambda: (cuda_reflect.conv_reflect_dw_plain(x, gy, k),),
                 lambda: torch.nn.grad.conv2d_weight(
                     xp, (cout, cin, k, k), gy_nchw),
@@ -757,7 +794,10 @@ def unique_shapes(plan):
 
 def check_kernels(shapes):
     """Phase 2: kernel vs plain at every unique launch shape, bf16 and
-    f32. Returns the largest absolute error per (kernel, dtype)."""
+    f32. Returns the largest absolute error per (kernel, dtype). bf16 K5
+    and K9-dW must run their TMA design (no ``conv_dw_simt`` launch)."""
+    from cyclegan_tpu_torch import kernels
+
     max_err = {}
     for dtype in (torch.bfloat16, torch.float32):
         for name, counter in shapes.items():
@@ -765,8 +805,14 @@ def check_kernels(shapes):
             for i, shape in enumerate(sorted(counter)):
                 kernel, plain, _, _, _, checks = make_case(name, shape,
                                                            dtype, i)
+                simt = kernels.launches[SIMT]
                 got, want = kernel(), plain()
                 torch.cuda.synchronize()
+                if (dtype == torch.bfloat16 and name in (
+                        "conv_dw", "conv_reflect_dw")
+                        and kernels.launches[SIMT] != simt):
+                    fail(f"{name} {shape} bf16 ran the CUDA-core design, "
+                         f"not the TMA one")
                 for j, (a, b, (key, scale)) in enumerate(zip(got, want,
                                                              checks)):
                     rtol, atol = TOL[(key, dtype)]
@@ -824,6 +870,18 @@ def time_kernels(paths, dtype=torch.bfloat16):
                   f"  library {lib}  bound {row['bound_ms']:.4f}",
                   flush=True)
     return rows
+
+
+def with_simt(plan):
+    """``plan`` ({kernel: Counter(shape -> launches)}) with ``conv_dw_simt``
+    at the shapes of its conv_dw launches and of its conv_reflect_dw
+    launches (pad -1), as many: the CUDA-core design on the same work."""
+    simt = collections.Counter()
+    for shape, n in plan.get("conv_dw", {}).items():
+        simt[shape] += n
+    for shape, n in plan.get("conv_reflect_dw", {}).items():
+        simt[shape + (-1,)] += n
+    return {**plan, SIMT: simt} if simt else plan
 
 
 def union_shapes(paths):
@@ -1170,6 +1228,9 @@ def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None,
           f"{plan})", flush=True)
     if main_launches != plan:
         fail(f"{label} step launches {main_launches}, plan {plan}")
+    if kernels.launches[SIMT]:
+        fail(f"{label}: {kernels.launches[SIMT]} dW launches on the CUDA-core "
+             f"design in a bf16 step, none expected")
 
     # 5.2-5.3: gradients of one batch-2 step (no jitter) against the plain
     # f32 step on the CPU; the f32 comparison with PyTorch's default TF32
@@ -1504,6 +1565,11 @@ def main(argv=None) -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {log.stem}: {line.strip()}")
+    sass = sass_counts(build / "libconv_dw.so", ("HGMMA", "UTMALDG"))
+    print(f"sass conv_dw: {json.dumps(sass)}", flush=True)
+    for op, n in sass.items():
+        if not n:
+            fail(f"conv_dw: no {op} instruction in its SASS")
 
     # the seeded recipes after the default one, each trained then served
     # from the folder the port saves: (name, config file, f32 point)
@@ -1529,7 +1595,8 @@ def main(argv=None) -> int:
     for name, _, _ in nhwc:
         plans[f"{name}_train_nhwc"] = nhwc_train_launches(cfgs[name], BATCH,
                                                           SIZE)
-    paths = {path: unique_shapes(plan) for path, plan in plans.items()}
+    paths = {path: with_simt(unique_shapes(plan))
+             for path, plan in plans.items()}
     with no_tf32():
         max_err = check_kernels(union_shapes(paths))
         stamp("phase 2 (kernel checks)")

@@ -18,10 +18,13 @@ from cyclegan_tpu_torch.kernels._build import build_dir, check, function
 # serve and train the ResNet recipe; K11 (the plain channel concat) and
 # K12 (its split) those of the transpose-expansion and strided U-Nets; K13
 # (the NHWC instance norm) the NHWC layout's norms with ``pallas_norm``.
+# ``conv_dw_simt`` counts the launches of K5's and K9-dW's CUDA-core design
+# (f32, and bf16 outside the TMA domain), which ``conv_dw`` and
+# ``conv_reflect_dw`` count as well; a bf16 train step at 256x256 makes none.
 KERNELS = ("conv_same", "instance_norm_act", "sum2x2", "concat_up2",
            "conv_dw", "instance_norm_act_bwd", "dup2x2", "split_pool2",
            "conv_reflect", "conv_reflect_dw", "reflect_fold", "concat2",
-           "split2", "instance_norm_nhwc")
+           "split2", "instance_norm_nhwc", "conv_dw_simt")
 launches = {name: 0 for name in KERNELS}
 
 P = ctypes.c_void_p

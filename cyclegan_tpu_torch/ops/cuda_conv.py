@@ -14,9 +14,15 @@ Replaces cyclegan_tpu/ops/pallas_conv.py ``conv2d_same_nhcw`` (its
   for every K: a split reduction whose splits are added in a fixed order.
 
 Bound on the H100: operations (16-100 multiply-adds per byte moved at the
-generator's shapes). Both kernels run on the CUDA cores in f32 with their
-operands staged in shared memory and register tiles; see the sources. They
-do not use the tensor cores yet.
+generator's shapes). K1 runs on the CUDA cores in f32 with its operands
+staged in shared memory and register tiles. K5 in bf16 runs on the tensor
+cores: TMA tiles of x's K column-shifted copies (written by a copy kernel
+first; ``shifted_copies`` is its plain version) and of dY, and wgmma
+(``conv_dw_tma_kernel``), wherever the tensors
+lie in its domain (``dw_tma_domain``: 16-byte aligned, W a multiple of 8,
+which every launch of the recipes at 256x256 meets); f32, and bf16 outside
+the domain, on the CUDA-core design (``conv_dw_simt_cuda``), counted under
+``conv_dw_simt`` besides ``conv_dw``. See the source.
 
 ``conv_same`` is the differentiable op: ``ConvSame`` launches the kernels
 for CUDA tensors and takes the plain versions only for tensors on the CPU,
@@ -35,8 +41,14 @@ import torch.nn.functional as F
 from cyclegan_tpu_torch import kernels
 from cyclegan_tpu_torch.kernels import I, P
 
-# K5's block tile (conv_dw.cu MT, NT) and the blocks it aims to keep in flight
+# K5's CUDA-core block tile (conv_dw.cu MT, NT) and the blocks it aims to
+# keep in flight
 _DW_TILE_M, _DW_TILE_N, _DW_BLOCKS = 64, 32, 8 * 132
+# K5's TMA design (conv_dw.cu): pixels per stage, rows of an M tile, M tiles
+# per block; the blocks it aims at (eight per SM) and the fewest stages of 64
+# pixels a block should sum (picked in a sweep on an H100)
+TMA_PX, TMA_TILE_ROWS, TMA_CONSUMERS = 64, 64, 2
+_TMA_BLOCKS, _TMA_MIN_STAGES = 8 * 132, 32
 
 
 def tf_same_pad(k: int):
@@ -149,23 +161,118 @@ def dw_splits(k: int, c: int, cout: int, rows: int) -> int:
     return max(1, min(rows, math.ceil(_DW_BLOCKS / tiles)))
 
 
-def conv_dw_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
-                 pad: int) -> torch.Tensor:
-    """Launch K5 on CUDA tensors; returns dW [K,K,C,Cout] in f32."""
-    _check_dw(x, g, k, pad)
-    kernels.check_cuda("conv_dw", x, g)
+def dw_tma_geometry(c: int, k: int):
+    """How K5's TMA design cuts the K*K*C (tap, channel) rows into 64-row M
+    tiles (conv_dw.cu ``tma_geometry``): (cb, taps, c_tiles, m_tiles) with
+    cb channel rows per tap (the smallest of 8, 16, 32, 64 at least C; 64
+    beyond), taps = 64 / cb taps per tile, c_tiles channel tiles per tap
+    group. Tile t holds taps (t // c_tiles) * taps + j for j < taps (those
+    below K*K) and channels (t % c_tiles) * cb + [0, cb); rows at channels
+    past C are zeros."""
+    cb = next((n for n in (8, 16, 32) if c <= n), 64)
+    taps = TMA_TILE_ROWS // cb
+    c_tiles = -(-c // cb)
+    return cb, taps, c_tiles, c_tiles * -(-(k * k) // taps)
+
+
+def dw_tma_n(cout: int) -> int:
+    """The wgmma N of K5's TMA design: Cout rounded up to 8, 16, 32, 64, or
+    128 (tiles of 128 beyond)."""
+    return next((n for n in (8, 16, 32, 64) if cout <= n), 128)
+
+
+def dw_tma_splits(k: int, c: int, cout: int, rows: int, w: int) -> int:
+    """How many slices of the B*H rows (each W wide) K5's TMA design splits
+    its sum into: up to eight blocks per SM, as long as each block sums at
+    least 32 stages of 64 pixels (more splits cost more workspace to add);
+    never more slices than rows."""
+    blocks = (-(-dw_tma_geometry(c, k)[3] // TMA_CONSUMERS)
+              * -(-cout // dw_tma_n(cout)))
+    stages = rows * -(-w // TMA_PX)
+    return max(1, min(rows, math.ceil(_TMA_BLOCKS / blocks),
+                      stages // _TMA_MIN_STAGES))
+
+
+def dw_tma_domain(x: torch.Tensor, g: torch.Tensor) -> bool:
+    """Whether K5's and K9-dW's TMA design takes these operands: bf16, both
+    base addresses 16-byte aligned and W a multiple of 8 (a TMA row stride
+    is a multiple of 16 bytes)."""
+    return (x.dtype == torch.bfloat16 and int(x.shape[3]) % 8 == 0
+            and x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0)
+
+
+def shifted_copies(x: torch.Tensor, k: int, pad: int,
+                   reflect: bool = False) -> torch.Tensor:
+    """The plain version of the K column-shifted copies of x [B, H, C, W]
+    that K5's and K9-dW's TMA design writes first and then reads (a TMA box
+    cannot start at an odd column): xs[dx, b, h, c, w] = x[b, h, c,
+    w + dx - pad], zeros past the edges, [K, B, H, C, W]; with ``reflect``,
+    x reflect-padded by pad = K // 2 on every side first, [K, B, H + 2 pad,
+    C, W]."""
+    W = int(x.shape[3])
+    if reflect:
+        xp = F.pad(x.permute(0, 2, 1, 3), (pad,) * 4, mode="reflect")
+        return xp.unfold(3, W, 1).permute(3, 0, 2, 1, 4).contiguous()
+    xp = F.pad(x, (pad, k - 1 - pad))
+    return xp.unfold(3, W, 1).permute(3, 0, 1, 2, 4).contiguous()
+
+
+def _launch_dw(fn_name, inputs, g, k, splits, *args):
+    """One dW launch of library ``conv_dw``'s ``fn_name`` (signature
+    inputs..., g, part, dw, B, H, C, W, Cout, K, args..., splits, stream),
+    ``inputs`` x or (x, room for its shifted copies); returns dW
+    [K,K,C,Cout] f32."""
+    x = inputs[0]
     B, H, C, W = x.shape
     Cout = int(g.shape[2])
-    splits = dw_splits(k, C, Cout, B * H)
     part = torch.empty((splits, k * k * C, Cout), dtype=torch.float32,
                        device=x.device)
     dw = torch.empty((k, k, C, Cout), dtype=torch.float32, device=x.device)
-    fn = kernels.function("conv_dw", f"conv_dw_{kernels.dtype_suffix(x)}",
-                          [P, P, P, P, I, I, I, I, I, I, I, I, P])
-    err = fn(kernels.ptr(x), kernels.ptr(g), kernels.ptr(part),
-             kernels.ptr(dw), B, H, C, W, Cout, k, pad, splits,
-             kernels.stream())
+    fn = kernels.function("conv_dw", fn_name,
+                          [P] * (len(inputs) + 3) + [I] * (7 + len(args))
+                          + [P])
+    err = fn(*(kernels.ptr(t) for t in inputs), kernels.ptr(g),
+             kernels.ptr(part), kernels.ptr(dw), B, H, C, W, Cout, k, *args,
+             splits, kernels.stream())
     kernels.check("conv_dw", err)
+    return dw
+
+
+def _tma_dw(fn_name, x, g, k, pad, reflect, *args):
+    """K5's TMA design on x: room for its K shifted copies, which the
+    launch writes, then the product."""
+    B, H, C, W = x.shape
+    xs = torch.empty((k, B, H + (2 * pad if reflect else 0), C, W),
+                     dtype=x.dtype, device=x.device)
+    return _launch_dw(fn_name, (x, xs), g, k,
+                      dw_tma_splits(k, C, int(g.shape[2]), B * H, W), *args)
+
+
+def conv_dw_simt_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
+                      pad: int) -> torch.Tensor:
+    """Launch K5's CUDA-core design on CUDA tensors, f32 or bf16, counted
+    under ``conv_dw_simt``; returns dW [K,K,C,Cout] in f32."""
+    _check_dw(x, g, k, pad)
+    kernels.check_cuda("conv_dw", x, g)
+    suffix = "f32" if kernels.dtype_suffix(x) == "f32" else "simt_bf16"
+    dw = _launch_dw(f"conv_dw_{suffix}", (x,), g, k,
+                    dw_splits(k, int(x.shape[2]), int(g.shape[2]),
+                              int(x.shape[0] * x.shape[1])), pad)
+    kernels.launches["conv_dw_simt"] += 1
+    return dw
+
+
+def conv_dw_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
+                 pad: int) -> torch.Tensor:
+    """Launch K5 on CUDA tensors: the TMA design (its shifted copies, then
+    the product) where ``dw_tma_domain`` holds, else the CUDA-core one;
+    returns dW [K,K,C,Cout] in f32."""
+    _check_dw(x, g, k, pad)
+    kernels.check_cuda("conv_dw", x, g)
+    if dw_tma_domain(x, g):
+        dw = _tma_dw("conv_dw_bf16", x, g, k, pad, False, pad)
+    else:
+        dw = conv_dw_simt_cuda(x, g, k, pad)
     kernels.launches["conv_dw"] += 1
     return dw
 

@@ -11,8 +11,12 @@ VJP built from two Pallas calls:
   staging its input window through the reflected index map, so no padded
   copy is written to device memory; odd K only, K//2 < H and K//2 < W.
 - dW: ``_conv_dw_call`` on the reflect-padded input. K9-dW
-  (``conv_reflect_dw`` in ``kernels/csrc/conv_dw.cu``) is K5 staging its
-  im2col tile through the same map.
+  (``conv_reflect_dw`` in ``kernels/csrc/conv_dw.cu``) in bf16 is K5's
+  TMA design at pad 0 on the column-shifted copies of the reflect-padded x,
+  which its launch writes first (``cuda_conv.shifted_copies`` is their
+  plain version), as JAX pads in XLA; in f32, and in bf16 outside K5's TMA
+  domain, it is K5's CUDA-core design staging its im2col tile through the
+  same map, with no copy.
 - dX: ``_conv_fwd_call`` as the full correlation of dY with the flipped,
   ci<->co-swapped weights over the padded domain (side H + 2p), then a fold
   of the halo rows and columns back through the reflect map. Here K1
@@ -106,23 +110,33 @@ def conv_reflect_dw_plain(x: torch.Tensor, g: torch.Tensor,
         reflection_pad2d_nhcw(x.float(), (k // 2, k // 2)), g, k)
 
 
-def conv_reflect_dw_cuda(x: torch.Tensor, g: torch.Tensor,
-                         k: int) -> torch.Tensor:
-    """Launch K9-dW on CUDA tensors; returns dW [K,K,C,Cout] in f32."""
+def conv_reflect_dw_simt_cuda(x: torch.Tensor, g: torch.Tensor,
+                              k: int) -> torch.Tensor:
+    """Launch K9-dW's CUDA-core design on CUDA tensors, f32 or bf16,
+    counted under ``conv_dw_simt``; returns dW [K,K,C,Cout] in f32."""
     _check_dw(x, g, k)
     kernels.check_cuda("conv_reflect_dw", x, g)
-    B, H, C, W = x.shape
-    Cout = int(g.shape[2])
-    splits = cuda_conv.dw_splits(k, C, Cout, B * H)
-    part = torch.empty((splits, k * k * C, Cout), dtype=torch.float32,
-                       device=x.device)
-    dw = torch.empty((k, k, C, Cout), dtype=torch.float32, device=x.device)
-    fn = kernels.function("conv_dw",
-                          f"conv_reflect_dw_{kernels.dtype_suffix(x)}",
-                          [P, P, P, P, I, I, I, I, I, I, I, P])
-    err = fn(kernels.ptr(x), kernels.ptr(g), kernels.ptr(part),
-             kernels.ptr(dw), B, H, C, W, Cout, k, splits, kernels.stream())
-    kernels.check("conv_dw", err)
+    suffix = "f32" if kernels.dtype_suffix(x) == "f32" else "simt_bf16"
+    dw = cuda_conv._launch_dw(
+        f"conv_reflect_dw_{suffix}", (x,), g, k,
+        cuda_conv.dw_splits(k, int(x.shape[2]), int(g.shape[2]),
+                            int(x.shape[0] * x.shape[1])))
+    kernels.launches["conv_dw_simt"] += 1
+    return dw
+
+
+def conv_reflect_dw_cuda(x: torch.Tensor, g: torch.Tensor,
+                         k: int) -> torch.Tensor:
+    """Launch K9-dW on CUDA tensors: K5's TMA design on the shifted copies
+    of the reflect-padded x (``cuda_conv.shifted_copies``, plain) where
+    ``cuda_conv.dw_tma_domain`` holds, else the CUDA-core design; returns dW
+    [K,K,C,Cout] in f32."""
+    _check_dw(x, g, k)
+    kernels.check_cuda("conv_reflect_dw", x, g)
+    if cuda_conv.dw_tma_domain(x, g):
+        dw = cuda_conv._tma_dw("conv_reflect_dw_bf16", x, g, k, k // 2, True)
+    else:
+        dw = conv_reflect_dw_simt_cuda(x, g, k)
     kernels.launches["conv_reflect_dw"] += 1
     return dw
 

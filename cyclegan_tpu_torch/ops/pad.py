@@ -4,7 +4,8 @@ REFLECT semantics, as the reference's ReflectionPadding2D: the edge is not
 repeated, so padded row -1 is row 1. In NHWC it pads the reflect
 convolution's input (``ops/conv.py``); in NHCW only the plain versions of
 the reflect convolution's kernels and the tests use it, since on the card
-K9 and K9-dW read their input through the reflected index map instead.
+K9 reads its input through the reflected index map (K9-dW's bf16 TMA design
+pads copies in its own copy kernel, ``ops/cuda_conv.py`` ``shifted_copies``).
 """
 
 from __future__ import annotations

@@ -16,6 +16,10 @@ Adam's per-parameter ``step`` (one count per network), ``exp_avg`` and
 writes through as it was loaded; ``step``. The instance-norm networks'
 ``model_state`` has no leaves. The torch generator that draws the
 augmentation is kept under ``GENERATOR_KEY``, which the JAX loader skips.
+
+Round-1 checkpoints (``model_instances/demo``) stored the ``TrainState``
+fields by position, ``[<flat index N>]/...``; ``load_pytree`` reads them
+as the JAX loader does, through ``LEGACY_TRAIN_STATE_INDEX``.
 """
 
 from __future__ import annotations
@@ -38,6 +42,22 @@ from cyclegan_tpu_torch.weights import (
 )
 
 GENERATOR_KEY = "torch_augment_generator"
+
+# The positional key prefix of each TrainState field in round-1 checkpoints
+# (the JAX loader's ``_LEGACY_TRAIN_STATE_INDEX``), read where the named key
+# is missing.
+LEGACY_TRAIN_STATE_INDEX = {"params": 0, "model_state": 1, "opt_state": 2,
+                            "rng": 3, "step": 4}
+
+
+def legacy_key(key: str) -> str:
+    """``params/g_AB/...`` -> ``[<flat index 0>]/g_AB/...``; other keys as
+    they are."""
+    head, sep, rest = key.partition("/")
+    if head in LEGACY_TRAIN_STATE_INDEX:
+        return (f"[<flat index {LEGACY_TRAIN_STATE_INDEX[head]}>]"
+                + sep + rest)
+    return key
 
 
 def _leaves(node: Any, prefix: list, out: Dict[str, np.ndarray]) -> None:
@@ -88,8 +108,10 @@ def load_pytree(path: Union[str, Path], template: Any) -> Any:
     from ``path``, in the template's structure and dtypes.
 
     The template's leaf paths must be a subset of the stored keys; extra
-    stored keys (optimizer state, the discriminators) are ignored. A
-    missing key raises ``KeyError``, a shape mismatch ``ValueError``."""
+    stored keys (optimizer state, the discriminators) are ignored. A leaf
+    missing under its named key is read under its round-1 positional key
+    (``legacy_key``). A leaf missing under both raises ``KeyError``, a
+    shape mismatch ``ValueError``."""
     with np.load(path) as data:
         stored = {k: data[k] for k in data.files}
 
@@ -99,6 +121,8 @@ def load_pytree(path: Union[str, Path], template: Any) -> Any:
         if isinstance(node, (list, tuple)):
             return [restore(v, prefix + [str(i)]) for i, v in enumerate(node)]
         key = "/".join(prefix)
+        if key not in stored:
+            key = legacy_key(key)
         if key not in stored:
             raise KeyError(f"checkpoint missing leaf {key!r}")
         value = stored[key]
