@@ -19,7 +19,7 @@ and the strided U-Net generator with the default U-Net discriminator
 1. the card (``nvidia-smi`` name and power limit) and the build of the
    CUDA kernels from ``cyclegan_tpu_torch/kernels/csrc``; ``cuobjdump
    -sass`` of the built ``conv_dw`` library must hold wgmma (``HGMMA``) and
-   TMA load (``UTMALDG``) instructions;
+   TMA load (``UTMALDG``) instructions, that of ``conv_same`` wgmma;
 2. every kernel against its plain PyTorch version on the card, at every
    unique launch shape of one train step of each recipe (their generator
    forwards are the serving forwards' launches), in bf16 and f32, with
@@ -30,13 +30,22 @@ and the strided U-Net generator with the default U-Net discriminator
    the NHWC instance norm K13 (with its mean and rstd) at every norm of
    the NHWC train steps of phases 12-13, affine and not; bf16 K5 and K9-dW
    must run their TMA design there, and ``conv_dw_simt`` (their CUDA-core
-   design, which f32 runs) is held at the same shapes in bf16 too;
+   design, which f32 runs) is held at the same shapes in bf16 too; bf16 K1
+   and K9 must run their tensor-core design, and ``conv_same_simt`` (their
+   CUDA-core design, which f32 runs) is held at every K1 and K9 shape in
+   bf16 too (K1 at pad p and grow p is the reflect conv's input gradient,
+   which writes dY's zero pad itself); then K1, K9 and ``conv_same_simt``
+   at ``EDGE_CONV_SHAPES``, beyond the plans, where the tensor-core design
+   cuts the K tap rows into runs or tiles N;
 3. each kernel's time at those shapes (CUDA events, median after warm-up)
    beside its plain version, one PyTorch library call for the same
    function where there is one, and the least time the card could take;
+   the CUDA-core designs ``conv_dw_simt`` and ``conv_same_simt`` timed in
+   bf16 on the launches of K5/K9-dW and K1/K9;
 4. U-Net serving: ``InferenceSession`` on converged256, bf16, on the card,
    answers batch-8 and batch-1 requests in both directions; each forward
-   must launch 15/14/3/3 conv/norm/pool/junction kernels, and the outputs
+   must launch 15/14/3/3 conv/norm/pool/junction kernels (no
+   ``conv_same_simt`` launch), and the outputs
    are held against the plain f32 session on the CPU. Then serving img/s;
 5. U-Net training, from converged256's four networks with fresh Adam: one
    bf16 step at batch 8 (jitter inside) whose launches of every kernel
@@ -45,7 +54,8 @@ and the strided U-Net generator with the default U-Net discriminator
    the CPU; the bf16 card step's gradient error against the CPU bf16
    step's; five bf16 steps with finite losses that move every network;
    then train-step img/s, peak memory, host issue time and a profiler
-   trace of 3 steps;
+   trace of 3 steps; a ``conv_dw_simt`` or ``conv_same_simt`` launch in the
+   bf16 step fails it;
 6. ResNet training, as phase 5 from seeded random weights, against the
    plan ``resnet_train_launches``; its f32 gradients are compared at
    ``RESNET_F32_POINT`` (full width and depth, batch 1 at 16x16, a seed
@@ -158,6 +168,8 @@ TOL = {
     ("conv_reflect_dw", torch.float32): (0.0, 1e-5),
     ("conv_dw_simt", torch.bfloat16): (0.0, 1e-5),
     ("conv_dw_simt", torch.float32): (0.0, 1e-5),
+    ("conv_same_simt", torch.bfloat16): (1e-2, 1e-2),
+    ("conv_same_simt", torch.float32): (1e-4, 1e-4),
     ("reflect_fold", torch.bfloat16): (0.0, 0.0),
     ("reflect_fold", torch.float32): (0.0, 0.0),
     ("concat2", torch.bfloat16): (0.0, 0.0),
@@ -207,6 +219,10 @@ SOURCES = {
                      "cyclegan_tpu/ops/pallas_conv.py:686",
                      ["cyclegan_tpu/ops/pallas_conv.py:991",
                       "cyclegan_tpu/ops/pallas_conv.py:1130"]),
+    "conv_same_simt": (_CSRC + "conv_same.cu",
+                       "cyclegan_tpu/ops/pallas_conv.py:479",
+                       ["cyclegan_tpu/ops/pallas_conv.py:924",
+                        "cyclegan_tpu/ops/pallas_conv.py:1130"]),
 }
 # what a library yardstick is where it is not one call
 LIBRARY_NOTES = {
@@ -217,9 +233,17 @@ LIBRARY_NOTES = {
 # conv_dw and conv_reflect_dw (a shape with pad -1 is a conv_reflect_dw
 # launch): what the PR 2/3 design takes in the same run
 SIMT = "conv_dw_simt"
+# K1's and K9's CUDA-core design, timed in bf16 on the launches of
+# conv_same and conv_reflect (a shape with pad -1 is a conv_reflect
+# launch): what the first design of K1 and K9 takes in the same run
+SIMT_SAME = "conv_same_simt"
 # kernel-name fragments of the profiler trace -> kernel family
 TRACE_FAMILIES = (
-    ("conv_same_kernel", "conv_same"), ("conv_reflect_kernel", "conv_reflect"),
+    ("conv_same_tc_kernel", "conv_same"), ("conv_same_pack_kernel", "conv_same"),
+    ("conv_reflect_tc_kernel", "conv_reflect"),
+    ("conv_reflect_pack_kernel", "conv_reflect"),
+    ("conv_same_simt_kernel", SIMT_SAME),
+    ("conv_reflect_simt_kernel", SIMT_SAME),
     ("conv_reflect_dw_tma_kernel", "conv_reflect_dw"),
     ("reflect_dw_shift_copies_kernel", "conv_reflect_dw"),
     ("reflect_sum_splits_kernel", "conv_reflect_dw"),
@@ -278,6 +302,15 @@ UNET_F32_POINT = {"size": 32, "batch": 1, "seed": 0, "beta": [3.0, 4.0]}
 # its kink in NHWC, seed 2 1.5e-4.
 UNET_NHWC_F32_POINT = {"size": 32, "batch": 1, "seed": 2, "beta": [3.0, 4.0]}
 KINK_MARGIN = 1e-5
+# Phase 2's K1 and K9 shapes beyond the plans, as the plans key them: two
+# stages of all K*K taps' weights do not fit 227 KB (k7 32->128, k4
+# 64->256), so the tensor-core design runs the tap rows in shorter runs; Cout
+# past 256 takes two N tiles.
+EDGE_CONV_SHAPES = {
+    "conv_same": [(2, 64, 32, 128, 7, True, 3), (2, 32, 64, 256, 4, False, 2),
+                  (2, 32, 64, 320, 3, True, 1)],
+    "conv_reflect": [(2, 64, 32, 128, 7, True)],
+}
 
 failures = []
 STARTED = time.perf_counter()
@@ -478,8 +511,9 @@ def resnet_train_launches(model_cfg, batch, size):
     Applications as there (6 generators, 6 discriminators). Every reflect
     conv runs K9 and, where the parameters train (every generator
     application), K9-dW; its input gradient, for every conv but the first
-    and for the first where the input needs a gradient, is K1 on dY padded
-    by p to the side H + 2p (at pad p, output channels Cin) and then K10.
+    and for the first where the input needs a gradient, is K1 on dY at pad
+    p and grow p (B, H, Cout, Cin, K, False, p, p: output side H + 2p,
+    channels Cin) and then K10.
     The PatchGAN's head is K1 (K = 1) forward and dX in every application,
     K5 where the parameters train."""
     gen = resnet_generator_launches(model_cfg["generator"], batch, size)
@@ -491,8 +525,7 @@ def resnet_train_launches(model_cfg, batch, size):
             out["conv_reflect"].append((b, h, cin, cout, k, bias))
             out["conv_reflect_dw"].append((b, h, cin, cout, k))
             if i > 0 or input_grad:
-                out["conv_same"].append((b, h + 2 * p, cout, cin, k, False,
-                                         p))
+                out["conv_same"].append((b, h, cout, cin, k, False, p, p))
                 out["reflect_fold"].append((b, h, cin, p))
         out["instance_norm_act"] += gen["instance_norm_act"]
         out["instance_norm_act_bwd"] += gen["instance_norm_act"]
@@ -548,19 +581,25 @@ def make_case(name, shape, dtype, seed):
 
     size = torch.finfo(dtype).bits // 8
     nchw = lambda t: t.permute(0, 2, 1, 3)  # noqa: E731
-    if name == "conv_same":
-        B, H, cin, cout, k, has_bias, pad = shape
+    if name == "conv_same" or (name == SIMT_SAME and shape[6] >= 0):
+        B, H, cin, cout, k, has_bias, pad = shape[:7]
+        grow = shape[7] if len(shape) > 7 else 0
+        ho = H + 2 * grow
         x = rnd(B, H, cin, H)
         w = rnd(k, k, cin, cout, scale=0.05)
         b = rnd(cout, scale=0.5) if has_bias else None
-        xp = F.pad(nchw(x), (pad, k - 1 - pad, pad, k - 1 - pad))
+        before, after = pad + grow, k - 1 - pad + grow
+        xp = F.pad(nchw(x), (before, after, before, after))
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
         nbytes = (x.numel() + w.numel() + (cout if has_bias else 0)
-                  + B * H * cout * H) * size
-        return (lambda: (cuda_conv.conv_same_cuda(x, w, b, pad=pad),),
-                lambda: (cuda_conv.conv_same_plain(x, w, b, pad=pad),),
+                  + B * ho * cout * ho) * size
+        kernel = (cuda_conv.conv_same_cuda if name == "conv_same"
+                  else cuda_conv.conv_same_simt_cuda)
+        return (lambda: (kernel(x, w, b, pad=pad, grow=grow),),
+                lambda: (cuda_conv.conv_same_plain(x, w, b, pad=pad,
+                                                   grow=grow),),
                 lambda: F.conv2d(xp, w_oihw, b),
-                nbytes, 2 * B * H * H * k * k * cin * cout,
+                nbytes, 2 * B * ho * ho * k * k * cin * cout,
                 [(name, 1.0)])
     if name == "conv_dw" or (name == SIMT and shape[5] >= 0):
         B, H, cin, cout, k, pad = shape
@@ -577,8 +616,8 @@ def make_case(name, shape, dtype, seed):
                     xp, (cout, cin, k, k), gy_nchw),
                 (x.numel() + gy.numel()) * size + k * k * cin * cout * 4,
                 2 * B * H * H * k * k * cin * cout, [(name, scale)])
-    if name == "conv_reflect":
-        B, H, cin, cout, k, has_bias = shape
+    if name in ("conv_reflect", SIMT_SAME):
+        B, H, cin, cout, k, has_bias = shape[:6]
         x = rnd(B, H, cin, H)
         w = rnd(k, k, cin, cout, scale=0.05)
         b = rnd(cout, scale=0.5) if has_bias else None
@@ -586,7 +625,9 @@ def make_case(name, shape, dtype, seed):
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
         nbytes = (x.numel() + w.numel() + (cout if has_bias else 0)
                   + B * H * cout * H) * size
-        return (lambda: (cuda_reflect.conv_reflect_cuda(x, w, b),),
+        kernel = (cuda_reflect.conv_reflect_cuda if name == "conv_reflect"
+                  else cuda_reflect.conv_reflect_simt_cuda)
+        return (lambda: (kernel(x, w, b),),
                 lambda: (cuda_reflect.conv_reflect_plain(x, w, b),),
                 lambda: F.conv2d(xp, w_oihw, b),
                 nbytes, 2 * B * H * H * k * k * cin * cout,
@@ -792,10 +833,11 @@ def unique_shapes(plan):
             plan.items()}
 
 
-def check_kernels(shapes):
+def check_kernels(shapes, label=""):
     """Phase 2: kernel vs plain at every unique launch shape, bf16 and
     f32. Returns the largest absolute error per (kernel, dtype). bf16 K5
-    and K9-dW must run their TMA design (no ``conv_dw_simt`` launch)."""
+    and K9-dW must run their TMA design (no ``conv_dw_simt`` launch), bf16
+    K1 and K9 their tensor-core design (no ``conv_same_simt`` launch)."""
     from cyclegan_tpu_torch import kernels
 
     max_err = {}
@@ -806,6 +848,7 @@ def check_kernels(shapes):
                 kernel, plain, _, _, _, checks = make_case(name, shape,
                                                            dtype, i)
                 simt = kernels.launches[SIMT]
+                simt_same = kernels.launches[SIMT_SAME]
                 got, want = kernel(), plain()
                 torch.cuda.synchronize()
                 if (dtype == torch.bfloat16 and name in (
@@ -813,6 +856,11 @@ def check_kernels(shapes):
                         and kernels.launches[SIMT] != simt):
                     fail(f"{name} {shape} bf16 ran the CUDA-core design, "
                          f"not the TMA one")
+                if (dtype == torch.bfloat16 and name in (
+                        "conv_same", "conv_reflect")
+                        and kernels.launches[SIMT_SAME] != simt_same):
+                    fail(f"{name} {shape} bf16 ran the CUDA-core design, "
+                         f"not the tensor-core one")
                 for j, (a, b, (key, scale)) in enumerate(zip(got, want,
                                                              checks)):
                     rtol, atol = TOL[(key, dtype)]
@@ -834,7 +882,8 @@ def check_kernels(shapes):
                              f"x scale")
             max_err[(name, dtype)] = worst
             rtol, atol = TOL[(name, dtype)]
-            print(f"check {name:22s} {str(dtype):14s} {len(counter):2d} "
+            print(f"check {label}{name:22s} {str(dtype):14s} "
+                  f"{len(counter):2d} "
                   f"shapes  max_abs_err {worst:.3e}  bound |d| <= {rtol:g} "
                   f"|plain| + {atol:g} x scale", flush=True)
     return max_err
@@ -875,13 +924,21 @@ def time_kernels(paths, dtype=torch.bfloat16):
 def with_simt(plan):
     """``plan`` ({kernel: Counter(shape -> launches)}) with ``conv_dw_simt``
     at the shapes of its conv_dw launches and of its conv_reflect_dw
-    launches (pad -1), as many: the CUDA-core design on the same work."""
-    simt = collections.Counter()
-    for shape, n in plan.get("conv_dw", {}).items():
-        simt[shape] += n
-    for shape, n in plan.get("conv_reflect_dw", {}).items():
-        simt[shape + (-1,)] += n
-    return {**plan, SIMT: simt} if simt else plan
+    launches (pad -1), and ``conv_same_simt`` likewise at those of its
+    conv_same and conv_reflect launches, as many: the CUDA-core designs on
+    the same work."""
+    out = dict(plan)
+    for simt_name, same, reflect in ((SIMT, "conv_dw", "conv_reflect_dw"),
+                                     (SIMT_SAME, "conv_same",
+                                      "conv_reflect")):
+        simt = collections.Counter()
+        for shape, n in plan.get(same, {}).items():
+            simt[shape] += n
+        for shape, n in plan.get(reflect, {}).items():
+            simt[shape + (-1,)] += n
+        if simt:
+            out[simt_name] = simt
+    return out
 
 
 def union_shapes(paths):
@@ -961,6 +1018,9 @@ def serve(label, model_dir, forward_plan, out_dir):
         if added != per_forward:
             fail(f"{label} {b} {direction}: launches {added}, expected "
                  f"{per_forward}")
+        if added.get(SIMT_SAME):
+            fail(f"{label} {b} {direction}: {added[SIMT_SAME]} conv launches "
+                 f"on the CUDA-core design in bf16 serving, none expected")
     main_launches = dict(kernels.launches)
     print(f"{label} main path launches {main_launches} over "
           f"{len(requests)} forwards ({per_forward} each)", flush=True)
@@ -1231,6 +1291,9 @@ def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None,
     if kernels.launches[SIMT]:
         fail(f"{label}: {kernels.launches[SIMT]} dW launches on the CUDA-core "
              f"design in a bf16 step, none expected")
+    if kernels.launches[SIMT_SAME]:
+        fail(f"{label}: {kernels.launches[SIMT_SAME]} conv launches on the "
+             f"CUDA-core design in a bf16 step, none expected")
 
     # 5.2-5.3: gradients of one batch-2 step (no jitter) against the plain
     # f32 step on the CPU; the f32 comparison with PyTorch's default TF32
@@ -1563,13 +1626,15 @@ def main(argv=None) -> int:
           f"(0 = found built) into build/{build.name}", flush=True)
     for log in sorted(build.glob("*.log")):
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "arning" in line:
                 print(f"ptxas {log.stem}: {line.strip()}")
-    sass = sass_counts(build / "libconv_dw.so", ("HGMMA", "UTMALDG"))
-    print(f"sass conv_dw: {json.dumps(sass)}", flush=True)
-    for op, n in sass.items():
-        if not n:
-            fail(f"conv_dw: no {op} instruction in its SASS")
+    for lib, ops in (("conv_dw", ("HGMMA", "UTMALDG")),
+                     ("conv_same", ("HGMMA",))):
+        sass = sass_counts(build / f"lib{lib}.so", ops)
+        print(f"sass {lib}: {json.dumps(sass)}", flush=True)
+        for op, n in sass.items():
+            if not n:
+                fail(f"{lib}: no {op} instruction in its SASS")
 
     # the seeded recipes after the default one, each trained then served
     # from the folder the port saves: (name, config file, f32 point)
@@ -1599,6 +1664,10 @@ def main(argv=None) -> int:
              for path, plan in plans.items()}
     with no_tf32():
         max_err = check_kernels(union_shapes(paths))
+        edge = check_kernels(with_simt(unique_shapes(EDGE_CONV_SHAPES)),
+                             "edge ")
+        for key, err in edge.items():
+            max_err[key] = max(max_err.get(key, 0.0), err)
         stamp("phase 2 (kernel checks)")
         rows = time_kernels(paths)
         stamp("phase 3 (kernel times)")

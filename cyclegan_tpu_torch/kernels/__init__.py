@@ -21,14 +21,18 @@ from cyclegan_tpu_torch.kernels._build import build_dir, check, function
 # ``conv_dw_simt`` counts the launches of K5's and K9-dW's CUDA-core design
 # (f32, and bf16 outside the TMA domain), which ``conv_dw`` and
 # ``conv_reflect_dw`` count as well; a bf16 train step at 256x256 makes none.
+# ``conv_same_simt`` likewise counts those of K1's and K9's CUDA-core design
+# (f32 only), which ``conv_same`` and ``conv_reflect`` count as well; a bf16
+# forward or train step makes none.
 KERNELS = ("conv_same", "instance_norm_act", "sum2x2", "concat_up2",
            "conv_dw", "instance_norm_act_bwd", "dup2x2", "split_pool2",
            "conv_reflect", "conv_reflect_dw", "reflect_fold", "concat2",
-           "split2", "instance_norm_nhwc", "conv_dw_simt")
+           "split2", "instance_norm_nhwc", "conv_dw_simt", "conv_same_simt")
 launches = {name: 0 for name in KERNELS}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 
 

@@ -1,6 +1,7 @@
 // Hopper building blocks for the tensor-core kernels: mbarriers, TMA tile
-// loads through a tensor map, and warpgroup matrix multiplies (wgmma) on
-// operands in shared memory laid out by TMA's 128-byte swizzle.
+// loads through a tensor map and 1-D bulk copies, and warpgroup matrix
+// multiplies (wgmma) on operands in shared memory, laid out by TMA's
+// 128-byte swizzle or with no swizzle.
 //
 // The tensor map's encode function lives in the driver library; it is
 // looked up at run time (dlopen of libcuda.so.1, which the CUDA runtime
@@ -96,6 +97,18 @@ inline TensorMapEncodeTiled tensor_map_encoder() {
   return fn;
 }
 
+// One bulk copy (no tensor map) of `bytes` contiguous bytes from device
+// memory at `src` into shared memory at `dst`, completing on `bar`. Both
+// addresses and the size must be multiples of 16 bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ---- wgmma ----
 
 // Shared-memory matrix descriptor of a K-major tile in TMA's 128-byte
@@ -108,6 +121,17 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
          (static_cast<uint64_t>(1) << 16) |             // LBO (unused)
          (static_cast<uint64_t>(1024 >> 4) << 32) |     // SBO: 8 rows
          (static_cast<uint64_t>(1) << 62);              // 128-byte swizzle
+}
+
+// Shared-memory matrix descriptor of a K-major tile with no swizzle: core
+// matrices of 8 rows x 16 bytes (8 bf16 of K), each 128 contiguous bytes;
+// `lbo` bytes from one core matrix to the next along K, `sbo` bytes from
+// one 8-row group to the next. The start needs only 16-byte alignment.
+__device__ __forceinline__ uint64_t kmajor_desc(const void* p, uint32_t lbo,
+                                                uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -230,4 +254,20 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a,
   else if constexpr (N == 32) wgmma_n32(d, a, b);
   else if constexpr (N == 64) wgmma_n64(d, a, b);
   else wgmma_n128(d, a, b);
+}
+
+// D[64 x N] += A[64 x 16] B[16 x N] for any N that is a multiple of 8 up
+// to 256, as wgmmas of 128, 64, 32, 16 and 8 columns side by side on one A
+// (B in the no-swizzle K-major layout: the next 8 columns start 128 bytes
+// on, so a piece at column n starts n * 16 bytes on, which the descriptor's
+// address field counts in 16-byte units). The pieces' accumulators lie one
+// after another, so d keeps the layout of one m64nNk16: thread t holds
+// d[i] at row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2), column
+// 8 (i / 4) + 2 (t % 4) + i % 2.
+template <int N>
+__device__ __forceinline__ void wgmma_wide(float* d, uint64_t a, uint64_t b) {
+  constexpr int P = N >= 128 ? 128 : N >= 64 ? 64 : N >= 32 ? 32
+                  : N >= 16 ? 16 : 8;
+  wgmma_bf16<P>(*reinterpret_cast<float(*)[P / 2]>(d), a, b);
+  if constexpr (N > P) wgmma_wide<N - P>(d + P / 2, a, b + P);
 }

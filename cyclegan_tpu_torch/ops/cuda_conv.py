@@ -7,22 +7,29 @@ Replaces cyclegan_tpu/ops/pallas_conv.py ``conv2d_same_nhcw`` (its
 ``conv1x1_nhcw`` (``_conv1x1_call``, its dW ``_conv1x1_dw_call``):
 
 - K1, ``kernels/csrc/conv_same.cu``, takes every K, K = 1 included, an
-  optional bias added to the f32 sum, and the zero padding before the image
-  as an argument: the forward pads (K-1)/2 before, the input gradient (K1 on
-  dY with flipped, ci<->co-swapped weights) K-1-(K-1)/2, which is 2 for k4.
+  optional bias added to the f32 sum, the zero padding before the image
+  as an argument (the forward pads (K-1)/2 before, the input gradient, K1
+  on dY with flipped, ci<->co-swapped weights, K-1-(K-1)/2, which is 2 for
+  k4), and ``grow``: the output widened by that many rows and columns on
+  each side, so that the reflect conv's input gradient needs no
+  zero-padded copy of dY.
 - K5, ``kernels/csrc/conv_dw.cu``, sums patches(x)^T . dY over B*H*W in f32
   for every K: a split reduction whose splits are added in a fixed order.
 
 Bound on the H100: operations (16-100 multiply-adds per byte moved at the
-generator's shapes). K1 runs on the CUDA cores in f32 with its operands
-staged in shared memory and register tiles. K5 in bf16 runs on the tensor
-cores: TMA tiles of x's K column-shifted copies (written by a copy kernel
-first; ``shifted_copies`` is its plain version) and of dY, and wgmma
-(``conv_dw_tma_kernel``), wherever the tensors
-lie in its domain (``dw_tma_domain``: 16-byte aligned, W a multiple of 8,
-which every launch of the recipes at 256x256 meets); f32, and bf16 outside
-the domain, on the CUDA-core design (``conv_dw_simt_cuda``), counted under
-``conv_dw_simt`` besides ``conv_dw``. See the source.
+generator's shapes). Both run on the tensor cores in bf16
+(``conv_tc_domain`` states the rule for K1): K1 packs x into a padded
+channel-grouped copy and the weights K-major (``conv_tc_pack_plain`` is the
+plain version of that pack; ``conv_tc_geometry`` the tiling) and then runs
+wgmma on flattened-pixel M tiles, each tap the same shared-memory window
+read at another offset; K5 takes TMA tiles of x's K column-shifted copies
+(written by a copy kernel first; ``shifted_copies`` is their plain version)
+and of dY into wgmma (``conv_dw_tma_kernel``) wherever the tensors lie in
+its domain (``dw_tma_domain``: 16-byte aligned, W a multiple of 8, which
+every launch of the recipes at 256x256 meets). f32, and K5's bf16 outside
+its domain, run the CUDA-core designs (``conv_same_simt_cuda``,
+``conv_dw_simt_cuda``), counted under ``conv_same_simt`` and
+``conv_dw_simt`` besides ``conv_same`` and ``conv_dw``. See the sources.
 
 ``conv_same`` is the differentiable op: ``ConvSame`` launches the kernels
 for CUDA tensors and takes the plain versions only for tensors on the CPU,
@@ -39,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from cyclegan_tpu_torch import kernels
-from cyclegan_tpu_torch.kernels import I, P
+from cyclegan_tpu_torch.kernels import I, L, P
 
 # K5's CUDA-core block tile (conv_dw.cu MT, NT) and the blocks it aims to
 # keep in flight
@@ -51,13 +58,20 @@ TMA_PX, TMA_TILE_ROWS, TMA_CONSUMERS = 64, 64, 2
 _TMA_BLOCKS, _TMA_MIN_STAGES = 8 * 132, 32
 
 
+# K1's tensor-core design (conv_same.cu): consumer warpgroups per block, the
+# most stages, the shared memory a block may use, and the wgmma widths N
+# that Cout (or Cout / nt past 256) rounds up to
+TC_CONSUMERS, TC_MAX_STAGES, TC_SMEM_MAX = 2, 3, 232448
+TC_NS = (8, 16, 32, 48, 64, 80, 96, 128, 160, 192, 256)
+
+
 def tf_same_pad(k: int):
     """TF 'SAME' (before, after) padding at stride 1: (1, 2) for k4."""
     before = (k - 1) // 2
     return before, k - 1 - before
 
 
-def _check_shapes(x, w, bias, pad):
+def _check_shapes(x, w, bias, pad, grow=0):
     if x.dim() != 4 or w.dim() != 4:
         raise ValueError(f"conv_same takes x [B,H,C,W] and w [K,K,C,Cout], "
                          f"got {tuple(x.shape)} and {tuple(w.shape)}")
@@ -70,6 +84,8 @@ def _check_shapes(x, w, bias, pad):
                          f"output channels")
     if pad is not None and not 0 <= pad <= w.shape[0] - 1:
         raise ValueError(f"pad {pad} outside [0, {w.shape[0] - 1}]")
+    if grow < 0:
+        raise ValueError(f"grow {grow} is negative")
 
 
 def _pad_before(w, pad):
@@ -78,14 +94,14 @@ def _pad_before(w, pad):
 
 def conv_same_plain(x: torch.Tensor, w: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
-                    pad: Optional[int] = None) -> torch.Tensor:
+                    pad: Optional[int] = None, grow: int = 0) -> torch.Tensor:
     """The kernel's function in PyTorch ops: explicit zero pad (``pad``
-    before, the rest after; TF SAME if None), then a VALID conv in f32, then
-    one rounding to the input dtype."""
-    _check_shapes(x, w, bias, pad)
+    before, the rest after; TF SAME if None; ``grow`` more on each side),
+    then a VALID conv in f32, then one rounding to the input dtype."""
+    _check_shapes(x, w, bias, pad, grow)
     k = int(w.shape[0])
-    before = _pad_before(w, pad)
-    after = k - 1 - before
+    before = _pad_before(w, pad) + grow
+    after = k - 1 - _pad_before(w, pad) + grow
     xf = x.float().permute(0, 2, 1, 3)                    # NCHW view
     xf = F.pad(xf, (before, after, before, after))
     wf = w.float().permute(3, 2, 0, 1)                    # OIHW
@@ -93,31 +109,150 @@ def conv_same_plain(x: torch.Tensor, w: torch.Tensor,
     return y.permute(0, 2, 1, 3).contiguous().to(x.dtype)
 
 
-def conv_same_cuda(x: torch.Tensor, w: torch.Tensor,
-                   bias: Optional[torch.Tensor] = None,
-                   pad: Optional[int] = None) -> torch.Tensor:
-    """Launch K1 on CUDA tensors."""
-    _check_shapes(x, w, bias, pad)
-    kernels.check_cuda("conv_same", x, w, bias)
+def conv_tc_domain(x: torch.Tensor) -> bool:
+    """Whether K1 and K9 run their tensor-core design on x: bf16 does (a
+    shape it cannot take raises), f32 keeps the CUDA-core design, whose f32
+    products the f32 gradient checks need (JAX's Precision.HIGHEST)."""
+    return x.dtype == torch.bfloat16
+
+
+def conv_tc_geometry(b: int, h: int, c: int, w: int, cout: int, k: int,
+                     grow: int = 0) -> dict:
+    """How K1's and K9's tensor-core design (conv_same.cu ``tc_geometry``,
+    the same rule) tiles a launch on x [b, h, c, w]: padded sides hp, wp of
+    the output [h + 2 grow, w + 2 grow] plus K - 1; cg channel groups of 8
+    (C rounded up to 16) and c16 = cg / 2 steps of 16 channels; nt N tiles
+    of n columns (Cout split evenly past 256, rounded up to a width in
+    ``TC_NS``); mw m64 tiles per consumer warpgroup and a block's M tile bm
+    = 2 mw 64 flattened pixels; ``rows`` tap rows (dy) per stage in
+    ``groups`` = K / rows runs, the largest divisor of K with which two
+    stages fit ``TC_SMEM_MAX`` (a ring of one stage would wait on itself),
+    and steps = c16 groups; the window nw = bm + (rows - 1) wp + K - 1
+    pixels, the span of a run's tap offsets dy wp + dx; one stage's bytes
+    (two channel groups' windows, then the run's rows K taps' weights);
+    stages; the block's shared memory; ptot = b hp wp pixels; blocks along
+    M; the workspace bytes of xp and wp."""
+    ho, wo = h + 2 * grow, w + 2 * grow
+    hp, wp = ho + k - 1, wo + k - 1
+    cg = 2 * -(-c // 16)
+    c16 = cg // 2
+    nt = -(-cout // TC_NS[-1])
+    n = next(v for v in TC_NS if -(-cout // nt) <= v)
+    mw = 2 if n <= 128 else 1
+    bm = TC_CONSUMERS * mw * 64
+    room = TC_SMEM_MAX - 2 * TC_MAX_STAGES * 8
+    for rows in (r for r in range(k, 0, -1) if k % r == 0):
+        groups = k // rows
+        steps = c16 * groups
+        nw = bm + (rows - 1) * wp + k - 1
+        stage = 2 * nw * 16 + rows * k * 2 * n * 16
+        if room // stage >= min(steps, 2):
+            break
+    else:
+        raise ValueError(f"conv_same: no tensor-core tiling for K {k}, "
+                         f"N {n}")
+    stages = min(steps, TC_MAX_STAGES, room // stage)
+    ptot = b * hp * wp
+    return {"ho": ho, "wo": wo, "hp": hp, "wp": wp, "cg": cg, "c16": c16,
+            "n": n, "nt": nt, "mw": mw, "bm": bm, "rows": rows,
+            "groups": groups, "steps": steps, "nw": nw,
+            "stage_bytes": stage, "stages": stages,
+            "smem": stages * stage + 2 * stages * 8, "ptot": ptot,
+            "blocks": -(-ptot // bm),
+            "workspace": 16 * (cg * ptot + nt * c16 * k * k * 2 * n)}
+
+
+def conv_tc_pack_plain(x: torch.Tensor, w: torch.Tensor, pad: int,
+                       grow: int = 0, reflect: bool = False):
+    """The plain version of the pack kernel of K1's and K9's tensor-core
+    design: (xp [cg, B, hp, wp, 8], wp [nt, c16, K*K, 2, n, 8]). xp is x
+    padded by pad + grow before and K-1-pad + grow after with zeros (with
+    ``reflect``, by K//2 on each side through the reflect map), channels
+    grouped 8 innermost and zero past C; wp is the HWIO weights with the 8
+    channels of group 2 step + half innermost and output channel tile j n
+    + [0, n) in tile j, zero past C and Cout."""
+    B, H, C, W = x.shape
+    k, cout = int(w.shape[0]), int(w.shape[3])
+    geo = conv_tc_geometry(B, H, C, W, cout, k, grow)
+    cg, n, nt = geo["cg"], geo["n"], geo["nt"]
+    xc = F.pad(x, (0, 0, 0, cg * 8 - C))                  # [B, H, 8cg, W]
+    if reflect:
+        p = k // 2
+        xq = F.pad(xc.permute(0, 2, 1, 3), (p,) * 4, mode="reflect")
+    else:
+        before, after = pad + grow, k - 1 - pad + grow
+        xq = F.pad(xc.permute(0, 2, 1, 3), (before, after, before, after))
+    xp = xq.reshape(B, cg, 8, geo["hp"], geo["wp"]).permute(1, 0, 3, 4, 2)
+    wq = F.pad(w.reshape(k * k, C, cout), (0, nt * n - cout, 0, cg * 8 - C))
+    wq = wq.reshape(k * k, cg // 2, 2, 8, nt, n).permute(4, 1, 0, 2, 5, 3)
+    return xp.contiguous(), wq.contiguous()
+
+
+def _launch_conv(lib_fn, counter, x, w, bias, pad=None, grow=0,
+                 pack=False):
+    """One launch of ``lib_fn`` of library ``conv_same`` (arguments x, w,
+    bias, out, [workspace, its bytes,] B, H, C, W, Cout, K, [pad, grow,]
+    stream; K9's entries take no pad) into a new output [B, H + 2 grow,
+    Cout, W + 2 grow], counted under ``counter``. With ``pack``, the
+    workspace the tensor-core design packs x and w into (xp [cg, ptot, 8]
+    then wp [nt, c16, K*K, 2, n, 8] bf16), sized by ``conv_tc_geometry``;
+    the kernel refuses a workspace smaller than its own geometry needs."""
     B, H, C, W = x.shape
     K, Cout = int(w.shape[0]), int(w.shape[3])
-    out = torch.empty((B, H, Cout, W), dtype=x.dtype, device=x.device)
-    fn = kernels.function("conv_same", f"conv_same_{kernels.dtype_suffix(x)}",
-                          [P, P, P, P, I, I, I, I, I, I, I, P])
-    err = fn(kernels.ptr(x), kernels.ptr(w), kernels.ptr(bias),
-             kernels.ptr(out), B, H, C, W, Cout, K, _pad_before(w, pad),
-             kernels.stream())
+    out = torch.empty((B, H + 2 * grow, Cout, W + 2 * grow), dtype=x.dtype,
+                      device=x.device)
+    head = [kernels.ptr(x), kernels.ptr(w), kernels.ptr(bias),
+            kernels.ptr(out)]
+    types = [P] * 4
+    if pack:
+        nbytes = conv_tc_geometry(B, H, C, W, Cout, K, grow)["workspace"]
+        ws = torch.empty(nbytes // 2, dtype=x.dtype, device=x.device)
+        head += [kernels.ptr(ws), nbytes]
+        types += [P, L]
+    args = () if pad is None else (pad, grow)
+    fn = kernels.function("conv_same", lib_fn,
+                          types + [I] * (6 + len(args)) + [P])
+    err = fn(*head, B, H, C, W, Cout, K, *args, kernels.stream())
     kernels.check("conv_same", err)
-    kernels.launches["conv_same"] += 1
+    kernels.launches[counter] += 1
     return out
 
 
-def _conv_same(x, w, bias=None, pad=None):
+def conv_same_simt_cuda(x: torch.Tensor, w: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None,
+                        pad: Optional[int] = None,
+                        grow: int = 0) -> torch.Tensor:
+    """Launch K1's CUDA-core design on CUDA tensors, f32 or bf16, counted
+    under ``conv_same_simt``."""
+    _check_shapes(x, w, bias, pad, grow)
+    kernels.check_cuda("conv_same", x, w, bias)
+    return _launch_conv(f"conv_same_simt_{kernels.dtype_suffix(x)}",
+                        "conv_same_simt", x, w, bias, _pad_before(w, pad),
+                        grow)
+
+
+def conv_same_cuda(x: torch.Tensor, w: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None,
+                   pad: Optional[int] = None, grow: int = 0) -> torch.Tensor:
+    """Launch K1 on CUDA tensors: the tensor-core design where
+    ``conv_tc_domain`` holds, else the CUDA-core one."""
+    _check_shapes(x, w, bias, pad, grow)
+    kernels.check_cuda("conv_same", x, w, bias)
+    if conv_tc_domain(x):
+        out = _launch_conv("conv_same_bf16", "conv_same", x, w, bias,
+                           _pad_before(w, pad), grow, pack=True)
+    else:
+        out = conv_same_simt_cuda(x, w, bias, pad, grow)
+        kernels.launches["conv_same"] += 1
+    return out
+
+
+def _conv_same(x, w, bias=None, pad=None, grow=0):
     """K1 or its plain version, by the tensor's device; not differentiable."""
     if x.is_cuda:
-        return conv_same_cuda(x, w, bias, pad=pad)
+        return conv_same_cuda(x, w, bias, pad=pad, grow=grow)
     if x.device.type == "cpu":
-        return conv_same_plain(x, w, bias, pad=pad)
+        return conv_same_plain(x, w, bias, pad=pad, grow=grow)
     raise ValueError(f"conv_same: no kernel for device {x.device}")
 
 

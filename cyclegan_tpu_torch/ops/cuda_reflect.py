@@ -7,9 +7,14 @@ Replaces cyclegan_tpu/ops/pallas_conv.py ``conv2d_reflect_nhcw``, a custom
 VJP built from two Pallas calls:
 
 - forward: a reflect pad by K//2, then ``_conv_fwd_call`` on the padded
-  input. K9 (``conv_reflect`` in ``kernels/csrc/conv_same.cu``) is K1
-  staging its input window through the reflected index map, so no padded
-  copy is written to device memory; odd K only, K//2 < H and K//2 < W.
+  input. K9 (``conv_reflect`` in ``kernels/csrc/conv_same.cu``) is K1's
+  design on the reflect-padded input: in bf16 its pack kernel writes the
+  padded, channel-grouped copy through the reflected index map
+  (``cuda_conv.conv_tc_pack_plain(..., reflect=True)`` is its plain
+  version) and the tensor-core product runs at pad 0; in f32 (counted
+  under ``conv_same_simt`` as well) the CUDA-core design stages its input
+  window through the same map, with no copy. Odd K only, K//2 < H and
+  K//2 < W.
 - dW: ``_conv_dw_call`` on the reflect-padded input. K9-dW
   (``conv_reflect_dw`` in ``kernels/csrc/conv_dw.cu``) in bf16 is K5's
   TMA design at pad 0 on the column-shifted copies of the reflect-padded x,
@@ -20,8 +25,8 @@ VJP built from two Pallas calls:
 - dX: ``_conv_fwd_call`` as the full correlation of dY with the flipped,
   ci<->co-swapped weights over the padded domain (side H + 2p), then a fold
   of the halo rows and columns back through the reflect map. Here K1
-  computes that correlation on dY zero-padded by p on each side at its
-  forward pad p (these launches count under ``conv_same``), and K10
+  computes that correlation at pad p and grow p, writing the zero pad of
+  dY itself (these launches count under ``conv_same``), and K10
   (``kernels/csrc/reflect_fold.cu``) folds it: one thread per element of
   dX adds the interior term and the halo terms that reflect onto it, in
   the order the plain version adds them, so K10 is exact against it.
@@ -68,21 +73,30 @@ def conv_reflect_plain(x: torch.Tensor, w: torch.Tensor,
     return y.permute(0, 2, 1, 3).contiguous().to(x.dtype)
 
 
-def conv_reflect_cuda(x: torch.Tensor, w: torch.Tensor,
-                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K9 on CUDA tensors."""
+def conv_reflect_simt_cuda(x: torch.Tensor, w: torch.Tensor,
+                           bias: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Launch K9's CUDA-core design on CUDA tensors, f32 or bf16, counted
+    under ``conv_same_simt``."""
     _check(x, w, bias)
     kernels.check_cuda("conv_reflect", x, w, bias)
-    B, H, C, W = x.shape
-    K, Cout = int(w.shape[0]), int(w.shape[3])
-    out = torch.empty((B, H, Cout, W), dtype=x.dtype, device=x.device)
-    fn = kernels.function("conv_same",
-                          f"conv_reflect_{kernels.dtype_suffix(x)}",
-                          [P, P, P, P, I, I, I, I, I, I, P])
-    err = fn(kernels.ptr(x), kernels.ptr(w), kernels.ptr(bias),
-             kernels.ptr(out), B, H, C, W, Cout, K, kernels.stream())
-    kernels.check("conv_same", err)
-    kernels.launches["conv_reflect"] += 1
+    return cuda_conv._launch_conv(
+        f"conv_reflect_simt_{kernels.dtype_suffix(x)}", "conv_same_simt", x,
+        w, bias)
+
+
+def conv_reflect_cuda(x: torch.Tensor, w: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K9 on CUDA tensors: the tensor-core design where
+    ``cuda_conv.conv_tc_domain`` holds, else the CUDA-core one."""
+    _check(x, w, bias)
+    kernels.check_cuda("conv_reflect", x, w, bias)
+    if cuda_conv.conv_tc_domain(x):
+        out = cuda_conv._launch_conv("conv_reflect_bf16", "conv_reflect", x,
+                                     w, bias, pack=True)
+    else:
+        out = conv_reflect_simt_cuda(x, w, bias)
+        kernels.launches["conv_reflect"] += 1
     return out
 
 
@@ -201,6 +215,14 @@ def reflect_fold(dxp: torch.Tensor, p: int) -> torch.Tensor:
     raise ValueError(f"reflect_fold: no kernel for device {dxp.device}")
 
 
+def padded_dx(g: torch.Tensor, w_t: torch.Tensor, p: int) -> torch.Tensor:
+    """dXp [B, H+2p, Cin, W+2p], the full correlation of dY [B, H, Cout, W]
+    with the flipped, ci<->co-swapped weights w_t: K1 (or its plain
+    version on the CPU) at pad p and grow p, which pads dY with zeros
+    itself."""
+    return cuda_conv._conv_same(g, w_t, pad=p, grow=p)
+
+
 class ConvReflect(torch.autograd.Function):
     """y = conv_reflect(x, w, bias); forward K9, dX by K1 (dXp) then K10,
     dW by K9-dW, each only where its input needs a gradient. dW comes back
@@ -221,8 +243,7 @@ class ConvReflect(torch.autograd.Function):
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
             w_t = w.flip(0, 1).transpose(2, 3).contiguous()
-            gp = F.pad(g, (p, p, 0, 0, p, p))
-            dx = reflect_fold(cuda_conv._conv_same(gp, w_t, pad=p), p)
+            dx = reflect_fold(padded_dx(g, w_t, p), p)
         if ctx.needs_input_grad[1]:
             dw = conv_reflect_dw(x, g, k).to(w.dtype)
         if ctx.needs_input_grad[2]:

@@ -114,11 +114,12 @@ def _record_train_step(monkeypatch, model_cfg, batch, size, **step_kw):
 
         monkeypatch.setattr(module, name, wrapper)
 
-    def conv_shape(x, w, b=None, pad=None):
+    def conv_shape(x, w, b=None, pad=None, grow=0):
         k = int(w.shape[0])
-        return (x.shape[0], x.shape[1], x.shape[2], w.shape[3], k,
-                b is not None, cuda_conv.tf_same_pad(k)[0] if pad is None
-                else pad)
+        shape = (x.shape[0], x.shape[1], x.shape[2], w.shape[3], k,
+                 b is not None, cuda_conv.tf_same_pad(k)[0] if pad is None
+                 else pad)
+        return shape + (grow,) if grow else shape
 
     def plane(x, *args, **kwargs):
         return (x.shape[0], x.shape[1], x.shape[2])
@@ -348,8 +349,8 @@ def test_default_resnet_train_step_launch_counts():
         "conv_reflect": 120, "conv_reflect_dw": 120, "reflect_fold": 116,
         "conv_same": 128, "conv_dw": 4, "instance_norm_act": 156,
         "instance_norm_act_bwd": 156}
-    # the head's input gradient: K1 on dY (3 channels) padded to 262
-    assert (8, 262, 3, 32, 7, False, 3) in plan["conv_same"]
+    # the head's input gradient: K1 on dY (3 channels) at pad 3, grow 3
+    assert (8, 256, 3, 32, 7, False, 3, 3) in plan["conv_same"]
     assert (8, 64, 128, 1) in plan["reflect_fold"]
     assert (8, 32, 256, "leaky_relu", False) in plan["instance_norm_act"]
 

@@ -2,7 +2,9 @@
 ops against the JAX package, on the CPU.
 
 ``cuda_reflect.ConvReflect`` runs, on CPU tensors, the plain versions of
-its kernels: K9 forward, K1 on the padded dY then K10 for dX, K9-dW for dW.
+its kernels: K9 forward, K1 at grow p on dY (the kernel writes dY's zero
+pad itself; held here against the route with a padded copy) then K10 for
+dX, K9-dW for dW.
 They are held against ``pallas_conv.conv2d_reflect_nhcw`` in interpret mode
 and its ``jax.vjp`` at W = 128 and a small H (the shapes of
 ``tests/test_pallas_conv.py``), in f32, with JAX's own tolerances there:
@@ -122,6 +124,26 @@ def test_conv_reflect_function_equals_plain_autograd(dtype):
     for a, r in zip(got, ref):
         assert a.dtype == dtype
         np.testing.assert_allclose(a.float().numpy(), r.numpy(), **tol)
+
+
+@pytest.mark.parametrize("k", [3, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padded_dx_without_the_pad_copy_is_the_same_function(k, dtype):
+    """The reflect conv's dXp is K1 at pad p and grow p on dY itself (the
+    kernel writes dY's zero pad); its plain version, which ``padded_dx``
+    runs on the CPU, equals the route with a copy, K1 at pad p on dY
+    zero-padded by p, bit for bit."""
+    from cyclegan_tpu_torch.ops import cuda_conv
+
+    p = k // 2
+    g = torch.from_numpy(_np((2, 6, 4, 7), 50)).to(dtype)
+    w_t = torch.from_numpy(_np((k, k, 4, 5), 51, 0.1)).to(dtype)
+    today = cuda_conv.conv_same_plain(
+        torch.nn.functional.pad(g, (p, p, 0, 0, p, p)), w_t, pad=p)
+    pad_free = cuda_conv.conv_same_plain(g, w_t, pad=p, grow=p)
+    assert pad_free.shape == (2, 6 + 2 * p, 5, 7 + 2 * p)
+    assert torch.equal(pad_free, today)
+    assert torch.equal(cuda_reflect.padded_dx(g, w_t, p), today)
 
 
 @pytest.mark.parametrize("h,w,p", [(8, 8, 1), (8, 8, 3), (4, 5, 3), (6, 9, 0)])
