@@ -36,10 +36,16 @@ and the strided U-Net generator with the default U-Net discriminator
    bf16 too (K1 at pad p and grow p is the reflect conv's input gradient,
    which writes dY's zero pad itself); then K1, K9 and ``conv_same_simt``
    at ``EDGE_CONV_SHAPES``, beyond the plans, where the tensor-core design
-   cuts the K tap rows into runs or tiles N;
+   cuts the K tap rows into runs or tiles N; then K2 and K6 at
+   ``EDGE_NORM_SHAPES`` (a ragged W, planes split over a cluster, a launch
+   of one plane, a plane past the on-chip budget that streams); every bf16
+   K2 and K6 case runs twice and must give bit-identical outputs;
 3. each kernel's time at those shapes (CUDA events, median after warm-up)
    beside its plain version, one PyTorch library call for the same
-   function where there is one, and the least time the card could take;
+   function where there is one, and the least time the card could take,
+   with the share of that bound the kernel reaches and whether the launch's
+   bytes fit the 50 MB L2 (the timing repeats the same inputs without a
+   flush, so such a launch may read from L2 and pass the HBM bound);
    the CUDA-core designs ``conv_dw_simt`` and ``conv_same_simt`` timed in
    bf16 on the launches of K5/K9-dW and K1/K9;
 4. U-Net serving: ``InferenceSession`` on converged256, bf16, on the card,
@@ -129,6 +135,7 @@ TRAIN_STEPS_TIMED = 10
 # H100 SXM published peaks (dense): HBM bytes/s and operations/s by type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+L2_BYTES = 50e6
 
 # Kernel vs plain version on the card: |got - want| <= rtol |want| + atol s,
 # per output, with s the output's scale (1 unless stated). conv and norm sum
@@ -237,6 +244,8 @@ SIMT = "conv_dw_simt"
 # conv_same and conv_reflect (a shape with pad -1 is a conv_reflect
 # launch): what the first design of K1 and K9 takes in the same run
 SIMT_SAME = "conv_same_simt"
+# kernels whose bf16 outputs phase 2 requires bit-identical run to run
+DETERMINISTIC = ("instance_norm_act", "instance_norm_act_bwd")
 # kernel-name fragments of the profiler trace -> kernel family
 TRACE_FAMILIES = (
     ("conv_same_tc_kernel", "conv_same"), ("conv_same_pack_kernel", "conv_same"),
@@ -311,6 +320,18 @@ EDGE_CONV_SHAPES = {
                   (2, 32, 64, 320, 3, True, 1)],
     "conv_reflect": [(2, 64, 32, 128, 7, True)],
 }
+# Phase 2's K2 and K6 shapes beyond the plans, (B, H, C, act, affine) with
+# W = H, as the plans key them (cuda_norm_act.norm_act_geometry): a ragged W
+# (one-element slots, streamed, in bf16; 3 slots a row in f32); W = 48 (6
+# slots a row) with two planes to a CTA in bf16; eight 16x16 planes to a
+# CTA; 15 planes, each split over a cluster (B*C a multiple of no cluster
+# size); one plane over a cluster of 8, the whole launch; a plane past the
+# on-chip budget, whose CTAs stream their rows
+EDGE_NORM_SHAPES = {
+    name: [(2, 12, 5, "relu", True), (16, 48, 48, "leaky_relu", True),
+           (16, 16, 256, "none", True), (3, 128, 5, "none", False),
+           (1, 256, 1, "relu", True), (2, 512, 16, "leaky_relu", False)]
+    for name in ("instance_norm_act", "instance_norm_act_bwd")}
 
 failures = []
 STARTED = time.perf_counter()
@@ -837,7 +858,8 @@ def check_kernels(shapes, label=""):
     """Phase 2: kernel vs plain at every unique launch shape, bf16 and
     f32. Returns the largest absolute error per (kernel, dtype). bf16 K5
     and K9-dW must run their TMA design (no ``conv_dw_simt`` launch), bf16
-    K1 and K9 their tensor-core design (no ``conv_same_simt`` launch)."""
+    K1 and K9 their tensor-core design (no ``conv_same_simt`` launch); bf16
+    K2 and K6 must give the same bits in a second run."""
     from cyclegan_tpu_torch import kernels
 
     max_err = {}
@@ -850,6 +872,11 @@ def check_kernels(shapes, label=""):
                 simt = kernels.launches[SIMT]
                 simt_same = kernels.launches[SIMT_SAME]
                 got, want = kernel(), plain()
+                if dtype == torch.bfloat16 and name in DETERMINISTIC:
+                    again = kernel()
+                    if not all(torch.equal(a, b) for a, b in zip(got,
+                                                                  again)):
+                        fail(f"{name} {shape} bf16: two runs differ")
                 torch.cuda.synchronize()
                 if (dtype == torch.bfloat16 and name in (
                         "conv_dw", "conv_reflect_dw")
@@ -910,13 +937,17 @@ def time_kernels(paths, dtype=torch.bfloat16):
                    else time_ms(library),
                    "bytes": nbytes, "operations": ops,
                    "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-                   "bound_ms": max(bytes_ms, ops_ms)}
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "fits_l2": nbytes <= L2_BYTES}
+            row["bound_share"] = row["bound_ms"] / row["ms"]
             rows.append(row)
             lib = ("-" if row["library_ms"] is None
                    else f"{row['library_ms']:.4f}")
             print(f"time {name:22s} {str(shape):36s} {per_step} "
                   f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f}"
-                  f"  library {lib}  bound {row['bound_ms']:.4f}",
+                  f"  library {lib}  bound {row['bound_ms']:.4f} "
+                  f"({100 * row['bound_share']:.1f}% of it"
+                  f"{', bytes fit L2' if row['fits_l2'] else ''})",
                   flush=True)
     return rows
 
@@ -950,6 +981,13 @@ def union_shapes(paths):
     return {name: sorted(shapes) for name, shapes in out.items()}
 
 
+def trace_family(name):
+    """The kernel family of a profiler kernel name: the first fragment of
+    ``TRACE_FAMILIES`` it holds, else "other: " and the name."""
+    return next((f for frag, f in TRACE_FAMILIES if frag in name),
+                "other: " + name[:60])
+
+
 def device_trace(run, out_dir, n, file_name):
     """torch.profiler over ``n`` back-to-back calls of ``run``: device time
     per call by kernel family, and the share of the window in which no
@@ -980,8 +1018,7 @@ def device_trace(run, out_dir, n, file_name):
     window = max(e for _, e, _ in spans) - spans[0][0]
     families = {}
     for s, e, name in spans:
-        family = next((f for frag, f in TRACE_FAMILIES if frag in name),
-                      "other: " + name[:60])
+        family = trace_family(name)
         families[family] = families.get(family, 0.0) + (e - s) / n / 1e3
     result = {"calls": n, "window_ms": window / 1e3,
               "device_busy_ms_per_call": busy / n / 1e3,
@@ -1664,10 +1701,11 @@ def main(argv=None) -> int:
              for path, plan in plans.items()}
     with no_tf32():
         max_err = check_kernels(union_shapes(paths))
-        edge = check_kernels(with_simt(unique_shapes(EDGE_CONV_SHAPES)),
-                             "edge ")
-        for key, err in edge.items():
-            max_err[key] = max(max_err.get(key, 0.0), err)
+        for edge_shapes in (with_simt(unique_shapes(EDGE_CONV_SHAPES)),
+                            unique_shapes(EDGE_NORM_SHAPES)):
+            edge = check_kernels(edge_shapes, "edge ")
+            for key, err in edge.items():
+                max_err[key] = max(max_err.get(key, 0.0), err)
         stamp("phase 2 (kernel checks)")
         rows = time_kernels(paths)
         stamp("phase 3 (kernel times)")

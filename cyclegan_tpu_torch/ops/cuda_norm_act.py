@@ -10,8 +10,12 @@ into VMEM-resident and streamed kernels at 3 MB slabs was a VMEM artefact;
 each CUDA kernel is one design for every slab size.
 
 Bound on the H100: bytes (about 8 flops per element forward, 20 backward).
-One block per (sample, channel) plane reduces in f32 and sweeps the plane
-again to write; the re-read mostly hits L2.
+Each kernel reads its operands from device memory once (norm_act.cuh): a
+thread keeps its 16-byte slots of a plane in registers for the sums and the
+output pass; small planes share a CTA, large ones split their rows over a
+thread-block cluster that exchanges f32 partial sums through distributed
+shared memory, in a fixed order. ``norm_act_geometry`` is the kernels'
+geometry rule; the C entry points refuse a launch whose geometry differs.
 
 Statistics as in the JAX package: bf16 input takes one sweep,
 var = max(E[x^2] - E[x]^2, 0); f32 input takes two passes. Then
@@ -24,6 +28,7 @@ sums, as JAX's are XLA sums).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -34,6 +39,65 @@ from cyclegan_tpu_torch.kernels import I, P
 
 TFA_EPSILON = 1e-3
 _ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
+
+# K2's and K6's CTA (norm_act.cuh): threads, the slots of each operand a
+# thread keeps in registers, and the largest (portable) cluster
+NA_THREADS, NA_SLOTS, NA_MAX_CLUSTER = 256, 4, 8
+
+
+def norm_act_geometry(b: int, h: int, c: int, w: int, esize: int,
+                      operands: int, aligned: bool = True) -> dict:
+    """How K2 (``operands`` 1: x) and K6 (2: x and gz) cut a launch on x
+    [b, h, c, w] of ``esize``-byte elements; norm_act.cuh ``na::geometry``
+    is the same rule. A slot is ``vec`` elements: 16 bytes where W allows
+    and the pointers are 16-byte ``aligned``, else one. A plane of h x q
+    slots (q = w / vec) that fits one CTA's ``NA_THREADS`` x ``nv`` kept
+    slots shares it with up to 8 ``channels`` (a power of two dividing c,
+    at least a warp each); a larger plane splits its rows over a
+    ``cluster`` of up to 8 CTAs (at most h / 2), ``rows`` each, doubled
+    until a CTA's share fits. ``slots``: the most a thread walks;
+    ``resident``: they fit its registers, 16 bytes each (else each pass
+    reads them from device memory again). ``tiles``: plane groups, each a
+    CTA's or a cluster's."""
+    v16 = 16 // esize
+    vec = v16 if aligned and w % v16 == 0 else 1
+    q = w // vec
+    nv = NA_SLOTS
+    cap = NA_THREADS * nv
+    plane = h * q
+    channels = cluster = 1
+    if plane <= cap:
+        while (2 * channels <= NA_THREADS // 32 and c % (2 * channels) == 0
+               and 2 * channels * plane <= cap):
+            channels *= 2
+    else:
+        while (cluster < NA_MAX_CLUSTER and 2 * cluster <= h
+               and -(-h // cluster) * q > cap):
+            cluster *= 2
+    rows = -(-h // cluster)
+    tpc = NA_THREADS // channels
+    slots = -(-rows * q // tpc)
+    return {"vec": vec, "q": q, "nv": nv, "channels": channels,
+            "cluster": cluster, "rows": rows, "tpc": tpc, "slots": slots,
+            "resident": int(slots <= nv and vec == v16),
+            "tiles": b * (c // channels)}
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry_args(shape, esize, operands, aligned):
+    """The geometry arguments a launch passes: vec, channels, cluster,
+    rows, slots, resident."""
+    geo = norm_act_geometry(*shape, esize, operands, aligned)
+    return tuple(geo[k] for k in ("vec", "channels", "cluster", "rows",
+                                  "slots", "resident"))
+
+
+def _launch_geometry(tensors, operands):
+    """``_geometry_args`` of a launch on ``tensors`` (x first)."""
+    x = tensors[0]
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    return _geometry_args(tuple(x.shape), x.element_size(), operands,
+                          aligned)
 
 
 def _check(x, gamma, beta, act):
@@ -99,10 +163,11 @@ def instance_norm_act_cuda(x: torch.Tensor, gamma: Optional[torch.Tensor],
         rstd = torch.empty_like(mu)
     fn = kernels.function(
         "norm_act", f"instance_norm_act_{kernels.dtype_suffix(x)}",
-        [P, P, P, P, P, P, I, I, I, I, CF, I, CF, P])
+        [P, P, P, P, P, P, I, I, I, I, CF, I, CF] + [I] * 6 + [P])
     err = fn(kernels.ptr(x), kernels.ptr(gamma), kernels.ptr(beta),
              kernels.ptr(out), kernels.ptr(mu), kernels.ptr(rstd), B, H, C, W,
-             float(eps), _ACTS[act], float(alpha), kernels.stream())
+             float(eps), _ACTS[act], float(alpha),
+             *_launch_geometry((x, out), 1), kernels.stream())
     kernels.check("norm_act", err)
     kernels.launches["instance_norm_act"] += 1
     return (out, mu, rstd) if with_stats else out
@@ -170,11 +235,12 @@ def instance_norm_act_bwd_cuda(x, gz, gamma, beta, mu, rstd,
     t2 = torch.empty_like(t1)
     fn = kernels.function(
         "norm_act_bwd", f"norm_act_bwd_{kernels.dtype_suffix(x)}",
-        [P, P, P, P, P, P, P, P, P, I, I, I, I, I, CF, P])
+        [P, P, P, P, P, P, P, P, P, I, I, I, I, I, CF] + [I] * 6 + [P])
     err = fn(kernels.ptr(x), kernels.ptr(gz), kernels.ptr(gamma),
              kernels.ptr(beta), kernels.ptr(mu), kernels.ptr(rstd),
              kernels.ptr(dx), kernels.ptr(t1), kernels.ptr(t2), B, H, C, W,
-             _ACTS[act], float(alpha), kernels.stream())
+             _ACTS[act], float(alpha), *_launch_geometry((x, gz, dx), 2),
+             kernels.stream())
     kernels.check("norm_act_bwd", err)
     kernels.launches["instance_norm_act_bwd"] += 1
     return dx, t1, t2

@@ -451,3 +451,101 @@ def test_nhwc_f32_points_are_kink_free(config, model_dir, point):
     assert kink > chip_smoke.KINK_MARGIN
     flat = [chip_smoke._flat(g) for g in grads.values()]
     assert all(bool(torch.isfinite(g).all()) and g.norm() > 0 for g in flat)
+
+
+@pytest.mark.parametrize("name,family", [
+    ("void (anonymous namespace)::norm_act_kernel<__nv_bfloat16, 8, true, "
+     "false, 1>(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16*, float*, float*, int, int, int, "
+     "int, int, int, float, float)", "instance_norm_act"),
+    ("void (anonymous namespace)::norm_act_bwd_kernel<float, 4, false, 2>("
+     "float const*, float const*, float const*, float const*, float const*,"
+     " float const*, float*, float*, float*, int, int, int, int, int, int, "
+     "float)", "instance_norm_act_bwd"),
+    ("_ZN48_GLOBAL__N__2c46ab61_15_norm_act_bwd_cu_3b2fb43b19norm_act_bwd_"
+     "kernelI13__nv_bfloat16Li8ELb1ELi1EEEvPKT_", "instance_norm_act_bwd")])
+def test_trace_families_name_the_norm_kernels(name, family):
+    """K2's and K6's kernels, templated on the slot width, the register
+    design and the activation, fall into their own families in the device
+    trace, not into "other"."""
+    assert chip_smoke.trace_family(name) == family
+
+
+def _norm_case(deterministic):
+    """make_case stand-in: a K2 whose second bf16 run differs from its
+    first by one bf16 step unless ``deterministic``, within tolerance of
+    the plain version."""
+    runs = []
+
+    def make_case(name, shape, dtype, seed):
+        x = torch.linspace(-1.0, 1.0, 64).to(dtype)
+
+        def kernel():  # runs 1 and 2: bf16, then run 3: f32
+            runs.append(1)
+            bump = 0.0 if deterministic or len(runs) != 2 else 2.0 ** -8
+            return (x + bump,)
+        return (kernel, lambda: (x,), None, 0, 0,
+                [("instance_norm_act", 1.0)])
+    return make_case
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_phase_2_requires_the_same_bits_twice(deterministic, monkeypatch):
+    """Phase 2 runs every bf16 K2 and K6 case twice and fails unless the
+    outputs are bit-identical; a difference within the tolerance of the
+    plain version fails all the same."""
+    monkeypatch.setattr(chip_smoke, "make_case", _norm_case(deterministic))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "failures", [])
+    shapes = {"instance_norm_act": collections.Counter(
+        {(1, 8, 8, "relu", True): 1})}
+    chip_smoke.check_kernels(shapes)
+    differ = [f for f in chip_smoke.failures if "two runs differ" in f]
+    assert len(differ) == (0 if deterministic else 1)
+    assert all("bf16" in f for f in differ)
+    assert len(chip_smoke.failures) == len(differ)
+
+
+def test_phase_3_reports_the_share_of_the_bound_and_l2(monkeypatch):
+    """Each phase-3 row carries its share of the bound (bound over kernel
+    ms) and whether the launch's bytes fit the 50 MB L2."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, *a, **k: 0.25)
+    small, large = (2, 8, 4, "relu", True), (8, 256, 32, "none", False)
+    paths = {"step": {"instance_norm_act": collections.Counter(
+        {small: 2}), "instance_norm_act_bwd": collections.Counter(
+        {small: 2})}}
+    rows = chip_smoke.time_kernels(paths, torch.float32)
+    assert {r["kernel"] for r in rows} == {"instance_norm_act",
+                                           "instance_norm_act_bwd"}
+    for r in rows:
+        assert r["bound_share"] == pytest.approx(r["bound_ms"] / 0.25)
+        assert r["fits_l2"] and r["per_step"] == {"step": 2}
+    b, h, c = large[:3]
+    # K6 at the U-Net's largest launch moves x, gz and dx: 3 x 32 MiB
+    assert 3 * b * h * c * h * 2 > chip_smoke.L2_BYTES
+
+
+@pytest.mark.parametrize("name", ["instance_norm_act",
+                                  "instance_norm_act_bwd"])
+def test_edge_norm_shapes_are_cases_of_the_library_function(name,
+                                                             monkeypatch):
+    """Every EDGE_NORM_SHAPES case builds on the CPU in f32, and its
+    library yardstick computes the plain version's function."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    seen = set()
+    for shape in chip_smoke.EDGE_NORM_SHAPES[name]:
+        b, h, c, act, affine = shape
+        seen.update([act, affine])
+        _, plain, library, nbytes, _, checks = chip_smoke.make_case(
+            name, shape, torch.float32, 0)
+        want = plain()
+        got = library()
+        if name == "instance_norm_act":
+            torch.testing.assert_close(got.permute(0, 2, 1, 3), want[0],
+                                       rtol=1e-4, atol=1e-4)
+        else:
+            torch.testing.assert_close(got[0].permute(0, 2, 1, 3), want[0],
+                                       rtol=1e-4, atol=1e-4)
+        assert nbytes > 0 and len(checks) == 3
+    assert seen == {"relu", "leaky_relu", "none", True, False}
