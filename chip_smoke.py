@@ -39,13 +39,20 @@ and the strided U-Net generator with the default U-Net discriminator
    cuts the K tap rows into runs or tiles N; then K2 and K6 at
    ``EDGE_NORM_SHAPES`` (a ragged W, planes split over a cluster, a launch
    of one plane, a plane past the on-chip budget that streams); every bf16
-   K2 and K6 case runs twice and must give bit-identical outputs;
+   K2 and K6 case runs twice and must give bit-identical outputs; then K4
+   at ``EDGE_JUNCTION_SHAPES`` and K10 at ``EDGE_FOLD_SHAPES`` (odd
+   channel counts, both halos on every row, p = 0, every unaligned source
+   offset, inputs one element off alignment); each K4 and K10 case must
+   take the path (16-byte units or one element a unit) its geometry gives,
+   and both paths must run in both dtypes;
 3. each kernel's time at those shapes (CUDA events, median after warm-up)
    beside its plain version, one PyTorch library call for the same
    function where there is one, and the least time the card could take,
    with the share of that bound the kernel reaches and whether the launch's
    bytes fit the 50 MB L2 (the timing repeats the same inputs without a
-   flush, so such a launch may read from L2 and pass the HBM bound);
+   flush, so such a launch may read from L2 and pass the HBM bound); K4
+   and K10 also beside a ``copy_`` of the launch's bytes (``copy_ms``),
+   the floor of a launch that only moves data;
    the CUDA-core designs ``conv_dw_simt`` and ``conv_same_simt`` timed in
    bf16 on the launches of K5/K9-dW and K1/K9;
 4. U-Net serving: ``InferenceSession`` on converged256, bf16, on the card,
@@ -333,7 +340,35 @@ EDGE_NORM_SHAPES = {
            (1, 256, 1, "relu", True), (2, 512, 16, "leaky_relu", False)]
     for name in ("instance_norm_act", "instance_norm_act_bwd")}
 
+# Phase 2's K4 shapes beyond the plans, (B, H, C1, C2, off) with W = H:
+# W/2 = 18 (not a whole 16-byte unit of a channel: the vector path holds,
+# as its map needs only whole rows); odd C1 and C2 at W = 34 (rows of
+# neither whole 16- nor 8-byte units: the element path); and skip and x as
+# views one element off an aligned base (off = 1: the element path)
+EDGE_JUNCTION_SHAPES = {
+    "concat_up2": [(2, 36, 8, 16, 0), (2, 34, 3, 5, 0), (2, 64, 16, 32, 1)]}
+# Phase 2's K10 shapes beyond the plans, (B, H, C, p, off) with W = H
+# (cuda_reflect.reflect_fold_geometry): p = 3 at H = W = 4, every row and
+# column with both halos (bf16: W is no whole 16-byte unit, the element
+# path); p = 7 at H = W = 8, both halos on most rows and every unit of the
+# vector path; the vector path's unaligned source offsets of 2 and 6
+# elements (p = 2) and 4 (p = 4) in bf16, which the recipes (odd offsets
+# only) do not reach; an odd C at W = 30 (the element path); p = 0, a
+# copy; dxp as a view one element off an aligned base (off = 1: the
+# element path)
+EDGE_FOLD_SHAPES = {
+    "reflect_fold": [(2, 4, 16, 3, 0), (2, 8, 16, 7, 0), (2, 32, 8, 2, 0),
+                     (2, 16, 8, 4, 0), (2, 30, 5, 2, 0), (2, 16, 8, 0, 0),
+                     (2, 32, 16, 1, 1)]}
+# kernels with a vector and an element path (``kernels.paths``): phase 2
+# must run both of each, in both dtypes
+PATH_KERNELS = ("concat_up2", "reflect_fold")
+# kernels that phase 3 times beside a ``copy_`` of the launch's bytes
+COPY_FLOOR = ("concat_up2", "reflect_fold")
+
 failures = []
+# {(kernel, dtype): the paths phase 2 saw it take}
+paths_run = collections.defaultdict(set)
 STARTED = time.perf_counter()
 
 
@@ -672,8 +707,10 @@ def make_case(name, shape, dtype, seed):
                 (x.numel() + gy.numel()) * size + k * k * cin * cout * 4,
                 2 * B * H * H * k * k * cin * cout, [(name, scale)])
     if name == "reflect_fold":
-        B, H, c, p = shape
+        B, H, c, p = shape[:4]
         dxp = rnd(B, H + 2 * p, c, H + 2 * p)
+        if len(shape) > 4 and shape[4]:
+            dxp = off_view(dxp)
         out = B * H * c * H
         x_like = torch.empty((B, c, H, H), dtype=dtype, device=DEVICE)
         dxp_nchw = nchw(dxp)
@@ -755,9 +792,11 @@ def make_case(name, shape, dtype, seed):
                     None),
                 5 * gy.numel() * size, gy.numel(), [(name, 1.0)])
     if name == "concat_up2":
-        B, H, c1, c2 = shape
+        B, H, c1, c2 = shape[:4]
         skip = rnd(B, H, c1, H)
         x = rnd(B, H // 2, c2, H // 2)
+        if len(shape) > 4 and shape[4]:
+            skip, x = off_view(skip), off_view(x)
         return (lambda: (cuda_concat.concat_up2_cuda(skip, x),),
                 lambda: (cuda_concat.concat_up2_plain(skip, x),),
                 lambda: torch.cat([skip, F.interpolate(
@@ -809,6 +848,14 @@ def make_case(name, shape, dtype, seed):
                 [(name, 1.0), (name + ".stats", 1.0),
                  (name + ".stats", 1.0)])
     raise KeyError(name)
+
+
+def off_view(t):
+    """t's values in a contiguous view one element past a 16-byte aligned
+    base, so no kernel may read it in 16-byte units."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:].view(t.shape)
 
 
 @contextlib.contextmanager
@@ -871,7 +918,15 @@ def check_kernels(shapes, label=""):
                                                            dtype, i)
                 simt = kernels.launches[SIMT]
                 simt_same = kernels.launches[SIMT_SAME]
+                before = collections.Counter(kernels.paths)
                 got, want = kernel(), plain()
+                if name in PATH_KERNELS:
+                    took = {k.split(".")[1] for k in kernels.paths
+                            if kernels.paths[k] != before[k]}
+                    paths_run[(name, dtype)].update(took)
+                    if took != {expected_path(name, shape, dtype)}:
+                        fail(f"{name} {shape} {dtype} took the {took} "
+                             f"path, not the one its geometry gives")
                 if dtype == torch.bfloat16 and name in DETERMINISTIC:
                     again = kernel()
                     if not all(torch.equal(a, b) for a, b in zip(got,
@@ -916,11 +971,32 @@ def check_kernels(shapes, label=""):
     return max_err
 
 
+def expected_path(name, shape, dtype):
+    """The path (``vector`` or ``element``) that K4's or K10's geometry
+    gives a phase-2 case, whose fifth shape entry, where there is one,
+    puts the inputs one element off alignment."""
+    from cyclegan_tpu_torch.ops import cuda_concat, cuda_reflect
+
+    esize = torch.finfo(dtype).bits // 8
+    aligned = not (len(shape) > 4 and shape[4])
+    if name == "concat_up2":
+        B, H, c1, c2 = shape[:4]
+        geo = cuda_concat.concat_up2_geometry(B, H, c1, c2, H, esize,
+                                              aligned)
+    else:
+        B, H, c, p = shape[:4]
+        geo = cuda_reflect.reflect_fold_geometry(B, H, c, H, p, esize,
+                                                 aligned)
+    return "vector" if geo["vec"] else "element"
+
+
 def time_kernels(paths, dtype=torch.bfloat16):
     """Phase 3: per unique launch shape of the train steps ``paths``
     ({path: {kernel: Counter(shape -> launches per step)}}), kernel /
     plain / library / bound ms, with the shape's launches per step of each
-    path."""
+    path; for ``COPY_FLOOR``'s kernels also ``copy_ms``, a ``copy_`` that
+    moves the launch's bytes (half read, half written): what a launch of
+    pure data movement takes on the card."""
     rows = []
     for name, shapes in union_shapes(paths).items():
         for i, shape in enumerate(shapes):
@@ -940,12 +1016,20 @@ def time_kernels(paths, dtype=torch.bfloat16):
                    "bound_ms": max(bytes_ms, ops_ms),
                    "fits_l2": nbytes <= L2_BYTES}
             row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["copy_ms"] = None
+            if name in COPY_FLOOR:
+                src = torch.empty(nbytes // 2, dtype=torch.uint8,
+                                  device=DEVICE)
+                dst = torch.empty_like(src)
+                row["copy_ms"] = time_ms(lambda: dst.copy_(src))
             rows.append(row)
             lib = ("-" if row["library_ms"] is None
                    else f"{row['library_ms']:.4f}")
+            copy = ("" if row["copy_ms"] is None
+                    else f"  copy {row['copy_ms']:.4f}")
             print(f"time {name:22s} {str(shape):36s} {per_step} "
                   f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f}"
-                  f"  library {lib}  bound {row['bound_ms']:.4f} "
+                  f"  library {lib}{copy}  bound {row['bound_ms']:.4f} "
                   f"({100 * row['bound_share']:.1f}% of it"
                   f"{', bytes fit L2' if row['fits_l2'] else ''})",
                   flush=True)
@@ -1622,6 +1706,8 @@ def kernel_entries(rows, max_err, launches, forwards, serve_plans):
             "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"], "bound_by": total["bound_by"],
             "library_ms": total["library_ms"], **library,
+            **({"copy_ms": total["copy_ms"]} if name in COPY_FLOOR
+               else {}),
             "timing": "bf16, the median per launch shape summed over the "
                       "launches of one batch-8 256x256 train step of each "
                       f"recipe ({' + '.join(train_paths)})",
@@ -1635,8 +1721,9 @@ def _sums(used, launches):
     out = {"launches": launches}
     for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms"):
         out[key] = sum(r[key] * n for r, n in used)
-    out["library_ms"] = (None if any(r["library_ms"] is None for r, _ in used)
-                         else sum(r["library_ms"] * n for r, n in used))
+    for key in ("library_ms", "copy_ms"):
+        out[key] = (None if any(r[key] is None for r, _ in used)
+                    else sum(r[key] * n for r, n in used))
     out["bound_by"] = ("operations" if out.pop("ops_ms") > out.pop("bytes_ms")
                        else "bytes")
     return out
@@ -1702,10 +1789,18 @@ def main(argv=None) -> int:
     with no_tf32():
         max_err = check_kernels(union_shapes(paths))
         for edge_shapes in (with_simt(unique_shapes(EDGE_CONV_SHAPES)),
-                            unique_shapes(EDGE_NORM_SHAPES)):
+                            unique_shapes(EDGE_NORM_SHAPES),
+                            unique_shapes(EDGE_JUNCTION_SHAPES),
+                            unique_shapes(EDGE_FOLD_SHAPES)):
             edge = check_kernels(edge_shapes, "edge ")
             for key, err in edge.items():
                 max_err[key] = max(max_err.get(key, 0.0), err)
+        for name in PATH_KERNELS:
+            for dtype in (torch.bfloat16, torch.float32):
+                took = paths_run[(name, dtype)]
+                print(f"paths {name} {dtype}: {sorted(took)}")
+                if took != {"vector", "element"}:
+                    fail(f"{name} {dtype}: phase 2 ran only {took}")
         stamp("phase 2 (kernel checks)")
         rows = time_kernels(paths)
         stamp("phase 3 (kernel times)")

@@ -7,6 +7,7 @@ show that the main path went through the kernels.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -29,6 +30,9 @@ KERNELS = ("conv_same", "instance_norm_act", "sum2x2", "concat_up2",
            "conv_reflect", "conv_reflect_dw", "reflect_fold", "concat2",
            "split2", "instance_norm_nhwc", "conv_dw_simt", "conv_same_simt")
 launches = {name: 0 for name in KERNELS}
+# the path of each launch of K4 and K10, "<kernel>.vector" (16-byte units)
+# or "<kernel>.element", counted beside ``launches``
+paths = collections.Counter()
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -39,6 +43,7 @@ F = ctypes.c_float
 def reset_launches() -> None:
     for name in KERNELS:
         launches[name] = 0
+    paths.clear()
 
 
 def dtype_suffix(t: torch.Tensor) -> str:
@@ -76,5 +81,6 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-__all__ = ["KERNELS", "launches", "reset_launches", "build_dir", "check",
-           "function", "check_cuda", "dtype_suffix", "ptr", "stream"]
+__all__ = ["KERNELS", "launches", "paths", "reset_launches", "build_dir",
+           "check", "function", "check_cuda", "dtype_suffix", "ptr",
+           "stream"]

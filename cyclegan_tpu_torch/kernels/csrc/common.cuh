@@ -34,6 +34,9 @@ inline int grid_for(size_t n, int threads) {
   return (int)blocks;
 }
 
+// Whether a pointer may be read or written in 16-byte units
+inline bool aligned16(const void* ptr) { return (uintptr_t)ptr % 16 == 0; }
+
 extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

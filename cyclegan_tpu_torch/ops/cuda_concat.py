@@ -8,9 +8,12 @@ Functions that join them.
   ``_split_pool2_call`` (K8, ``kernels/csrc/split_pool2.cu``). Fusing the
   upsample into the concat saves a write and a read of the upsampled
   tensor, and fusing the split with the sums saves the same in the
-  backward. One thread per output element, coalesced writes. K4 copies
-  values unconverted and K8 adds in f32 in the Pallas order (row pair, then
-  column pair), so both equal their plain versions exactly.
+  backward. K4 walks row pairs in 16-byte units where
+  ``concat_up2_geometry`` allows (x read once and widened in registers
+  into both rows), else one element a unit; K8 is one thread per output
+  element. K4 copies values unconverted and K8 adds in f32 in the Pallas
+  order (row pair, then column pair), so both equal their plain versions
+  exactly.
 - The plain two-piece channel concat (``ops/layout.concat_channels``)
   replaces ``concat2_nhcw``: its forward ``_concat2_call`` (K11) and its
   backward ``_split2_call`` (K12), both in ``kernels/csrc/concat2.cu``: row
@@ -46,20 +49,51 @@ def concat_up2_plain(skip: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.cat([skip, up.reshape(B, 2 * h, C2, 2 * w)], dim=2)
 
 
+JUNCTION_THREADS = 256
+MAX_ROW_BLOCKS = 65535  # gridDim.y limit
+
+
+def concat_up2_geometry(b: int, h: int, c1: int, c2: int, w: int,
+                        esize: int, aligned: bool = True) -> dict:
+    """K4's launch for out [b, h, c1 + c2, w] (skip's shape with c1 + c2
+    channels) of ``esize``-byte elements, the rule of
+    ``kernels/csrc/concat_up2.cu``: the vector path where every pointer is
+    16-byte ``aligned``, a skip row (n1 = c1 w elements) is whole 16-byte
+    units and an x row (m = c2 w/2) whole 8-byte ones; else one element a
+    unit. A row pair's units are 2 ``skip_units`` then ``x_units``, each
+    x unit widened into both rows; ``grid`` is (unit blocks, row-pair
+    blocks)."""
+    n1, m = c1 * w, c2 * (w // 2)
+    vs, vx = 16 // esize, 8 // esize
+    vec = aligned and n1 % vs == 0 and m % vx == 0
+    if not vec:
+        vs = vx = 1
+    units = 2 * (n1 // vs) + m // vx
+    pairs = b * (h // 2)
+    return {"vec": vec, "vs": vs, "vx": vx, "skip_units": n1 // vs,
+            "x_units": m // vx, "pairs": pairs,
+            "grid": (-(-units // JUNCTION_THREADS),
+                     min(pairs, MAX_ROW_BLOCKS))}
+
+
 def concat_up2_cuda(skip: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Launch K4 on CUDA tensors."""
+    """Launch K4 on CUDA tensors, on the path ``concat_up2_geometry``
+    chooses from their sizes and pointers."""
     _check(skip, x)
     kernels.check_cuda("concat_up2", skip, x)
     B, H, C1, W = skip.shape
     C2 = x.shape[2]
     out = torch.empty((B, H, C1 + C2, W), dtype=x.dtype, device=x.device)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (skip, x, out))
+    geo = concat_up2_geometry(B, H, C1, C2, W, x.element_size(), aligned)
     fn = kernels.function("concat_up2",
                           f"concat_up2_{kernels.dtype_suffix(x)}",
-                          [P, P, P, I, I, I, I, I, P])
+                          [P, P, P, I, I, I, I, I, I, P])
     err = fn(kernels.ptr(skip), kernels.ptr(x), kernels.ptr(out), B, H, C1,
-             C2, W, kernels.stream())
+             C2, W, int(geo["vec"]), kernels.stream())
     kernels.check("concat_up2", err)
     kernels.launches["concat_up2"] += 1
+    kernels.paths["concat_up2." + ("vector" if geo["vec"] else "element")] += 1
     return out
 
 

@@ -27,9 +27,11 @@ VJP built from two Pallas calls:
   of the halo rows and columns back through the reflect map. Here K1
   computes that correlation at pad p and grow p, writing the zero pad of
   dY itself (these launches count under ``conv_same``), and K10
-  (``kernels/csrc/reflect_fold.cu``) folds it: one thread per element of
-  dX adds the interior term and the halo terms that reflect onto it, in
-  the order the plain version adds them, so K10 is exact against it.
+  (``kernels/csrc/reflect_fold.cu``) folds it: a thread makes a 16-byte
+  unit of one output row where ``reflect_fold_geometry`` allows (else one
+  element), adding its source rows and, at a channel's edges, the halo
+  columns in the order the plain version adds them, so K10 is exact
+  against it.
 
 Bound on the H100: K9 and K9-dW by operations, as K1 and K5; K10 by bytes.
 The bias gradient is a torch sum, as ``ConvSame``'s.
@@ -190,19 +192,47 @@ def reflect_fold_plain(dxp: torch.Tensor, p: int) -> torch.Tensor:
     return out.to(dxp.dtype)
 
 
+FOLD_THREADS = 256
+MAX_ROW_BLOCKS = 65535  # gridDim.y limit
+
+
+def reflect_fold_geometry(b: int, h: int, c: int, w: int, p: int,
+                          esize: int, aligned: bool = True) -> dict:
+    """K10's launch for dx [b, h, c, w] from dxp [b, h+2p, c, w+2p] of
+    ``esize``-byte elements, the rule of ``kernels/csrc/reflect_fold.cu``:
+    a thread makes one unit of ``v`` output elements of one channel. The
+    vector path (16-byte units) where both pointers are 16-byte
+    ``aligned``, w is whole units, p < v (a channel's halo columns then lie
+    in its first and last unit) and dxp is whole units (a window's second
+    unit stays inside it); else one element a unit. ``units`` per output
+    row; ``grid`` is (unit blocks, row blocks)."""
+    v = 16 // esize
+    n = b * (h + 2 * p) * c * (w + 2 * p)
+    vec = aligned and w % v == 0 and p < v and n % v == 0
+    if not vec:
+        v = 1
+    units = c * (w // v)
+    return {"vec": vec, "v": v, "units": units,
+            "grid": (-(-units // FOLD_THREADS), min(b * h, MAX_ROW_BLOCKS))}
+
+
 def reflect_fold_cuda(dxp: torch.Tensor, p: int) -> torch.Tensor:
-    """Launch K10 on a CUDA tensor."""
+    """Launch K10 on a CUDA tensor, on the path ``reflect_fold_geometry``
+    chooses from its sizes and pointers."""
     h, w = _fold_shape(dxp, p)
     kernels.check_cuda("reflect_fold", dxp)
     B, C = int(dxp.shape[0]), int(dxp.shape[2])
     dx = torch.empty((B, h, C, w), dtype=dxp.dtype, device=dxp.device)
+    aligned = dxp.data_ptr() % 16 == 0 and dx.data_ptr() % 16 == 0
+    geo = reflect_fold_geometry(B, h, C, w, p, dxp.element_size(), aligned)
     fn = kernels.function("reflect_fold",
                           f"reflect_fold_{kernels.dtype_suffix(dxp)}",
-                          [P, P, I, I, I, I, I, P])
+                          [P, P, I, I, I, I, I, I, P])
     err = fn(kernels.ptr(dxp), kernels.ptr(dx), B, h, C, w, p,
-             kernels.stream())
+             int(geo["vec"]), kernels.stream())
     kernels.check("reflect_fold", err)
     kernels.launches["reflect_fold"] += 1
+    kernels.paths["reflect_fold." + ("vector" if geo["vec"] else "element")] += 1
     return dx
 
 

@@ -471,6 +471,24 @@ def test_trace_families_name_the_norm_kernels(name, family):
     assert chip_smoke.trace_family(name) == family
 
 
+@pytest.mark.parametrize("name,family", [
+    ("void (anonymous namespace)::concat_up2_kernel<__nv_bfloat16, 8, 4>("
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, int, int, "
+     "int)", "concat_up2"),
+    ("_ZN46_GLOBAL__N__3cda8ef4_13_concat_up2_cu_3b2fb43b17concat_up2_kernel"
+     "IfLi1ELi1EEEvPKT_S3_PS1_iii", "concat_up2"),
+    ("void (anonymous namespace)::reflect_fold_kernel<__nv_bfloat16, 8>("
+     "__nv_bfloat16 const*, __nv_bfloat16*, int, int, int, int, int)",
+     "reflect_fold"),
+    ("_ZN48_GLOBAL__N__242500a3_15_reflect_fold_cu_3b2fb43b19reflect_fold_"
+     "kernelIfLi1EEEvPKT_PS1_iiiii", "reflect_fold")])
+def test_trace_families_name_the_junction_and_fold_kernels(name, family):
+    """K4's and K10's kernels, templated on the type and the unit widths of
+    the vector and element paths, fall into their own families in the
+    device trace, not into "other" or K11's "concat2"."""
+    assert chip_smoke.trace_family(name) == family
+
+
 def _norm_case(deterministic):
     """make_case stand-in: a K2 whose second bf16 run differs from its
     first by one bf16 step unless ``deterministic``, within tolerance of
@@ -521,9 +539,108 @@ def test_phase_3_reports_the_share_of_the_bound_and_l2(monkeypatch):
     for r in rows:
         assert r["bound_share"] == pytest.approx(r["bound_ms"] / 0.25)
         assert r["fits_l2"] and r["per_step"] == {"step": 2}
+        assert r["copy_ms"] is None     # a copy floor for K4 and K10 only
     b, h, c = large[:3]
     # K6 at the U-Net's largest launch moves x, gz and dx: 3 x 32 MiB
     assert 3 * b * h * c * h * 2 > chip_smoke.L2_BYTES
+
+
+def test_phase_3_times_a_copy_floor_for_the_junction_and_the_fold(
+        monkeypatch):
+    """K4's and K10's phase-3 rows carry ``copy_ms``, the time of a
+    ``copy_`` that moves the launch's bytes (half read, half written), and
+    the kernel entries sum it over the step's launches."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    copies = []
+
+    def time_ms(fn, *a, **k):
+        if "copy_" not in fn.__code__.co_names:
+            return 0.25          # a kernel, plain or library call
+        out = fn()
+        assert out.dtype == torch.uint8
+        copies.append(out.numel())
+        return 0.5
+    monkeypatch.setattr(chip_smoke, "time_ms", time_ms)
+    paths = {"step": {"concat_up2": collections.Counter({(2, 8, 4, 6): 3}),
+                      "reflect_fold": collections.Counter({(2, 8, 5, 1): 2}),
+                      "sum2x2": collections.Counter({(2, 8, 4): 1})}}
+    rows = chip_smoke.time_kernels(paths, torch.float32)
+    by_name = {r["kernel"]: r for r in rows}
+    assert by_name["sum2x2"]["copy_ms"] is None
+    for name in ("concat_up2", "reflect_fold"):
+        assert by_name[name]["copy_ms"] == 0.5
+    assert sorted(copies) == sorted(by_name[n]["bytes"] // 2 for n in (
+        "concat_up2", "reflect_fold"))
+    mine = [r for r in rows if r["kernel"] == "reflect_fold"]
+    total = chip_smoke._sums([(r, 2) for r in mine], 2)
+    assert total["copy_ms"] == pytest.approx(1.0)
+    assert chip_smoke._sums([(by_name["sum2x2"], 1)], 1)["copy_ms"] is None
+
+
+@pytest.mark.parametrize("name", ["concat_up2", "reflect_fold"])
+def test_edge_junction_and_fold_shapes_are_cases_of_the_library_function(
+        name, monkeypatch):
+    """Every EDGE_JUNCTION_SHAPES and EDGE_FOLD_SHAPES case builds on the
+    CPU in f32 (inputs one element off alignment where its last entry is
+    1), and its library yardstick computes the plain version's function."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    edges = {**chip_smoke.EDGE_JUNCTION_SHAPES, **chip_smoke.EDGE_FOLD_SHAPES}
+    offs = set()
+    for shape in edges[name]:
+        _, plain, library, nbytes, _, checks = chip_smoke.make_case(
+            name, shape, torch.float32, 0)
+        want = plain()[0]
+        got = library()
+        if name == "reflect_fold":
+            got = got.permute(0, 2, 1, 3)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        assert nbytes > 0 and checks == [(name, 1.0)]
+        offs.add(shape[4])
+    assert offs == {0, 1}
+
+
+def test_off_view_is_one_element_off_alignment():
+    t = torch.arange(24, dtype=torch.float32).view(2, 3, 4)
+    v = chip_smoke.off_view(t)
+    assert torch.equal(v, t) and v.is_contiguous()
+    assert v.data_ptr() % 16 == 4
+
+
+def _path_case(took):
+    """make_case stand-in: a K4 or K10 whose kernel tallies the path
+    ``took`` in ``kernels.paths``, equal to its plain version."""
+    from cyclegan_tpu_torch import kernels
+
+    def make_case(name, shape, dtype, seed):
+        x = torch.linspace(-1.0, 1.0, 16).to(dtype)
+
+        def kernel():
+            kernels.paths[f"{name}.{took}"] += 1
+            return (x,)
+        return (kernel, lambda: (x,), None, 0, 0, [(name, 1.0)])
+    return make_case
+
+
+@pytest.mark.parametrize("took", ["vector", "element"])
+def test_phase_2_holds_each_junction_and_fold_case_to_its_path(took,
+                                                               monkeypatch):
+    """Phase 2 fails a K4 or K10 case that took another path than its
+    geometry gives (a recipe's launch: the vector path), and records the
+    paths it saw, which main() requires to be both in both dtypes."""
+    monkeypatch.setattr(chip_smoke, "make_case", _path_case(took))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "failures", [])
+    monkeypatch.setattr(chip_smoke, "paths_run",
+                        collections.defaultdict(set))
+    shapes = {"concat_up2": collections.Counter({(8, 64, 64, 128): 6}),
+              "reflect_fold": collections.Counter({(8, 64, 128, 1): 108})}
+    chip_smoke.check_kernels(shapes)
+    wrong = [f for f in chip_smoke.failures if "path" in f]
+    assert len(wrong) == (0 if took == "vector" else 4)
+    assert len(chip_smoke.failures) == len(wrong)
+    assert chip_smoke.paths_run == {
+        (name, dtype): {took} for name in shapes
+        for dtype in (torch.bfloat16, torch.float32)}
 
 
 @pytest.mark.parametrize("name", ["instance_norm_act",
