@@ -40,19 +40,20 @@ and the strided U-Net generator with the default U-Net discriminator
    ``EDGE_NORM_SHAPES`` (a ragged W, planes split over a cluster, a launch
    of one plane, a plane past the on-chip budget that streams); every bf16
    K2 and K6 case runs twice and must give bit-identical outputs; then K4
-   at ``EDGE_JUNCTION_SHAPES`` and K10 at ``EDGE_FOLD_SHAPES`` (odd
-   channel counts, both halos on every row, p = 0, every unaligned source
-   offset, inputs one element off alignment); each K4 and K10 case must
-   take the path (16-byte units or one element a unit) its geometry gives,
-   and both paths must run in both dtypes;
+   and K8 at ``EDGE_JUNCTION_SHAPES``, K7 at ``EDGE_DUP_SHAPES`` and K10
+   at ``EDGE_FOLD_SHAPES`` (odd channel counts, an odd C w, both halos on
+   every row, p = 0, every unaligned source offset, inputs one element off
+   alignment); each K4, K7, K8 and K10 case must take the path (16- or
+   8-byte units, or one element a unit) its geometry gives, and both paths
+   must run in both dtypes;
 3. each kernel's time at those shapes (CUDA events, median after warm-up)
    beside its plain version, one PyTorch library call for the same
    function where there is one, and the least time the card could take,
    with the share of that bound the kernel reaches and whether the launch's
    bytes fit the 50 MB L2 (the timing repeats the same inputs without a
-   flush, so such a launch may read from L2 and pass the HBM bound); K4
-   and K10 also beside a ``copy_`` of the launch's bytes (``copy_ms``),
-   the floor of a launch that only moves data;
+   flush, so such a launch may read from L2 and pass the HBM bound); K4,
+   K7, K8 and K10 also beside a ``copy_`` of the launch's bytes
+   (``copy_ms``), the floor of a launch that only moves data;
    the CUDA-core designs ``conv_dw_simt`` and ``conv_same_simt`` timed in
    bf16 on the launches of K5/K9-dW and K1/K9;
 4. U-Net serving: ``InferenceSession`` on converged256, bf16, on the card,
@@ -242,6 +243,9 @@ SOURCES = {
 LIBRARY_NOTES = {
     "split2": "two calls: g[:, :, :c1].contiguous() and "
               "g[:, :, c1:].contiguous(), timed together",
+    "split_pool2": "two calls: g[:, :, :c1].contiguous() and "
+                   "aten.upsample_nearest2d_backward on the NCHW view of "
+                   "g[:, :, c1:], timed together",
 }
 # K5's and K9-dW's CUDA-core design, timed in bf16 on the launches of
 # conv_dw and conv_reflect_dw (a shape with pad -1 is a conv_reflect_dw
@@ -340,13 +344,21 @@ EDGE_NORM_SHAPES = {
            (1, 256, 1, "relu", True), (2, 512, 16, "leaky_relu", False)]
     for name in ("instance_norm_act", "instance_norm_act_bwd")}
 
-# Phase 2's K4 shapes beyond the plans, (B, H, C1, C2, off) with W = H:
-# W/2 = 18 (not a whole 16-byte unit of a channel: the vector path holds,
-# as its map needs only whole rows); odd C1 and C2 at W = 34 (rows of
-# neither whole 16- nor 8-byte units: the element path); and skip and x as
-# views one element off an aligned base (off = 1: the element path)
+# Phase 2's K4 and K8 shapes beyond the plans, (B, H, C1, C2, off) with
+# W = H: W/2 = 18 (not a whole 16-byte unit of a channel: the vector path
+# holds, as its map needs only whole rows); odd C1 and C2 at W = 34 (rows
+# of neither whole 16- nor 8-byte units: the element path); and the inputs
+# (K4's skip and x, K8's g) as views one element off an aligned base
+# (off = 1: the element path)
 EDGE_JUNCTION_SHAPES = {
-    "concat_up2": [(2, 36, 8, 16, 0), (2, 34, 3, 5, 0), (2, 64, 16, 32, 1)]}
+    name: [(2, 36, 8, 16, 0), (2, 34, 3, 5, 0), (2, 64, 16, 32, 1)]
+    for name in ("concat_up2", "split_pool2")}
+# Phase 2's K7 shapes beyond the plans, (B, h, C, off) with w = h: an odd
+# C w (x rows of no whole 8-byte unit: the element path); w = 9 at C = 8
+# (the vector path: units cross channel edges, as the map needs only whole
+# rows); and x as a view one element off an aligned base (off = 1: the
+# element path)
+EDGE_DUP_SHAPES = {"dup2x2": [(2, 17, 3, 0), (2, 9, 8, 0), (2, 32, 16, 1)]}
 # Phase 2's K10 shapes beyond the plans, (B, H, C, p, off) with W = H
 # (cuda_reflect.reflect_fold_geometry): p = 3 at H = W = 4, every row and
 # column with both halos (bf16: W is no whole 16-byte unit, the element
@@ -362,9 +374,9 @@ EDGE_FOLD_SHAPES = {
                      (2, 32, 16, 1, 1)]}
 # kernels with a vector and an element path (``kernels.paths``): phase 2
 # must run both of each, in both dtypes
-PATH_KERNELS = ("concat_up2", "reflect_fold")
+PATH_KERNELS = ("concat_up2", "reflect_fold", "dup2x2", "split_pool2")
 # kernels that phase 3 times beside a ``copy_`` of the launch's bytes
-COPY_FLOOR = ("concat_up2", "reflect_fold")
+COPY_FLOOR = ("concat_up2", "reflect_fold", "dup2x2", "split_pool2")
 
 failures = []
 # {(kernel, dtype): the paths phase 2 saw it take}
@@ -780,8 +792,10 @@ def make_case(name, shape, dtype, seed):
                 lambda: F.avg_pool2d(nchw(x), 2),
                 (x.numel() + out) * size, 4 * out, [(name, 1.0)])
     if name == "dup2x2":
-        B, h, c = shape
+        B, h, c = shape[:3]
         gy = rnd(B, h, c, h)
+        if len(shape) > 3 and shape[3]:
+            gy = off_view(gy)
         x_shape = torch.empty((B, c, 2 * h, 2 * h), dtype=dtype,
                               device=DEVICE)
         gy_nchw = nchw(gy)
@@ -805,12 +819,17 @@ def make_case(name, shape, dtype, seed):
                 (skip.numel() + x.numel() + B * H * (c1 + c2) * H) * size,
                 0, [(name, 1.0)])
     if name == "split_pool2":
-        B, H, c1, c2 = shape
+        B, H, c1, c2 = shape[:4]
         gy = rnd(B, H, c1 + c2, H)
+        if len(shape) > 4 and shape[4]:
+            gy = off_view(gy)
         pooled = B * (H // 2) * c2 * (H // 2)
+        g_nchw = nchw(gy[:, :, c1:])
         return (lambda: cuda_concat.split_pool2_cuda(gy, c1),
                 lambda: cuda_concat.split_pool2_plain(gy, c1),
-                None,
+                lambda: (gy[:, :, :c1].contiguous(),
+                         torch.ops.aten.upsample_nearest2d_backward(
+                             g_nchw, [H, H], [B, c2, H // 2, H // 2])),
                 (gy.numel() + B * H * c1 * H + pooled) * size, 3 * pooled,
                 [(name, 1.0), (name, 1.0)])
     if name == "concat2":
@@ -972,14 +991,19 @@ def check_kernels(shapes, label=""):
 
 
 def expected_path(name, shape, dtype):
-    """The path (``vector`` or ``element``) that K4's or K10's geometry
-    gives a phase-2 case, whose fifth shape entry, where there is one,
-    puts the inputs one element off alignment."""
-    from cyclegan_tpu_torch.ops import cuda_concat, cuda_reflect
+    """The path (``vector`` or ``element``) that K4's, K7's, K8's or K10's
+    geometry gives a phase-2 case, whose entry after the sizes (the fifth,
+    K7's fourth), where there is one, puts the inputs one element off
+    alignment."""
+    from cyclegan_tpu_torch.ops import cuda_concat, cuda_reflect, cuda_resize
 
     esize = torch.finfo(dtype).bits // 8
-    aligned = not (len(shape) > 4 and shape[4])
-    if name == "concat_up2":
+    sizes = 3 if name == "dup2x2" else 4
+    aligned = not (len(shape) > sizes and shape[sizes])
+    if name == "dup2x2":
+        B, h, c = shape[:3]
+        geo = cuda_resize.dup2x2_geometry(B, h, c, h, esize, aligned)
+    elif name in ("concat_up2", "split_pool2"):
         B, H, c1, c2 = shape[:4]
         geo = cuda_concat.concat_up2_geometry(B, H, c1, c2, H, esize,
                                               aligned)
@@ -1791,6 +1815,7 @@ def main(argv=None) -> int:
         for edge_shapes in (with_simt(unique_shapes(EDGE_CONV_SHAPES)),
                             unique_shapes(EDGE_NORM_SHAPES),
                             unique_shapes(EDGE_JUNCTION_SHAPES),
+                            unique_shapes(EDGE_DUP_SHAPES),
                             unique_shapes(EDGE_FOLD_SHAPES)):
             edge = check_kernels(edge_shapes, "edge ")
             for key, err in edge.items():

@@ -24,47 +24,14 @@
 // is read from device memory once and a warp's store covers 512 contiguous
 // bytes. Element path (anything else: an odd C1 W, a view off alignment):
 // the same map one element at a time. No thread divides by a runtime value.
-// Values are copied as bits, so the result is exact.
-#include "common.cuh"
+// Values are copied as bits, so the result is exact. The units
+// (`copy_unit`, `widen_unit`) are in row_units.cuh, shared with K7 and K8.
+#include "row_units.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_ROW_BLOCKS = 65535;  // gridDim.y limit
-
-// dst[0, VS) = src[0, VS), VS elements of T: one element or 16 bytes
-template <typename T, int VS>
-__device__ __forceinline__ void copy_unit(T* dst, const T* src) {
-  if constexpr (VS * sizeof(T) == 16) {
-    *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
-  } else {
-    *dst = *src;
-  }
-}
-
-// a[0, 2 VX) = b[0, 2 VX) = src[0, VX) with every element twice; VX
-// elements of T: one element or 8 bytes
-template <typename T, int VX>
-__device__ __forceinline__ void widen_unit(T* a, T* b, const T* src) {
-  if constexpr (VX * sizeof(T) == 8) {
-    const uint2 v = *reinterpret_cast<const uint2*>(src);
-    int4 w;
-    if constexpr (sizeof(T) == 2) {  // bytes (0 1 0 1) and (2 3 2 3)
-      w = make_int4(__byte_perm(v.x, 0, 0x1010), __byte_perm(v.x, 0, 0x3232),
-                    __byte_perm(v.y, 0, 0x1010), __byte_perm(v.y, 0, 0x3232));
-    } else {
-      w = make_int4(v.x, v.x, v.y, v.y);
-    }
-    *reinterpret_cast<int4*>(a) = w;
-    *reinterpret_cast<int4*>(b) = w;
-  } else {
-    const T v = *src;
-    a[0] = v;
-    a[1] = v;
-    b[0] = v;
-    b[1] = v;
-  }
-}
 
 // pair k: out rows 2k, 2k+1 (n1 + 2m elements each) from skip rows 2k, 2k+1
 // (n1 each) and x row k (m); units [0, 2 ms) copy skip, [2 ms, 2 ms + mx)

@@ -8,12 +8,12 @@ Functions that join them.
   ``_split_pool2_call`` (K8, ``kernels/csrc/split_pool2.cu``). Fusing the
   upsample into the concat saves a write and a read of the upsampled
   tensor, and fusing the split with the sums saves the same in the
-  backward. K4 walks row pairs in 16-byte units where
-  ``concat_up2_geometry`` allows (x read once and widened in registers
-  into both rows), else one element a unit; K8 is one thread per output
-  element. K4 copies values unconverted and K8 adds in f32 in the Pallas
-  order (row pair, then column pair), so both equal their plain versions
-  exactly.
+  backward. K4 and K8 walk row pairs in 16-byte units where
+  ``concat_up2_geometry`` allows (K4 reads x once and widens it in
+  registers into both rows; K8 reads g once and sums each 16 bytes of a
+  row pair into 8 bytes of dx), else one element a unit. K4 copies values
+  unconverted and K8 adds in f32 in the Pallas order (row pair, then
+  column pair), so both equal their plain versions exactly.
 - The plain two-piece channel concat (``ops/layout.concat_channels``)
   replaces ``concat2_nhcw``: its forward ``_concat2_call`` (K11) and its
   backward ``_split2_call`` (K12), both in ``kernels/csrc/concat2.cu``: row
@@ -62,7 +62,9 @@ def concat_up2_geometry(b: int, h: int, c1: int, c2: int, w: int,
     units and an x row (m = c2 w/2) whole 8-byte ones; else one element a
     unit. A row pair's units are 2 ``skip_units`` then ``x_units``, each
     x unit widened into both rows; ``grid`` is (unit blocks, row-pair
-    blocks)."""
+    blocks). K8 (``kernels/csrc/split_pool2.cu``), the adjoint, takes the
+    same rule and units for g of that shape, each x unit then a dx unit
+    summed from both rows."""
     n1, m = c1 * w, c2 * (w // 2)
     vs, vx = 16 // esize, 8 // esize
     vec = aligned and n1 % vs == 0 and m % vx == 0
@@ -124,20 +126,27 @@ def split_pool2_plain(g: torch.Tensor, c1: int):
 
 
 def split_pool2_cuda(g: torch.Tensor, c1: int):
-    """Launch K8 on a CUDA tensor; returns (dskip, dx)."""
+    """Launch K8 on a CUDA tensor, on the path ``concat_up2_geometry``
+    (K4's units, run backward) chooses from its sizes and pointers;
+    returns (dskip, dx)."""
     _check_split(g, c1)
     kernels.check_cuda("split_pool2", g)
     B, H, C, W = g.shape
     dskip = torch.empty((B, H, c1, W), dtype=g.dtype, device=g.device)
     dx = torch.empty((B, H // 2, C - c1, W // 2), dtype=g.dtype,
                      device=g.device)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (g, dskip, dx))
+    geo = concat_up2_geometry(B, H, c1, C - c1, W, g.element_size(),
+                              aligned)
     fn = kernels.function("split_pool2",
                           f"split_pool2_{kernels.dtype_suffix(g)}",
-                          [P, P, P, I, I, I, I, I, P])
+                          [P, P, P, I, I, I, I, I, I, P])
     err = fn(kernels.ptr(g), kernels.ptr(dskip), kernels.ptr(dx), B, H, c1,
-             C - c1, W, kernels.stream())
+             C - c1, W, int(geo["vec"]), kernels.stream())
     kernels.check("split_pool2", err)
     kernels.launches["split_pool2"] += 1
+    kernels.paths["split_pool2." + ("vector" if geo["vec"] else "element")] \
+        += 1
     return dskip, dx
 
 

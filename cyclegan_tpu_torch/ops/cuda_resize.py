@@ -6,10 +6,13 @@ Replaces cyclegan_tpu/ops/pallas_resize.py ``avg_pool2x2_nhcw``: its
 forward ``_sum2x2_call`` (K3, ``kernels/csrc/sum2x2.cu``) and its backward
 ``_dup2x2_call`` at scale 1/4 (K7, ``kernels/csrc/dup2x2.cu``).
 
-Bound on the H100: bytes (under one flop per element moved). One thread per
-output element with coalesced accesses. K3 adds in f32, row pair first and
-column pair second as the Pallas kernel, and K7 multiplies by an exact
-1/4, so both kernels equal their plain versions exactly.
+Bound on the H100: bytes (under one flop per element moved). K3 is one
+thread per output element with coalesced accesses. K7 walks x's rows in
+8-byte units where ``dup2x2_geometry`` allows, each widened in registers
+into both output rows (an NHCW output row is x's row with every element
+twice), else one element a unit. K3 adds in f32, row pair first and
+column pair second as the Pallas kernel, and K7 multiplies in f32 and
+rounds once, so both kernels equal their plain versions exactly.
 """
 
 from __future__ import annotations
@@ -74,18 +77,45 @@ def dup2x2_plain(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
         B, 2 * h, C, 2 * w)
 
 
+DUP_THREADS = 256
+MAX_ROW_BLOCKS = 65535  # gridDim.y limit
+
+
+def dup2x2_geometry(b: int, h: int, c: int, w: int, esize: int,
+                    aligned: bool = True) -> dict:
+    """K7's launch for x [b, h, c, w] of ``esize``-byte elements, the rule
+    of ``kernels/csrc/dup2x2.cu``: the vector path where both pointers are
+    16-byte ``aligned`` and an x row (m = c w elements) is whole 8-byte
+    units; else one element a unit. Each of the b h rows of x has
+    ``units`` units of ``vx`` elements, each widened into both output
+    rows; ``grid`` is (unit blocks, row blocks)."""
+    m = c * w
+    vx = 8 // esize
+    vec = aligned and m % vx == 0
+    if not vec:
+        vx = 1
+    rows = b * h
+    return {"vec": vec, "vx": vx, "units": m // vx, "rows": rows,
+            "grid": (-(-(m // vx) // DUP_THREADS),
+                     min(rows, MAX_ROW_BLOCKS))}
+
+
 def dup2x2_cuda(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
-    """Launch K7 on a CUDA tensor."""
+    """Launch K7 on a CUDA tensor, on the path ``dup2x2_geometry``
+    chooses from its size and pointers."""
     _check_dup(x)
     kernels.check_cuda("dup2x2", x)
     B, h, C, w = x.shape
     out = torch.empty((B, 2 * h, C, 2 * w), dtype=x.dtype, device=x.device)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, out))
+    geo = dup2x2_geometry(B, h, C, w, x.element_size(), aligned)
     fn = kernels.function("dup2x2", f"dup2x2_{kernels.dtype_suffix(x)}",
-                          [P, P, I, I, I, I, CF, P])
+                          [P, P, I, I, I, I, CF, I, P])
     err = fn(kernels.ptr(x), kernels.ptr(out), B, h, C, w, float(scale),
-             kernels.stream())
+             int(geo["vec"]), kernels.stream())
     kernels.check("dup2x2", err)
     kernels.launches["dup2x2"] += 1
+    kernels.paths["dup2x2." + ("vector" if geo["vec"] else "element")] += 1
     return out
 
 

@@ -342,6 +342,23 @@ def test_reflect_fold_library_call_is_the_same_function(shape, monkeypatch):
     torch.testing.assert_close(library(), want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("shape", [(2, 8, 3, 5), (1, 6, 1, 2),
+                                   (2, 64, 64, 128)])
+def test_split_pool2_library_call_is_the_same_function(shape, monkeypatch):
+    """K8's library yardstick, two calls timed together (the skip part's
+    copy and ``aten.upsample_nearest2d_backward`` on the NCHW view of the
+    rest), computes the plain version's function in f32."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    _, plain, library, *_ = chip_smoke.make_case("split_pool2", shape,
+                                                 torch.float32, 0)
+    dskip, dx = plain()
+    got_skip, got_dx = library()
+    assert torch.equal(got_skip, dskip)
+    torch.testing.assert_close(got_dx.permute(0, 2, 1, 3), dx, rtol=1e-6,
+                               atol=1e-6)
+    assert "two calls" in chip_smoke.LIBRARY_NOTES["split_pool2"]
+
+
 def test_default_resnet_train_step_launch_counts():
     cfg = yaml2namespace("configs/resnet.yaml")
     plan = chip_smoke.resnet_train_launches(cfg, 8, 256)
@@ -481,11 +498,15 @@ def test_trace_families_name_the_norm_kernels(name, family):
      "__nv_bfloat16 const*, __nv_bfloat16*, int, int, int, int, int)",
      "reflect_fold"),
     ("_ZN48_GLOBAL__N__242500a3_15_reflect_fold_cu_3b2fb43b19reflect_fold_"
-     "kernelIfLi1EEEvPKT_PS1_iiiii", "reflect_fold")])
+     "kernelIfLi1EEEvPKT_PS1_iiiii", "reflect_fold"),
+    ("void (anonymous namespace)::dup2x2_kernel<__nv_bfloat16, 4>("
+     "__nv_bfloat16 const*, __nv_bfloat16*, int, int, float)", "dup2x2"),
+    ("void (anonymous namespace)::split_pool2_kernel<float, 4, 2>("
+     "float const*, float*, float*, int, int, int)", "split_pool2")])
 def test_trace_families_name_the_junction_and_fold_kernels(name, family):
-    """K4's and K10's kernels, templated on the type and the unit widths of
-    the vector and element paths, fall into their own families in the
-    device trace, not into "other" or K11's "concat2"."""
+    """K4's, K7's, K8's and K10's kernels, templated on the type and the
+    unit widths of the vector and element paths, fall into their own
+    families in the device trace, not into "other" or K11's "concat2"."""
     assert chip_smoke.trace_family(name) == family
 
 
@@ -539,7 +560,7 @@ def test_phase_3_reports_the_share_of_the_bound_and_l2(monkeypatch):
     for r in rows:
         assert r["bound_share"] == pytest.approx(r["bound_ms"] / 0.25)
         assert r["fits_l2"] and r["per_step"] == {"step": 2}
-        assert r["copy_ms"] is None     # a copy floor for K4 and K10 only
+        assert r["copy_ms"] is None  # a copy floor for K4, K7, K8, K10 only
     b, h, c = large[:3]
     # K6 at the U-Net's largest launch moves x, gz and dx: 3 x 32 MiB
     assert 3 * b * h * c * h * 2 > chip_smoke.L2_BYTES
@@ -547,9 +568,9 @@ def test_phase_3_reports_the_share_of_the_bound_and_l2(monkeypatch):
 
 def test_phase_3_times_a_copy_floor_for_the_junction_and_the_fold(
         monkeypatch):
-    """K4's and K10's phase-3 rows carry ``copy_ms``, the time of a
-    ``copy_`` that moves the launch's bytes (half read, half written), and
-    the kernel entries sum it over the step's launches."""
+    """K4's, K7's, K8's and K10's phase-3 rows carry ``copy_ms``, the time
+    of a ``copy_`` that moves the launch's bytes (half read, half written),
+    and the kernel entries sum it over the step's launches."""
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     copies = []
 
@@ -563,39 +584,51 @@ def test_phase_3_times_a_copy_floor_for_the_junction_and_the_fold(
     monkeypatch.setattr(chip_smoke, "time_ms", time_ms)
     paths = {"step": {"concat_up2": collections.Counter({(2, 8, 4, 6): 3}),
                       "reflect_fold": collections.Counter({(2, 8, 5, 1): 2}),
+                      "dup2x2": collections.Counter({(2, 4, 4): 1}),
+                      "split_pool2": collections.Counter({(2, 8, 4, 6): 3}),
                       "sum2x2": collections.Counter({(2, 8, 4): 1})}}
     rows = chip_smoke.time_kernels(paths, torch.float32)
     by_name = {r["kernel"]: r for r in rows}
     assert by_name["sum2x2"]["copy_ms"] is None
-    for name in ("concat_up2", "reflect_fold"):
+    floored = ("concat_up2", "reflect_fold", "dup2x2", "split_pool2")
+    for name in floored:
         assert by_name[name]["copy_ms"] == 0.5
-    assert sorted(copies) == sorted(by_name[n]["bytes"] // 2 for n in (
-        "concat_up2", "reflect_fold"))
+    assert sorted(copies) == sorted(by_name[n]["bytes"] // 2
+                                    for n in floored)
     mine = [r for r in rows if r["kernel"] == "reflect_fold"]
     total = chip_smoke._sums([(r, 2) for r in mine], 2)
     assert total["copy_ms"] == pytest.approx(1.0)
     assert chip_smoke._sums([(by_name["sum2x2"], 1)], 1)["copy_ms"] is None
 
 
-@pytest.mark.parametrize("name", ["concat_up2", "reflect_fold"])
+@pytest.mark.parametrize("name", ["concat_up2", "reflect_fold", "dup2x2",
+                                  "split_pool2"])
 def test_edge_junction_and_fold_shapes_are_cases_of_the_library_function(
         name, monkeypatch):
-    """Every EDGE_JUNCTION_SHAPES and EDGE_FOLD_SHAPES case builds on the
-    CPU in f32 (inputs one element off alignment where its last entry is
-    1), and its library yardstick computes the plain version's function."""
+    """Every EDGE_JUNCTION_SHAPES, EDGE_DUP_SHAPES and EDGE_FOLD_SHAPES
+    case builds on the CPU in f32 (inputs one element off alignment where
+    its last entry is 1), and its library yardstick computes the plain
+    version's function."""
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
-    edges = {**chip_smoke.EDGE_JUNCTION_SHAPES, **chip_smoke.EDGE_FOLD_SHAPES}
+    edges = {**chip_smoke.EDGE_JUNCTION_SHAPES, **chip_smoke.EDGE_DUP_SHAPES,
+             **chip_smoke.EDGE_FOLD_SHAPES}
+    outputs = 2 if name == "split_pool2" else 1
     offs = set()
     for shape in edges[name]:
         _, plain, library, nbytes, _, checks = chip_smoke.make_case(
             name, shape, torch.float32, 0)
-        want = plain()[0]
+        want = plain()
         got = library()
-        if name == "reflect_fold":
-            got = got.permute(0, 2, 1, 3)
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
-        assert nbytes > 0 and checks == [(name, 1.0)]
-        offs.add(shape[4])
+        got = list(got) if isinstance(got, tuple) else [got]
+        if name in ("reflect_fold", "dup2x2"):
+            got[0] = got[0].permute(0, 2, 1, 3)
+        if name == "split_pool2":
+            got[1] = got[1].permute(0, 2, 1, 3)
+        assert len(got) == len(want) == outputs
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+        assert nbytes > 0 and checks == [(name, 1.0)] * outputs
+        offs.add(shape[-1])
     assert offs == {0, 1}
 
 
@@ -607,7 +640,7 @@ def test_off_view_is_one_element_off_alignment():
 
 
 def _path_case(took):
-    """make_case stand-in: a K4 or K10 whose kernel tallies the path
+    """make_case stand-in: a K4, K7, K8 or K10 whose kernel tallies the path
     ``took`` in ``kernels.paths``, equal to its plain version."""
     from cyclegan_tpu_torch import kernels
 
@@ -624,19 +657,21 @@ def _path_case(took):
 @pytest.mark.parametrize("took", ["vector", "element"])
 def test_phase_2_holds_each_junction_and_fold_case_to_its_path(took,
                                                                monkeypatch):
-    """Phase 2 fails a K4 or K10 case that took another path than its
-    geometry gives (a recipe's launch: the vector path), and records the
-    paths it saw, which main() requires to be both in both dtypes."""
+    """Phase 2 fails a K4, K7, K8 or K10 case that took another path than
+    its geometry gives (a recipe's launch: the vector path), and records
+    the paths it saw, which main() requires to be both in both dtypes."""
     monkeypatch.setattr(chip_smoke, "make_case", _path_case(took))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(chip_smoke, "failures", [])
     monkeypatch.setattr(chip_smoke, "paths_run",
                         collections.defaultdict(set))
     shapes = {"concat_up2": collections.Counter({(8, 64, 64, 128): 6}),
-              "reflect_fold": collections.Counter({(8, 64, 128, 1): 108})}
+              "reflect_fold": collections.Counter({(8, 64, 128, 1): 108}),
+              "dup2x2": collections.Counter({(8, 128, 16): 12}),
+              "split_pool2": collections.Counter({(8, 64, 64, 128): 6})}
     chip_smoke.check_kernels(shapes)
     wrong = [f for f in chip_smoke.failures if "path" in f]
-    assert len(wrong) == (0 if took == "vector" else 4)
+    assert len(wrong) == (0 if took == "vector" else 8)
     assert len(chip_smoke.failures) == len(wrong)
     assert chip_smoke.paths_run == {
         (name, dtype): {took} for name in shapes
