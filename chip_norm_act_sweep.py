@@ -71,21 +71,25 @@ VARIANTS = {
 EXPECTED_TO_FAIL = ("no_exchange",)
 
 
-def make_copy(work: Path, name: str) -> Path:
-    """DIR/<name>: the files a run needs, with the variant's edits."""
+def make_copy(work: Path, name: str, variants=None, keep="norm_act",
+              script=__file__) -> Path:
+    """DIR/<name>: the files a run needs, with the variant's edits (from
+    ``variants``, by default this script's) and only the CUDA sources whose
+    names start with ``keep``; ``script`` is the sweep that runs it."""
+    variants = VARIANTS if variants is None else variants
     d = work / name
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
-    for f in ("chip_smoke.py", Path(__file__).name):
+    for f in {"chip_smoke.py", Path(__file__).name, Path(script).name}:
         shutil.copy(ROOT / f, d / f)
     shutil.copytree(ROOT / "cyclegan_tpu_torch", d / "cyclegan_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     for link in ("configs", "model_instances"):
         (d / link).symlink_to(ROOT / link)
     for src in (d / CSRC).glob("*.cu"):
-        if not src.name.startswith("norm_act"):
+        if not src.name.startswith(keep):
             src.unlink()
-    for rel, old, new in VARIANTS[name]:
+    for rel, old, new in variants[name]:
         text = (d / rel).read_text()
         if old not in text:
             raise RuntimeError(f"{name}: {old!r} not in {rel}")
@@ -158,25 +162,35 @@ def main(argv=None) -> int:
         return run_here(args.yardstick)
     if args.work is None:
         parser.error("--work is required")
+    return run_variants(args.work, args.only or VARIANTS, make_copy,
+                        EXPECTED_TO_FAIL, __file__,
+                        lambda name: ["--yardstick"] if name == "base" else [])
+
+
+def run_variants(work: Path, names, copy, expected_to_fail, script,
+                 flags=lambda name: []) -> int:
+    """Each variant of ``names`` in its copy (``copy(work, name)``), by
+    ``script --run`` plus ``flags(name)`` in its own process; prints the
+    summary lines of each run and returns 1 if a variant not expected to
+    fail did."""
     failed = []
-    for name in args.only or VARIANTS:
-        d = make_copy(args.work.resolve(), name)
-        cmd = [sys.executable, Path(__file__).name, "--run"]
-        if name == "base":
-            cmd.append("--yardstick")
+    for name in names:
+        d = copy(work.resolve(), name)
         print(f"=== {name}", flush=True)
         try:
-            proc = subprocess.run(cmd, cwd=d, capture_output=True,
-                                  text=True, timeout=300)
+            proc = subprocess.run(
+                [sys.executable, Path(script).name, "--run", *flags(name)],
+                cwd=d, capture_output=True, text=True, timeout=300)
             out, rc = proc.stdout + proc.stderr, proc.returncode
         except subprocess.TimeoutExpired as err:
             out, rc = f"{err.stdout or ''}\ntimed out", -1
         (d / "run.log").write_text(out)
         for line in out.splitlines():
-            if line.startswith(("sum ", "yardstick", "ptxas", "failures",
-                                "check", "Traceback")) or "rror" in line:
+            if line.startswith(("sum ", "time ", "yardstick", "ptxas",
+                                "failures", "check", "Traceback")) \
+                    or "rror" in line:
                 print(f"{name}: {line}", flush=True)
-        if rc != 0 and name not in EXPECTED_TO_FAIL:
+        if rc != 0 and name not in expected_to_fail:
             failed.append(name)
         print(f"{name}: exit {rc}", flush=True)
     print(f"variants failed: {failed}")

@@ -39,20 +39,24 @@ and the strided U-Net generator with the default U-Net discriminator
    cuts the K tap rows into runs or tiles N; then K2 and K6 at
    ``EDGE_NORM_SHAPES`` (a ragged W, planes split over a cluster, a launch
    of one plane, a plane past the on-chip budget that streams); every bf16
-   K2 and K6 case runs twice and must give bit-identical outputs; then K4
-   and K8 at ``EDGE_JUNCTION_SHAPES``, K7 at ``EDGE_DUP_SHAPES`` and K10
-   at ``EDGE_FOLD_SHAPES`` (odd channel counts, an odd C w, both halos on
-   every row, p = 0, every unaligned source offset, inputs one element off
-   alignment); each K4, K7, K8 and K10 case must take the path (16- or
-   8-byte units, or one element a unit) its geometry gives, and both paths
-   must run in both dtypes;
+   K2, K6 and K13 case runs twice and must give bit-identical outputs;
+   then K4 and K8 at ``EDGE_JUNCTION_SHAPES``, K7 at ``EDGE_DUP_SHAPES``,
+   K10 at ``EDGE_FOLD_SHAPES`` and K3 at ``EDGE_POOL_SHAPES`` (odd channel
+   counts, an odd C w, both halos on every row, p = 0, every unaligned
+   source offset, inputs one element off alignment); each K3, K4, K7, K8
+   and K10 case must take the path (16- or 8-byte units, or one element a
+   unit) its geometry gives, and both paths must run in both dtypes; then
+   K13 at ``EDGE_NHWC_NORM_SHAPES`` (C of no whole vector, clusters, a
+   tile past the on-chip budget, one sample), each case on the path its
+   geometry gives (resident, streamed or element), all three in both
+   dtypes;
 3. each kernel's time at those shapes (CUDA events, median after warm-up)
    beside its plain version, one PyTorch library call for the same
    function where there is one, and the least time the card could take,
    with the share of that bound the kernel reaches and whether the launch's
    bytes fit the 50 MB L2 (the timing repeats the same inputs without a
-   flush, so such a launch may read from L2 and pass the HBM bound); K4,
-   K7, K8 and K10 also beside a ``copy_`` of the launch's bytes
+   flush, so such a launch may read from L2 and pass the HBM bound); K3,
+   K4, K7, K8, K10 and K13 also beside a ``copy_`` of the launch's bytes
    (``copy_ms``), the floor of a launch that only moves data;
    the CUDA-core designs ``conv_dw_simt`` and ``conv_same_simt`` timed in
    bf16 on the launches of K5/K9-dW and K1/K9;
@@ -256,7 +260,8 @@ SIMT = "conv_dw_simt"
 # launch): what the first design of K1 and K9 takes in the same run
 SIMT_SAME = "conv_same_simt"
 # kernels whose bf16 outputs phase 2 requires bit-identical run to run
-DETERMINISTIC = ("instance_norm_act", "instance_norm_act_bwd")
+DETERMINISTIC = ("instance_norm_act", "instance_norm_act_bwd",
+                 "instance_norm_nhwc")
 # kernel-name fragments of the profiler trace -> kernel family
 TRACE_FAMILIES = (
     ("conv_same_tc_kernel", "conv_same"), ("conv_same_pack_kernel", "conv_same"),
@@ -277,6 +282,7 @@ TRACE_FAMILIES = (
     ("concat_up2_kernel", "concat_up2"),
     ("split_pool2_kernel", "split_pool2"),
     ("concat2_kernel", "concat2"), ("split2_kernel", "split2"),
+    ("instance_norm_nhwc_kernel", "instance_norm_nhwc"),
     ("partial_sums_kernel", "instance_norm_nhwc"),
     ("normalize_kernel", "instance_norm_nhwc"),
     # the library convolutions (stride 2, transposed) of the ResNet recipe
@@ -372,11 +378,33 @@ EDGE_FOLD_SHAPES = {
     "reflect_fold": [(2, 4, 16, 3, 0), (2, 8, 16, 7, 0), (2, 32, 8, 2, 0),
                      (2, 16, 8, 4, 0), (2, 30, 5, 2, 0), (2, 16, 8, 0, 0),
                      (2, 32, 16, 1, 1)]}
-# kernels with a vector and an element path (``kernels.paths``): phase 2
-# must run both of each, in both dtypes
-PATH_KERNELS = ("concat_up2", "reflect_fold", "dup2x2", "split_pool2")
+# Phase 2's K3 shapes beyond the plans, (B, H, C, off) with W = H
+# (cuda_resize.sum2x2_geometry): an odd C with an odd W/2 (x rows of no
+# whole 16-byte unit: the element path); an odd C whose rows are whole
+# units (the vector path: units cross channel edges); W/2 = 10 at C = 8
+# (the vector path); x as a view one element off an aligned base (off = 1:
+# the element path)
+EDGE_POOL_SHAPES = {"sum2x2": [(2, 18, 3, 0), (2, 16, 3, 0), (2, 20, 8, 0),
+                               (2, 32, 16, 1)]}
+# Phase 2's K13 shapes beyond the plans, (N, H, C, affine) with W = H
+# (cuda_norm.instance_norm_nhwc_geometry): C of no whole 16-byte vector
+# (one-element slots on the two-launch design), in one row split and in
+# 11; a tile of 4 vectors on one CTA, resident; a tile over a cluster of 4
+# (bf16) or 8 (f32); one sample's tile over a cluster of 8 (bf16) or 16
+# (f32); one sample past the on-chip budget (512x512), streamed in 256
+# (bf16) or 512 (f32) row splits; affine on and off
+EDGE_NHWC_NORM_SHAPES = {"instance_norm_nhwc": [
+    (2, 12, 5, True), (2, 48, 5, False), (2, 8, 256, True),
+    (2, 64, 16, False), (1, 128, 8, True), (1, 512, 8, False)]}
+# kernels with several paths (``kernels.paths``): phase 2 must run each of
+# them, in both dtypes
+PATH_KERNELS = {
+    **{name: {"vector", "element"} for name in (
+        "concat_up2", "reflect_fold", "dup2x2", "split_pool2", "sum2x2")},
+    "instance_norm_nhwc": {"resident", "streamed", "element"}}
 # kernels that phase 3 times beside a ``copy_`` of the launch's bytes
-COPY_FLOOR = ("concat_up2", "reflect_fold", "dup2x2", "split_pool2")
+COPY_FLOOR = ("concat_up2", "reflect_fold", "dup2x2", "split_pool2",
+              "sum2x2", "instance_norm_nhwc")
 
 failures = []
 # {(kernel, dtype): the paths phase 2 saw it take}
@@ -784,8 +812,10 @@ def make_case(name, shape, dtype, seed):
                 [(name, scales[0]), (name + ".sums", scales[1]),
                  (name + ".sums", scales[2])])
     if name == "sum2x2":
-        B, H, c = shape
+        B, H, c = shape[:3]
         x = rnd(B, H, c, H)
+        if len(shape) > 3 and shape[3]:
+            x = off_view(x)
         out = x.numel() // 4
         return (lambda: (cuda_resize.sum2x2_cuda(x, 0.25),),
                 lambda: (cuda_resize.sum2x2_plain(x, 0.25),),
@@ -941,7 +971,8 @@ def check_kernels(shapes, label=""):
                 got, want = kernel(), plain()
                 if name in PATH_KERNELS:
                     took = {k.split(".")[1] for k in kernels.paths
-                            if kernels.paths[k] != before[k]}
+                            if k.startswith(name + ".")
+                            and kernels.paths[k] != before[k]}
                     paths_run[(name, dtype)].update(took)
                     if took != {expected_path(name, shape, dtype)}:
                         fail(f"{name} {shape} {dtype} took the {took} "
@@ -991,18 +1022,27 @@ def check_kernels(shapes, label=""):
 
 
 def expected_path(name, shape, dtype):
-    """The path (``vector`` or ``element``) that K4's, K7's, K8's or K10's
-    geometry gives a phase-2 case, whose entry after the sizes (the fifth,
-    K7's fourth), where there is one, puts the inputs one element off
-    alignment."""
-    from cyclegan_tpu_torch.ops import cuda_concat, cuda_reflect, cuda_resize
+    """The path that K3's, K4's, K7's, K8's, K10's or K13's geometry gives
+    a phase-2 case: ``vector`` or ``element``, and for K13 ``resident``,
+    ``streamed`` or ``element``. The entry after the sizes (the fifth,
+    K3's and K7's fourth), where there is one, puts the inputs one element
+    off alignment; K13's cases are aligned."""
+    from cyclegan_tpu_torch.ops import (cuda_concat, cuda_norm, cuda_reflect,
+                                        cuda_resize)
 
     esize = torch.finfo(dtype).bits // 8
-    sizes = 3 if name == "dup2x2" else 4
+    if name == "instance_norm_nhwc":
+        B, H, c = shape[:3]
+        return cuda_norm.instance_norm_nhwc_geometry(B, H * H, c,
+                                                     esize)["path"]
+    sizes = 3 if name in ("dup2x2", "sum2x2") else 4
     aligned = not (len(shape) > sizes and shape[sizes])
     if name == "dup2x2":
         B, h, c = shape[:3]
         geo = cuda_resize.dup2x2_geometry(B, h, c, h, esize, aligned)
+    elif name == "sum2x2":
+        B, H, c = shape[:3]
+        geo = cuda_resize.sum2x2_geometry(B, H, c, H, esize, aligned)
     elif name in ("concat_up2", "split_pool2"):
         B, H, c1, c2 = shape[:4]
         geo = cuda_concat.concat_up2_geometry(B, H, c1, c2, H, esize,
@@ -1816,15 +1856,17 @@ def main(argv=None) -> int:
                             unique_shapes(EDGE_NORM_SHAPES),
                             unique_shapes(EDGE_JUNCTION_SHAPES),
                             unique_shapes(EDGE_DUP_SHAPES),
-                            unique_shapes(EDGE_FOLD_SHAPES)):
+                            unique_shapes(EDGE_FOLD_SHAPES),
+                            unique_shapes(EDGE_POOL_SHAPES),
+                            unique_shapes(EDGE_NHWC_NORM_SHAPES)):
             edge = check_kernels(edge_shapes, "edge ")
             for key, err in edge.items():
                 max_err[key] = max(max_err.get(key, 0.0), err)
-        for name in PATH_KERNELS:
+        for name, want in PATH_KERNELS.items():
             for dtype in (torch.bfloat16, torch.float32):
                 took = paths_run[(name, dtype)]
                 print(f"paths {name} {dtype}: {sorted(took)}")
-                if took != {"vector", "element"}:
+                if took != want:
                     fail(f"{name} {dtype}: phase 2 ran only {took}")
         stamp("phase 2 (kernel checks)")
         rows = time_kernels(paths)

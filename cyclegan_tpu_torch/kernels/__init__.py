@@ -30,8 +30,10 @@ KERNELS = ("conv_same", "instance_norm_act", "sum2x2", "concat_up2",
            "conv_reflect", "conv_reflect_dw", "reflect_fold", "concat2",
            "split2", "instance_norm_nhwc", "conv_dw_simt", "conv_same_simt")
 launches = {name: 0 for name in KERNELS}
-# the path of each launch of K4, K7, K8 and K10, "<kernel>.vector" (16- or
-# 8-byte units) or "<kernel>.element", counted beside ``launches``
+# the path of each launch of K3, K4, K7, K8 and K10, "<kernel>.vector" (16-
+# or 8-byte units) or "<kernel>.element", and of K13,
+# "instance_norm_nhwc.resident", ".streamed" or ".element", counted beside
+# ``launches``
 paths = collections.Counter()
 
 P = ctypes.c_void_p

@@ -1,6 +1,7 @@
 // What K2 (norm_act.cu) and K6 (norm_act_bwd.cu) share: the geometry rule,
 // the walk of a thread over its share of a plane, the plane sums over a CTA
-// and a thread-block cluster, and the launch.
+// and a thread-block cluster, and the launch. K13 (instance_norm_nhwc.cu)
+// takes the 16-byte slots and the cluster barrier and DSMEM read from here.
 //
 // x [B, H, C, W] NHCW: a (sample, channel) plane is H rows of W contiguous
 // elements at row stride C*W. A slot is 16 bytes of a row (8 bf16 or 4 f32,

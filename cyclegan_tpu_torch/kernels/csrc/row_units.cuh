@@ -1,5 +1,5 @@
 // Row units of the kernels that walk NHCW rows with no per-element index:
-// K4 concat_up2, K7 dup2x2 and K8 split_pool2.
+// K3 sum2x2, K4 concat_up2, K7 dup2x2 and K8 split_pool2.
 //
 // In NHCW a row (b, i) holds its C channels' W columns back to back, so
 // column 2j + s of channel c sits at c W + 2j + s = 2 (c W/2 + j) + s: the
@@ -68,42 +68,57 @@ __device__ __forceinline__ void widen_unit(T* a, T* b, const T* src,
   }
 }
 
-// (p + q) + (r + t) in f32 of the bf16 pair p, r in word a and q, t in
-// word b, rounded once
+// ((p + q) + (r + t)) [* s] in f32 of the bf16 pair p, r in word a and q,
+// t in word b, rounded once
+template <bool SCALED>
 __device__ __forceinline__ unsigned short pool_bf16x2(unsigned int a,
-                                                      unsigned int b) {
+                                                      unsigned int b,
+                                                      float s) {
   const float left = __uint_as_float(a << 16) + __uint_as_float(b << 16);
   const float right =
       __uint_as_float(a & 0xffff0000u) + __uint_as_float(b & 0xffff0000u);
-  return __bfloat16_as_ushort(from_f32<__nv_bfloat16>(left + right));
+  float sum = left + right;
+  if constexpr (SCALED) sum *= s;
+  return __bfloat16_as_ushort(from_f32<__nv_bfloat16>(sum));
 }
 
-// dst[j] = (a[2j] + b[2j]) + (a[2j+1] + b[2j+1]) in f32, rounded once, for
-// j in [0, VX): the 2x2 block sums of the row pair a, b (the row pair
-// first, then the column pair, as K3 and the Pallas kernels add); VX
-// elements of T: one element or 8 bytes, from 2 VX of each row
-template <typename T, int VX>
-__device__ __forceinline__ void pool_unit(T* dst, const T* a, const T* b) {
+// ((a[2j] + b[2j]) + (a[2j+1] + b[2j+1])) [* s] in f32
+template <bool SCALED>
+__device__ __forceinline__ float pool_f32(float a0, float b0, float a1,
+                                          float b1, float s) {
+  float sum = (a0 + b0) + (a1 + b1);
+  if constexpr (SCALED) sum *= s;
+  return sum;
+}
+
+// dst[j] = (a[2j] + b[2j]) + (a[2j+1] + b[2j+1]) in f32, times scale where
+// SCALED, rounded once, for j in [0, VX): the 2x2 block sums of the row
+// pair a, b (the row pair first, then the column pair, then the scale, as
+// the Pallas kernels compute); VX elements of T: one element or 8 bytes,
+// from 2 VX of each row
+template <typename T, int VX, bool SCALED = false>
+__device__ __forceinline__ void pool_unit(T* dst, const T* a, const T* b,
+                                          float scale = 1.0f) {
   if constexpr (VX * sizeof(T) == 8) {
     const uint4 p = *reinterpret_cast<const uint4*>(a);
     const uint4 q = *reinterpret_cast<const uint4*>(b);
     uint2 out;
     if constexpr (sizeof(T) == 2) {
-      out.x = (unsigned int)pool_bf16x2(p.x, q.x) |
-              ((unsigned int)pool_bf16x2(p.y, q.y) << 16);
-      out.y = (unsigned int)pool_bf16x2(p.z, q.z) |
-              ((unsigned int)pool_bf16x2(p.w, q.w) << 16);
+      out.x = (unsigned int)pool_bf16x2<SCALED>(p.x, q.x, scale) |
+              ((unsigned int)pool_bf16x2<SCALED>(p.y, q.y, scale) << 16);
+      out.y = (unsigned int)pool_bf16x2<SCALED>(p.z, q.z, scale) |
+              ((unsigned int)pool_bf16x2<SCALED>(p.w, q.w, scale) << 16);
     } else {
-      out.x = __float_as_uint(
-          (__uint_as_float(p.x) + __uint_as_float(q.x)) +
-          (__uint_as_float(p.y) + __uint_as_float(q.y)));
-      out.y = __float_as_uint(
-          (__uint_as_float(p.z) + __uint_as_float(q.z)) +
-          (__uint_as_float(p.w) + __uint_as_float(q.w)));
+      out.x = __float_as_uint(pool_f32<SCALED>(
+          __uint_as_float(p.x), __uint_as_float(q.x), __uint_as_float(p.y),
+          __uint_as_float(q.y), scale));
+      out.y = __float_as_uint(pool_f32<SCALED>(
+          __uint_as_float(p.z), __uint_as_float(q.z), __uint_as_float(p.w),
+          __uint_as_float(q.w), scale));
     }
     *reinterpret_cast<uint2*>(dst) = out;
   } else {
-    dst[0] = from_f32<T>((to_f32(a[0]) + to_f32(b[0])) +
-                         (to_f32(a[1]) + to_f32(b[1])));
+    dst[0] = from_f32<T>(pool_f32<SCALED>(to_f32(a[0]), to_f32(b[0]),
+                                          to_f32(a[1]), to_f32(b[1]), scale));
   }
 }

@@ -6,7 +6,11 @@ K13 (``kernels/csrc/instance_norm_nhwc.cu``) replaces the Pallas kernel
 in a train config). Like it, it computes the statistics in f32 in one sweep,
 mean = E[x] and var = max(E[x^2] - mean^2, 0) whatever the input type, and
 writes y = (x - mean) * rsqrt(var + eps) [* gamma + beta] in x's type with
-mean and rstd (f32 [N, 1, C]) for the backward. The backward is torch ops
+mean and rstd (f32 [N, 1, C]) for the backward. Bound on the H100: bytes.
+Where a tile of channel vectors fits the shared memory of a thread-block
+cluster (every launch of the recipes), one launch reads x once and sums in
+a fixed order through the cluster; else two launches read it twice
+(``instance_norm_nhwc_geometry``). The backward is torch ops
 computing the Pallas VJP (``pallas_norm.py`` ``_instance_norm_bwd``),
 which is plain XLA there: no kernel. The JAX package takes the kernel only
 where ``profitable(C)`` (a 128-lane padding rule of the TPU); the port has
@@ -20,6 +24,7 @@ flag once and never resets it).
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -29,7 +34,12 @@ from cyclegan_tpu_torch.kernels import F as CF
 from cyclegan_tpu_torch.kernels import I, P
 
 TFA_EPSILON = 1e-3
-THREADS = 256           # kernels/csrc/instance_norm_nhwc.cu
+# K13's CTA (kernels/csrc/instance_norm_nhwc.cu): threads, the widest
+# resident tile in channel vectors, the largest cluster (16, non-portable),
+# the bytes of x a CTA's resident copy grows its cluster to and the most it
+# may hold; a streamed launch's row splits fill about TARGET_BLOCKS CTAs
+THREADS, MAX_TILE, MAX_CLUSTER = 256, 4, 16
+TARGET_BYTES, SMEM_MAX = 32 << 10, 160 << 10
 TARGET_BLOCKS = 4 * 132  # a few waves over the H100's 132 SMs
 
 _ENABLED = False
@@ -85,49 +95,104 @@ def instance_norm_nhwc_plain(x: torch.Tensor, gamma: Optional[torch.Tensor],
     return y.to(x.dtype).reshape(n, h, w, c), mean, rstd
 
 
-def plan_of(shape, dtype: torch.dtype,
-            aligned: bool) -> Tuple[bool, int, int]:
-    """(16-byte vectors, channel tile in vectors, row splits) of a launch
-    on x of ``shape`` [N, H, W, C], as the kernel lays out its grid: a
-    thread moves 16 bytes where C allows and the pointers are ``aligned``,
-    a block takes up to 32 channel vectors and THREADS / tile row lanes,
-    and the rows of each sample are split so the grid reaches
-    TARGET_BLOCKS blocks, each split keeping at least four rows per
-    lane."""
-    n, h, w, c = shape
-    per_vec = 16 // torch.empty((), dtype=dtype).element_size()
-    vec = aligned and c % per_vec == 0
-    cv = c // per_vec if vec else c
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def instance_norm_nhwc_geometry(n: int, hw: int, c: int, esize: int,
+                                aligned: bool = True) -> dict:
+    """How K13 cuts a launch on x [n, hw, c] of ``esize``-byte elements;
+    ``geometry`` in the kernel's source is the same rule. A slot is
+    ``vec`` channels of a row: 16 bytes where c allows and both pointers
+    are 16-byte ``aligned``, else one element.
+
+    Resident (16-byte slots; ``splits`` 0): one launch. A tile is ``tile``
+    neighbouring channel vectors (a power of two dividing c / vec, at most
+    MAX_TILE) of one sample over its hw rows, split by ``rows`` over a
+    ``cluster`` of CTAs grown until a CTA holds about TARGET_BYTES of x (at
+    most MAX_CLUSTER); a thread takes one vector and every
+    (THREADS / tile)-th row of its CTA's, ``slots`` at most, copied into
+    ``smem`` bytes of shared memory: the widest tile whose CTAs hold at
+    most SMEM_MAX.
+
+    Streamed (one-element slots, or no tile fits): the two-launch design,
+    x read twice; ``tile`` channel vectors (at most 32) a block and
+    ``splits`` row ranges a sample, filling about TARGET_BLOCKS blocks with
+    at least 4 rows a lane. ``path``: resident, streamed (16-byte slots) or
+    element; ``blocks``: CTAs of a launch."""
+    v16 = 16 // esize
+    vec = v16 if aligned and c % v16 == 0 else 1
+    cv = c // vec
+
+    def cluster_of(tile):
+        cluster = 1
+        while (cluster < MAX_CLUSTER and cluster < hw
+               and _cdiv(tile * hw * 16, cluster) > TARGET_BYTES):
+            cluster *= 2
+        return cluster
+
+    def slots(tile, cluster):
+        return _cdiv(_cdiv(hw, cluster), THREADS // tile)
+
+    if vec == v16:
+        tile = 1
+        while 2 * tile <= MAX_TILE and cv % (2 * tile) == 0:
+            tile *= 2
+        while tile >= 1:
+            cluster = cluster_of(tile)
+            if slots(tile, cluster) * THREADS * 16 <= SMEM_MAX:
+                return {"vec": vec, "tile": tile, "cluster": cluster,
+                        "rows": _cdiv(hw, cluster),
+                        "slots": slots(tile, cluster), "splits": 0,
+                        "smem": slots(tile, cluster) * THREADS * 16,
+                        "path": "resident",
+                        "blocks": n * (cv // tile) * cluster}
+            tile //= 2
     tile = min(cv, 32)
-    rows = THREADS // tile
-    tiles = -(-cv // tile)
-    splits = -(-TARGET_BLOCKS // (n * tiles))
-    splits = max(1, min(splits, (h * w) // (4 * rows), 65535))
-    return vec, tile, splits
+    splits = _cdiv(TARGET_BLOCKS, n * _cdiv(cv, tile))
+    splits = max(1, min(splits, hw // (4 * (THREADS // tile)), 65535))
+    return {"vec": vec, "tile": tile, "cluster": 1, "rows": _cdiv(hw, splits),
+            "slots": 0, "splits": splits, "smem": 0,
+            "path": "streamed" if vec == v16 else "element",
+            "blocks": n * _cdiv(cv, tile) * splits}
+
+
+_GEOMETRY_ARGS = ("vec", "tile", "cluster", "slots", "splits")
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry(n, hw, c, esize, aligned):
+    return instance_norm_nhwc_geometry(n, hw, c, esize, aligned)
 
 
 def instance_norm_nhwc_cuda(x: torch.Tensor, gamma: Optional[torch.Tensor],
                             beta: Optional[torch.Tensor],
                             eps: float = TFA_EPSILON):
-    """Launch K13 on CUDA tensors; returns (y, mean, rstd) as the plain
-    version does."""
+    """Launch K13 on CUDA tensors, on the path
+    ``instance_norm_nhwc_geometry`` chooses from the size and pointers;
+    returns (y, mean, rstd) as the plain version does."""
     _check(x, gamma, beta)
     kernels.check_cuda("instance_norm_nhwc", x, gamma, beta)
     n, h, w, c = x.shape
-    vec, _, splits = plan_of(x.shape, x.dtype, x.data_ptr() % 16 == 0)
     y = torch.empty_like(x)
+    aligned = x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+    geo = _geometry(n, h * w, c, x.element_size(), aligned)
     mean = torch.empty((n, 1, c), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
-    ws = torch.empty((2, n, splits, c), dtype=torch.float32, device=x.device)
+    ws = (torch.empty((2, n, geo["splits"], c), dtype=torch.float32,
+                      device=x.device) if geo["splits"] else None)
     fn = kernels.function(
         "instance_norm_nhwc", f"instance_norm_nhwc_{kernels.dtype_suffix(x)}",
-        [P, P, P, P, P, P, P, P, I, I, I, I, CF, I, P])
+        [P] * 8 + [I, I, I, CF] + [I] * 5 + [P])
     err = fn(kernels.ptr(x), kernels.ptr(gamma), kernels.ptr(beta),
              kernels.ptr(y), kernels.ptr(mean), kernels.ptr(rstd),
-             kernels.ptr(ws[0]), kernels.ptr(ws[1]), n, h * w, c, splits,
-             float(eps), int(vec), kernels.stream())
+             None if ws is None else kernels.ptr(ws[0]),
+             None if ws is None else kernels.ptr(ws[1]), n, h * w, c,
+             float(eps), *(int(geo[k]) for k in _GEOMETRY_ARGS),
+             kernels.stream())
     kernels.check("instance_norm_nhwc", err)
     kernels.launches["instance_norm_nhwc"] += 1
+    kernels.paths["instance_norm_nhwc." + geo["path"]] += 1
     return y, mean, rstd
 
 

@@ -6,13 +6,17 @@ Replaces cyclegan_tpu/ops/pallas_resize.py ``avg_pool2x2_nhcw``: its
 forward ``_sum2x2_call`` (K3, ``kernels/csrc/sum2x2.cu``) and its backward
 ``_dup2x2_call`` at scale 1/4 (K7, ``kernels/csrc/dup2x2.cu``).
 
-Bound on the H100: bytes (under one flop per element moved). K3 is one
-thread per output element with coalesced accesses. K7 walks x's rows in
-8-byte units where ``dup2x2_geometry`` allows, each widened in registers
-into both output rows (an NHCW output row is x's row with every element
-twice), else one element a unit. K3 adds in f32, row pair first and
-column pair second as the Pallas kernel, and K7 multiplies in f32 and
-rounds once, so both kernels equal their plain versions exactly.
+Bound on the H100: bytes (under one flop per element moved). Both walk
+NHCW rows by units with no channel or column index (``row_units.cuh``).
+K3 reads 16 bytes of each row of an x row pair a unit and writes their 8
+bytes of pair sums where ``sum2x2_geometry`` allows (an NHCW output row
+pools element pairs of two x rows), else one element a unit. K7 walks x's
+rows in 8-byte units where ``dup2x2_geometry`` allows, each widened in
+registers into both output rows (an NHCW output row is x's row with every
+element twice), else one element a unit. K3 adds in f32, row pair first
+and column pair second as the Pallas kernel, then scales, and K7
+multiplies in f32; both round once, so both kernels equal their plain
+versions exactly.
 """
 
 from __future__ import annotations
@@ -39,18 +43,46 @@ def sum2x2_plain(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     return ((rows[..., 0] + rows[..., 1]) * scale).to(x.dtype)
 
 
+POOL_THREADS = 256
+MAX_ROW_BLOCKS = 65535  # gridDim.y limit
+
+
+def sum2x2_geometry(b: int, h: int, c: int, w: int, esize: int,
+                    aligned: bool = True) -> dict:
+    """K3's launch for x [b, h, c, w] of ``esize``-byte elements, the rule
+    of ``kernels/csrc/sum2x2.cu``: the vector path where both pointers are
+    16-byte ``aligned`` and an x row (c w elements) is whole 16-byte
+    units, that is, an output row (m = c w/2 elements) whole 8-byte units;
+    else one element a unit. Each of the b h/2 output rows has ``units``
+    units of ``vx`` elements, each pooled from 2 vx elements of both x
+    rows of its pair; ``grid`` is (unit blocks, row blocks)."""
+    m = c * (w // 2)
+    vx = 8 // esize
+    vec = aligned and m % vx == 0
+    if not vec:
+        vx = 1
+    rows = b * (h // 2)
+    return {"vec": vec, "vx": vx, "units": m // vx, "rows": rows,
+            "grid": (-(-(m // vx) // POOL_THREADS),
+                     min(rows, MAX_ROW_BLOCKS))}
+
+
 def sum2x2_cuda(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
-    """Launch K3 on a CUDA tensor."""
+    """Launch K3 on a CUDA tensor, on the path ``sum2x2_geometry`` chooses
+    from its size and pointers."""
     _check(x)
     kernels.check_cuda("sum2x2", x)
     B, H, C, W = x.shape
     out = torch.empty((B, H // 2, C, W // 2), dtype=x.dtype, device=x.device)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, out))
+    geo = sum2x2_geometry(B, H, C, W, x.element_size(), aligned)
     fn = kernels.function("sum2x2", f"sum2x2_{kernels.dtype_suffix(x)}",
-                          [P, P, I, I, I, I, CF, P])
+                          [P, P, I, I, I, I, CF, I, P])
     err = fn(kernels.ptr(x), kernels.ptr(out), B, H, C, W, float(scale),
-             kernels.stream())
+             int(geo["vec"]), kernels.stream())
     kernels.check("sum2x2", err)
     kernels.launches["sum2x2"] += 1
+    kernels.paths["sum2x2." + ("vector" if geo["vec"] else "element")] += 1
     return out
 
 
@@ -78,7 +110,6 @@ def dup2x2_plain(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
 
 
 DUP_THREADS = 256
-MAX_ROW_BLOCKS = 65535  # gridDim.y limit
 
 
 def dup2x2_geometry(b: int, h: int, c: int, w: int, esize: int,

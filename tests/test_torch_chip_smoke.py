@@ -560,7 +560,7 @@ def test_phase_3_reports_the_share_of_the_bound_and_l2(monkeypatch):
     for r in rows:
         assert r["bound_share"] == pytest.approx(r["bound_ms"] / 0.25)
         assert r["fits_l2"] and r["per_step"] == {"step": 2}
-        assert r["copy_ms"] is None  # a copy floor for K4, K7, K8, K10 only
+        assert r["copy_ms"] is None  # K3, K4, K7, K8, K10, K13 have a floor
     b, h, c = large[:3]
     # K6 at the U-Net's largest launch moves x, gz and dx: 3 x 32 MiB
     assert 3 * b * h * c * h * 2 > chip_smoke.L2_BYTES
@@ -568,9 +568,10 @@ def test_phase_3_reports_the_share_of_the_bound_and_l2(monkeypatch):
 
 def test_phase_3_times_a_copy_floor_for_the_junction_and_the_fold(
         monkeypatch):
-    """K4's, K7's, K8's and K10's phase-3 rows carry ``copy_ms``, the time
-    of a ``copy_`` that moves the launch's bytes (half read, half written),
-    and the kernel entries sum it over the step's launches."""
+    """K3's, K4's, K7's, K8's, K10's and K13's phase-3 rows carry
+    ``copy_ms``, the time of a ``copy_`` that moves the launch's bytes (half
+    read, half written), and the kernel entries sum it over the step's
+    launches; other kernels' rows (K11 here) carry none."""
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     copies = []
 
@@ -586,11 +587,15 @@ def test_phase_3_times_a_copy_floor_for_the_junction_and_the_fold(
                       "reflect_fold": collections.Counter({(2, 8, 5, 1): 2}),
                       "dup2x2": collections.Counter({(2, 4, 4): 1}),
                       "split_pool2": collections.Counter({(2, 8, 4, 6): 3}),
-                      "sum2x2": collections.Counter({(2, 8, 4): 1})}}
+                      "sum2x2": collections.Counter({(2, 8, 4): 1}),
+                      "instance_norm_nhwc": collections.Counter(
+                          {(2, 8, 16, True): 1}),
+                      "concat2": collections.Counter({(2, 8, 4, 6): 1})}}
     rows = chip_smoke.time_kernels(paths, torch.float32)
     by_name = {r["kernel"]: r for r in rows}
-    assert by_name["sum2x2"]["copy_ms"] is None
-    floored = ("concat_up2", "reflect_fold", "dup2x2", "split_pool2")
+    assert by_name["concat2"]["copy_ms"] is None
+    floored = ("concat_up2", "reflect_fold", "dup2x2", "split_pool2",
+               "sum2x2", "instance_norm_nhwc")
     for name in floored:
         assert by_name[name]["copy_ms"] == 0.5
     assert sorted(copies) == sorted(by_name[n]["bytes"] // 2
@@ -598,7 +603,7 @@ def test_phase_3_times_a_copy_floor_for_the_junction_and_the_fold(
     mine = [r for r in rows if r["kernel"] == "reflect_fold"]
     total = chip_smoke._sums([(r, 2) for r in mine], 2)
     assert total["copy_ms"] == pytest.approx(1.0)
-    assert chip_smoke._sums([(by_name["sum2x2"], 1)], 1)["copy_ms"] is None
+    assert chip_smoke._sums([(by_name["concat2"], 1)], 1)["copy_ms"] is None
 
 
 @pytest.mark.parametrize("name", ["concat_up2", "reflect_fold", "dup2x2",

@@ -167,15 +167,25 @@ def test_dispatch_is_by_device():
 
 
 @pytest.mark.parametrize("shape,dtype,want", [
-    ((8, 256, 256, 16), torch.bfloat16, (True, 2, 66)),
-    ((8, 32, 32, 128), torch.bfloat16, (True, 16, 16)),
-    ((8, 64, 64, 256), torch.float32, (True, 32, 33)),
-    ((2, 8, 8, 3), torch.float32, (False, 3, 1)),
+    ((8, 256, 256, 16), torch.bfloat16, ("resident", 8, 2, 16, 0)),
+    ((8, 32, 32, 128), torch.bfloat16, ("resident", 8, 4, 2, 0)),
+    ((8, 64, 64, 128), torch.bfloat16, ("resident", 8, 4, 8, 0)),
+    ((8, 512, 512, 16), torch.bfloat16, ("streamed", 8, 2, 1, 66)),
+    ((8, 64, 64, 256), torch.float32, ("resident", 4, 4, 8, 0)),
+    ((2, 8, 8, 3), torch.float32, ("element", 1, 3, 1, 1)),
 ])
 def test_launch_plan(shape, dtype, want):
-    """16-byte vectors where C allows, a channel tile of at most 32
-    vectors, row splits that fill ~528 blocks with at least 4 rows per
-    lane."""
-    assert cuda_norm.plan_of(shape, dtype, aligned=True) == want
-    # an unaligned pointer takes one element per thread
-    assert cuda_norm.plan_of(shape, dtype, aligned=False)[0] is False
+    """(path, channels a slot, tile in slots, cluster, row splits):
+    16-byte slots where C allows; resident (one launch) on the widest tile
+    of at most 4 vectors whose cluster, grown until a CTA holds ~32 KiB of
+    x, leaves each CTA's copy within 160 KiB; else streamed on the
+    two-launch design, whose row splits fill ~528 blocks with at least 4
+    rows per lane; one element a slot where C is no whole vector."""
+    n, h, w, c = shape
+    esize = torch.empty((), dtype=dtype).element_size()
+    geo = cuda_norm.instance_norm_nhwc_geometry(n, h * w, c, esize)
+    assert (geo["path"], geo["vec"], geo["tile"], geo["cluster"],
+            geo["splits"]) == want
+    # an unaligned pointer takes one element per slot
+    assert cuda_norm.instance_norm_nhwc_geometry(
+        n, h * w, c, esize, aligned=False)["path"] == "element"
