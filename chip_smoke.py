@@ -9,12 +9,15 @@ It needs no network and writes only the kernel build
 and, with ``--out``, the per-launch details (``chip_smoke_detail.json``)
 and profiler traces of each serving forward and train step
 (``*_trace.json``) into DIR.
-Four recipes at full width and depth, batch 8, 256x256: the default U-Net
-recipe (``configs/cycle.yaml`` = converged256), the canonical ResNet
-recipe (``configs/resnet.yaml``: ResNet-9 generator, filters 32, PatchGAN
-64/128/256), the transpose-expansion U-Nets (``configs/unet_transpose.yaml``)
-and the strided U-Net generator with the default U-Net discriminator
-(``configs/strided_unet.yaml``). Phases, each failing the run if it fails:
+Five recipes at full width and depth, 256x256, batch 8 (the fifth at its
+own batch 4): the default U-Net recipe (``configs/cycle.yaml`` =
+converged256), the canonical ResNet recipe (``configs/resnet.yaml``:
+ResNet-9 generator, filters 32, PatchGAN 64/128/256), the
+transpose-expansion U-Nets (``configs/unet_transpose.yaml``), the strided
+U-Net generator with the default U-Net discriminator
+(``configs/strided_unet.yaml``) and the default U-Net generator with
+PatchGAN discriminators (``configs/unet_patchgan.yaml``). Phases, each
+failing the run if it fails:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of the
    CUDA kernels from ``cyclegan_tpu_torch/kernels/csrc``; ``cuobjdump
@@ -105,7 +108,38 @@ and the strided U-Net generator with the default U-Net discriminator
     ``pallas_norm`` (K13 only), a reload that must give back the saved
     parameters, Adam moments, step and generator, one more epoch from the
     checkpoint (the step and ``current_epoch`` carry on), then one epoch
-    with ``tpu_layout: auto``, which is NHCW on the card (K1-K8, no K13).
+    with ``tpu_layout: auto``, which is NHCW on the card (K1-K8, no K13);
+15. the fifth recipe, ``configs/unet_patchgan.yaml`` (the default U-Net
+    generator, PatchGAN 64/128/256 discriminators), as phase 6 at its own
+    batch 4 (``PATCHGAN_BATCH``) against ``train_launches``' plan (the
+    generator's and ``_patchgan_apps``'), its f32 gradients at
+    ``UNET_PATCHGAN_F32_POINT``, then served from the folder it saves, as
+    phase 7;
+16. the default recipe's step options (``unet_options``): ``fuse_apps``
+    (4 generator applications, two at batch 16: its own plan; f32
+    gradients against the unfused step within ``FUSED_F32_REL`` at
+    ``UNET_F32_POINT``; both timed), ``remat`` (the plan plus each
+    generator forward again; its gradients against the plain step's;
+    peak memory below the plain step's, asserted) and dropout in the
+    generators (the plain plan, five finite steps that move every
+    network, a training-mode forward with drawn masks against the CPU's);
+17. the ResNet recipe with ``fuse_apps`` (``resnet_fuse_apps``): its plan,
+    and both ways timed;
+18. the paired step (``paired``), NHWC, with and without ``pallas_norm``:
+    K13 as the NHWC plan or no kernel at all, every vmapped convolution
+    through ``LibraryConv``'s batching rule and every vmapped norm
+    through K13's (counted), its gradients against the unpaired step's at
+    ``UNET_NHWC_F32_POINT`` (f32 within TRAIN_F32_REL, bf16 within RATIO
+    times the unpaired step's error), both ways timed;
+19. the trainer CLI on phase 14's records (``trainer_options``):
+    ``steps_per_call`` 3 over 4 batches (a chunk and a ragged single
+    step), ``profile_dir`` (a non-empty Chrome trace), AdaBelief
+    generators and RMSprop discriminators, NHCW; a reload that gives back
+    every optimizer slot, the step and both generators exactly, and one
+    more epoch from the checkpoint.
+
+Phase 2 checks, and phase 3 times, every unique launch shape of every
+plan, the option phases' batch-16 and batch-4 shapes included.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' numbers as JSON.
@@ -116,6 +150,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import copy
 import json
 import math
 import statistics
@@ -136,6 +171,8 @@ TRAIN_CONFIG = ROOT / "configs" / "training_config.yaml"
 RESNET_CONFIG = ROOT / "configs" / "resnet.yaml"
 TRANSPOSE_CONFIG = ROOT / "configs" / "unet_transpose.yaml"
 STRIDED_CONFIG = ROOT / "configs" / "strided_unet.yaml"
+PATCHGAN_CONFIG = ROOT / "configs" / "unet_patchgan.yaml"
+PATCHGAN_BATCH = 4       # the recipe's own batch (its header)
 DEVICE = "cuda"
 BATCH = 8
 SIZE = 256
@@ -143,6 +180,8 @@ GRAD_BATCH = 2           # the card-vs-CPU gradient comparison
 CLI_IMAGES = 40          # per domain: 32 train and 8 validation images
 TIMED_REPS = 20
 TRAIN_STEPS_TIMED = 10
+ALT_ROUNDS = 4           # option phases: rounds of steps, the ways in turn
+ALT_STEPS = 4
 
 # H100 SXM published peaks (dense): HBM bytes/s and operations/s by type.
 HBM_BYTES_PER_S = 3.35e12
@@ -327,7 +366,17 @@ UNET_F32_POINT = {"size": 32, "batch": 1, "seed": 0, "beta": [3.0, 4.0]}
 # from the CPU's (kinks), and seed 0 leaves a ReLU input only 1.5e-5 from
 # its kink in NHWC, seed 2 1.5e-4.
 UNET_NHWC_F32_POINT = {"size": 32, "batch": 1, "seed": 2, "beta": [3.0, 4.0]}
+# The unet_patchgan recipe's f32 point (phase 15): seeded weights with the
+# U-Net's betas moved likewise, batch 1 at 16x16; its PatchGAN norms are
+# non-affine, and seed 4 leaves no ReLU or LeakyReLU input within 1.3e-4
+# of its kink on the CPU (seeds 0-11 searched; 3 and 10 come within 1e-5).
+UNET_PATCHGAN_F32_POINT = {"size": 16, "batch": 1, "seed": 4,
+                           "beta": [3.0, 4.0]}
 KINK_MARGIN = 1e-5
+# fuse_apps on the card (phase 16): the fused step's f32 gradients against
+# the unfused step's; the same math, with the batch sums of the fused
+# applications' weight gradients in another order
+FUSED_F32_REL = 1e-5
 # Phase 2's K1 and K9 shapes beyond the plans, as the plans key them: two
 # stages of all K*K taps' weights do not fit 227 KB (k7 32->128, k4
 # 64->256), so the tensor-core design runs the tap rows in shorter runs; Cout
@@ -518,31 +567,19 @@ BACKWARD = {"instance_norm_act": "instance_norm_act_bwd", "sum2x2": "dup2x2",
             "concat_up2": "split_pool2", "concat2": "split2"}
 
 
-def train_launches(model_cfg, batch, size):
-    """The kernel launches of one train step (``steps.make_train_step``)
-    of a recipe of U-Nets (the default, ``configs/unet_transpose.yaml``,
-    ``configs/strided_unet.yaml``), by kernel, as unordered lists of
-    shapes:
+def generator_apps(batch, fuse_apps=False):
+    """(batch, input needs a gradient) of each generator application of a
+    train step: 6 at ``batch``, the two on the fakes (the cycle) with an
+    input gradient; with ``fuse_apps`` 4, the translation and identity
+    applications of each generator as one at 2 ``batch``."""
+    if fuse_apps:
+        return [(2 * batch, False)] * 2 + [(batch, True)] * 2
+    return [(batch, False)] * 4 + [(batch, True)] * 2
 
-    conv_same (B, H, Cin, Cout, K, bias, pad), conv_dw (B, H, Cin, Cout, K,
-    pad), instance_norm_act[_bwd] (B, H, C, act, affine), sum2x2 (B, H, C)
-    with H the input side, dup2x2 (B, h, C) with h the pooled side,
-    concat_up2, split_pool2, concat2 and split2 (B, H, C1, C2).
 
-    Forward: 6 generator and 6 discriminator applications (each fake
-    batch's generator view and discriminator view are two applications).
-    Backward, per application: K6 for every norm, K7 for every pool, K8 for
-    every junction, K12 for every concat; K5 (dW) for every conv where the
-    parameters train (not under the generator view); K1 at the transposed
-    pad (dX) for every conv but the first, and for the first where the
-    input needs a gradient: the generators applied to the fakes (the
-    cycle) and the discriminators' generator view."""
-    gen = generator_launches(model_cfg["generator"], batch, size)
-    disc = generator_launches(model_cfg["discriminator"], batch, size)
-    # (plan, parameters train, input needs a gradient)
-    apps = ([(gen, True, False)] * 4 + [(gen, True, True)] * 2
-            + [(disc, True, False)] * 4 + [(disc, False, True)] * 2)
-    out = collections.defaultdict(list)
+def _unet_apps(apps, out):
+    """Add the launches of U-Net applications ``apps`` ((forward plan,
+    parameters train, input needs a gradient)) to ``out``."""
     for plan, params_train, input_grad in apps:
         for i, (b, h, cin, cout, k, bias) in enumerate(
                 plan.get("conv_same", [])):
@@ -558,6 +595,67 @@ def train_launches(model_cfg, batch, size):
             out[name] += shapes
             out[BACKWARD[name]] += ([(b, h // 2, c) for b, h, c in shapes]
                                     if name == "sum2x2" else shapes)
+
+
+def _patchgan_apps(disc, out):
+    """Add the launches of the 6 PatchGAN applications of a train step
+    (``disc``: one forward's plan) to ``out``: its 1x1 head on K1 forward
+    and dX in every application, K5 where the parameters train (not the
+    2 generator views); every norm and its backward."""
+    for params_train in [True] * 4 + [False] * 2:
+        for b, h, cin, cout, k, bias in disc["conv_same"]:
+            out["conv_same"].append((b, h, cin, cout, k, bias, 0))
+            out["conv_same"].append((b, h, cout, cin, k, False, 0))
+            if params_train:
+                out["conv_dw"].append((b, h, cin, cout, k, 0))
+        out["instance_norm_act"] += disc["instance_norm_act"]
+        out["instance_norm_act_bwd"] += disc["instance_norm_act"]
+
+
+def train_launches(model_cfg, batch, size, fuse_apps=False):
+    """The kernel launches of one train step (``steps.make_train_step``)
+    of a recipe of U-Net generators (the default, ``unet_patchgan``,
+    ``configs/unet_transpose.yaml``, ``configs/strided_unet.yaml``), by
+    kernel, as unordered lists of shapes:
+
+    conv_same (B, H, Cin, Cout, K, bias, pad), conv_dw (B, H, Cin, Cout, K,
+    pad), instance_norm_act[_bwd] (B, H, C, act, affine), sum2x2 (B, H, C)
+    with H the input side, dup2x2 (B, h, C) with h the pooled side,
+    concat_up2, split_pool2, concat2 and split2 (B, H, C1, C2).
+
+    Forward: the generator applications of ``generator_apps`` (6, or 4
+    with ``fuse_apps``) and 6 discriminator applications (each fake
+    batch's generator view and discriminator view are two applications).
+    Backward, per application: K6 for every norm, K7 for every pool, K8 for
+    every junction, K12 for every concat; K5 (dW) for every conv where the
+    parameters train (not under the generator view); K1 at the transposed
+    pad (dX) for every conv but the first, and for the first where the
+    input needs a gradient: the generators applied to the fakes (the
+    cycle) and the discriminators' generator view. A PatchGAN
+    discriminator's launches are ``_patchgan_apps``'."""
+    apps = [(generator_launches(model_cfg["generator"], b, size), True,
+             input_grad)
+            for b, input_grad in generator_apps(batch, fuse_apps)]
+    out = collections.defaultdict(list)
+    disc_cfg = model_cfg["discriminator"]
+    if disc_cfg["type"] == "simple_discriminator":
+        _patchgan_apps(patchgan_launches(disc_cfg, batch, size), out)
+    else:
+        disc = generator_launches(disc_cfg, batch, size)
+        apps += [(disc, True, False)] * 4 + [(disc, False, True)] * 2
+    _unet_apps(apps, out)
+    return dict(out)
+
+
+def remat_launches(model_cfg, batch, size):
+    """``train_launches`` of the default recipe's step with ``remat``:
+    each of the 6 generator applications runs its forward again in the
+    backward (``serve_launches``, keyed as the train plans)."""
+    out = collections.defaultdict(list, train_launches(model_cfg, batch,
+                                                       size))
+    forward = serve_launches(model_cfg["generator"], batch, size)
+    for name, shapes in forward.items():
+        out[name] += shapes * 6
     return dict(out)
 
 
@@ -597,25 +695,24 @@ def patchgan_launches(cfg, batch, size):
     return {"conv_same": head, "instance_norm_act": norm}
 
 
-def resnet_train_launches(model_cfg, batch, size):
+def resnet_train_launches(model_cfg, batch, size, fuse_apps=False):
     """The kernel launches of one train step of the ResNet recipe, by
     kernel, as unordered lists of shapes: conv_reflect (B, H, Cin, Cout,
     K, bias), conv_reflect_dw (B, H, Cin, Cout, K), reflect_fold (B, H, C,
     p) with H the folded side, and conv_same, conv_dw, instance_norm_act
     and its backward as ``train_launches`` gives them.
 
-    Applications as there (6 generators, 6 discriminators). Every reflect
-    conv runs K9 and, where the parameters train (every generator
-    application), K9-dW; its input gradient, for every conv but the first
-    and for the first where the input needs a gradient, is K1 on dY at pad
-    p and grow p (B, H, Cout, Cin, K, False, p, p: output side H + 2p,
-    channels Cin) and then K10.
+    Applications as there (the generator's of ``generator_apps``, 6
+    discriminators). Every reflect conv runs K9 and, where the parameters
+    train (every generator application), K9-dW; its input gradient, for
+    every conv but the first and for the first where the input needs a
+    gradient, is K1 on dY at pad p and grow p (B, H, Cout, Cin, K, False,
+    p, p: output side H + 2p, channels Cin) and then K10.
     The PatchGAN's head is K1 (K = 1) forward and dX in every application,
     K5 where the parameters train."""
-    gen = resnet_generator_launches(model_cfg["generator"], batch, size)
-    disc = patchgan_launches(model_cfg["discriminator"], batch, size)
-    out = {name: [] for name in RESNET_KERNELS}
-    for input_grad in [False] * 4 + [True] * 2:
+    out = collections.defaultdict(list)
+    for b, input_grad in generator_apps(batch, fuse_apps):
+        gen = resnet_generator_launches(model_cfg["generator"], b, size)
         for i, (b, h, cin, cout, k, bias) in enumerate(gen["conv_reflect"]):
             p = k // 2
             out["conv_reflect"].append((b, h, cin, cout, k, bias))
@@ -625,15 +722,9 @@ def resnet_train_launches(model_cfg, batch, size):
                 out["reflect_fold"].append((b, h, cin, p))
         out["instance_norm_act"] += gen["instance_norm_act"]
         out["instance_norm_act_bwd"] += gen["instance_norm_act"]
-    for params_train in [True] * 4 + [False] * 2:
-        for b, h, cin, cout, k, bias in disc["conv_same"]:
-            out["conv_same"].append((b, h, cin, cout, k, bias, 0))
-            out["conv_same"].append((b, h, cout, cin, k, False, 0))
-            if params_train:
-                out["conv_dw"].append((b, h, cin, cout, k, 0))
-        out["instance_norm_act"] += disc["instance_norm_act"]
-        out["instance_norm_act_bwd"] += disc["instance_norm_act"]
-    return out
+    _patchgan_apps(patchgan_launches(model_cfg["discriminator"], batch,
+                                     size), out)
+    return {name: out[name] for name in RESNET_KERNELS}
 
 
 def forward_norms(cfg, batch, size):
@@ -1433,15 +1524,16 @@ def nearest_kink(run):
 
 
 def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None,
-          **step_kw):
-    """Phases 5, 6, 8, 10, 12 and 13: training ``model_cfg`` from
-    ``model_dir``'s weights (seeded random weights if None) against the
-    launch ``plan`` ({kernel: shapes}) of one step, in the layout
-    ``step_kw`` gives ``make_train_step`` (NHCW by default; phases 12 and
-    13 pass ``tpu_layout=False, pallas_norm=True``). The f32 gradients are
-    compared on the step's first GRAD_BATCH images, or at ``f32_point``
-    where given (inputs, and weights where there is no ``model_dir``, from
-    its seed, with its betas where it names them; asserted kink-free).
+          batch_size=BATCH, **step_kw):
+    """Phases 5, 6, 8, 10, 12, 13 and 15: training ``model_cfg`` from
+    ``model_dir``'s weights (seeded random weights if None) at batch
+    ``batch_size`` against the launch ``plan`` ({kernel: shapes}) of one
+    step, in the layout ``step_kw`` gives ``make_train_step`` (NHCW by
+    default; phases 12 and 13 pass ``tpu_layout=False, pallas_norm=True``).
+    The f32 gradients are compared on the step's first GRAD_BATCH images,
+    or at ``f32_point`` where given (inputs, and weights where there is no
+    ``model_dir``, from its seed, with its betas where it names them;
+    asserted kink-free).
     Returns the main path's launches, metrics and the trained state."""
     from cyclegan_tpu_torch import kernels
     from cyclegan_tpu_torch.data.augment import (normalize,
@@ -1454,7 +1546,8 @@ def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None,
 
     plan = {k: len(v) for k, v in plan.items()}
     noise = torch.Generator(device=DEVICE).manual_seed(0)
-    batch = [torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=noise,
+    batch = [torch.randint(0, 256, (batch_size, SIZE, SIZE, 3),
+                           generator=noise,
                            dtype=torch.uint8, device=DEVICE)
              for _ in range(2)]
     state = _train_state(model_cfg, DEVICE, model_dir)
@@ -1568,14 +1661,15 @@ def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None,
     torch.cuda.synchronize()
     trace = device_trace(lambda: step16(state, *batch), out_dir, 3,
                          f"{label}_trace.json")
-    result = {"batch": BATCH, "size": SIZE, "compute_dtype": "bfloat16",
+    result = {"batch": batch_size, "size": SIZE,
+              "compute_dtype": "bfloat16",
               "step": step_kw or {"tpu_layout": True},
-              "step_ms": step_s * 1e3, "img_per_s": BATCH / step_s,
+              "step_ms": step_s * 1e3, "img_per_s": batch_size / step_s,
               "peak_mib": peak_mib,
               "host_issue_ms_median": statistics.median(issue) * 1e3,
               "gradient_errors": grad_errors, "losses": losses,
               "trace": trace}
-    print(f"{label} batch {BATCH}: {result['img_per_s']:.2f} img/s "
+    print(f"{label} batch {batch_size}: {result['img_per_s']:.2f} img/s "
           f"({result['step_ms']:.1f} ms per step), peak "
           f"{peak_mib:.0f} MiB, host issue "
           f"{result['host_issue_ms_median']:.1f} ms", flush=True)
@@ -1583,8 +1677,9 @@ def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None,
 
 
 def _same_state(a, b):
-    """Where two ``steps.TrainState``s differ: parameters, Adam moments and
-    counts, the step and the augmentation generator, compared exactly."""
+    """Where two ``steps.TrainState``s differ: parameters, every slot of
+    their optimizers' state, the step and the augmentation and dropout
+    generators, compared exactly."""
     diffs = []
     for name, model in a.models.items():
         other = dict(b.models[name].named_parameters())
@@ -1593,13 +1688,19 @@ def _same_state(a, b):
             q = other[key]
             if not torch.equal(p, q):
                 diffs.append(f"{name}.{key}")
-            for slot in ("exp_avg", "exp_avg_sq", "step"):
-                if not torch.equal(opt_a[p][slot], opt_b[q][slot]):
+            if set(opt_a[p]) != set(opt_b[q]):
+                diffs.append(f"{name}.{key} slots {sorted(opt_a[p])} vs "
+                             f"{sorted(opt_b[q])}")
+            for slot, value in opt_a[p].items():
+                if slot in opt_b[q] and not torch.equal(value,
+                                                        opt_b[q][slot]):
                     diffs.append(f"{name}.{key} {slot}")
     if a.step != b.step:
         diffs.append(f"step {a.step} vs {b.step}")
-    if not torch.equal(a.generator.get_state(), b.generator.get_state()):
-        diffs.append("augmentation generator")
+    for gen in ("generator", "dropout_generator"):
+        if not torch.equal(getattr(a, gen).get_state(),
+                           getattr(b, gen).get_state()):
+            diffs.append(f"{gen}")
     return diffs
 
 
@@ -1729,11 +1830,426 @@ def trainer_cli(workdir):
              "trainer_cli_nhcw": launches["auto"]}, metrics)
 
 
+def _uint8_batch(batch_size, seed=0):
+    """Two seeded uint8 NHWC batches of SIZE² images on the card."""
+    noise = torch.Generator(device=DEVICE).manual_seed(seed)
+    return [torch.randint(0, 256, (batch_size, SIZE, SIZE, 3),
+                          generator=noise, dtype=torch.uint8, device=DEVICE)
+            for _ in range(2)]
+
+
+def _jitter(generator, a, b):
+    from cyclegan_tpu_torch.data.augment import random_jitter_batch
+
+    return (random_jitter_batch(generator, a, SIZE),
+            random_jitter_batch(generator, b, SIZE))
+
+
+def planned_step(label, model_cfg, plan, model_dir, batch, **step_kw):
+    """A fresh train state (``model_dir``'s weights, or seeded ones) and
+    its bf16 step with the jitter inside (``step_kw``: the step's
+    options). Its first step, with the counts zeroed around it, must launch
+    the kernels of ``plan`` ({kernel: shapes}) and nothing else. Returns
+    (state, step, that step's launches, its gradients, its metrics)."""
+    from cyclegan_tpu_torch import kernels
+    from cyclegan_tpu_torch.steps import make_train_step
+
+    state = _train_state(model_cfg, DEVICE, model_dir)
+    step = make_train_step(model_cfg["loss"], model_cfg["loss_weights"],
+                           "bfloat16", preprocess=_jitter, **step_kw)
+    kernels.reset_launches()
+    metrics = step(state, *batch)
+    torch.cuda.synchronize()
+    want = {k: len(v) for k, v in plan.items()}
+    got = {k: v for k, v in kernels.launches.items() if v or k in want}
+    print(f"{label} main path launches {got} in one step (plan {want})",
+          flush=True)
+    if got != want:
+        fail(f"{label} step launches {got}, plan {want}")
+    metrics = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in metrics.values()):
+        fail(f"{label}: non-finite loss {metrics}")
+    return state, step, got, _grads(state), metrics
+
+
+def compare_steps(runs, batch, out_dir):
+    """The steps of ``runs`` ((label, step, state), ...) timed side by
+    side: img/s on the host clock over ALT_ROUNDS rounds of ALT_STEPS
+    steps each, the runs taking turns in an order reversed every other
+    round, so that a drift of the shared host weighs on all alike (the
+    median round and every round are reported); then each step's peak
+    device memory, and its device time and idle share from a profiler
+    trace of 3 steps. Returns {label: result}."""
+    n = int(batch[0].shape[0])
+    for _, step, state in runs:
+        for _ in range(2):
+            step(state, *batch)
+    rates = {label: [] for label, _, _ in runs}
+    for r in range(ALT_ROUNDS):
+        for label, step, state in (runs if r % 2 == 0 else runs[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ALT_STEPS):
+                step(state, *batch)
+            torch.cuda.synchronize()
+            rates[label].append(n * ALT_STEPS / (time.perf_counter() - t0))
+    results = {}
+    for label, step, state in runs:
+        torch.cuda.reset_peak_memory_stats()
+        step(state, *batch)
+        torch.cuda.synchronize()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        trace = device_trace(lambda: step(state, *batch), out_dir, 3,
+                             f"{label}_trace.json")
+        img_per_s = statistics.median(rates[label])
+        results[label] = {
+            "batch": n, "size": SIZE, "img_per_s": img_per_s,
+            "step_ms": n / img_per_s * 1e3,
+            "img_per_s_rounds": rates[label], "peak_mib": peak_mib,
+            "device_ms": trace and trace["device_busy_ms_per_call"],
+            "idle_share": trace and trace["idle_share"], "trace": trace}
+        print(f"{label} batch {n}: {img_per_s:.2f} img/s (median of "
+              f"{ALT_ROUNDS} rounds: {[round(v, 1) for v in rates[label]]}),"
+              f" peak {peak_mib:.0f} MiB, device "
+              f"{results[label]['device_ms']} ms per step", flush=True)
+    return results
+
+
+def grad_differences(got, want):
+    """Per network: the largest |got - want| and its ratio to |want| over
+    the whole network, and whether every bit agrees."""
+    return {name: {"max_abs": max(float((got[name][k] - v).abs().max())
+                                  for k, v in want[name].items()),
+                   "rel": _rel(_flat(got[name]), _flat(want[name])),
+                   "bit_equal": all(torch.equal(got[name][k], v)
+                                    for k, v in want[name].items())}
+            for name in want}
+
+
+def unet_options(model_cfg, plans, out_dir):
+    """Phase 16: the default U-Net recipe's step options on the card
+    (converged256, batch BATCH, SIZE², bf16, NHCW): ``fuse_apps`` (its
+    plan; f32 gradients at ``UNET_F32_POINT`` against the unfused step
+    within FUSED_F32_REL; device ms and img/s both ways), ``remat`` (its
+    plan, the generator forwards twice; its first step's gradients against
+    the plain step's on the same inputs and generator state; peak memory
+    lower, asserted; step times both ways) and dropout (5 finite steps
+    that move every network; a training-mode generator forward on the
+    card against the plain one on the CPU with the same masks). Returns
+    ({path: launches}, metrics)."""
+    from cyclegan_tpu_torch.ops import layout
+
+    batch = _uint8_batch(BATCH)
+    launches, metrics = {}, {}
+
+    # 16.1-16.2: the fused, plain and remat steps, each from a fresh
+    # state on the same batch and generator state, timed side by side
+    runs, first = [], {}
+    for label, plan, kw in (
+            ("unet_train_fused", "unet_train_fused", {"fuse_apps": True}),
+            ("unet_train_unfused", "unet_train", {}),
+            ("unet_train_remat", "unet_train_remat", {"remat": True})):
+        state, step, got, first[label], _ = planned_step(
+            label, model_cfg, plans[plan], MODEL_DIR, batch, **kw)
+        if label != "unet_train_unfused":
+            launches[label] = got
+        runs.append((label, step, state))
+    timed = compare_steps(runs, batch, out_dir)
+    del runs
+    point = UNET_F32_POINT
+    x = f32_point_inputs(point)
+    g_fused, g_plain = (step_grads(model_cfg, DEVICE, "float32", x, None,
+                                   point["seed"], point["beta"],
+                                   fuse_apps=fuse)
+                        for fuse in (True, False))
+    errors = {name: f32_errors(g_fused[name], g_plain[name])
+              for name in g_plain}
+    print(f"unet fuse_apps f32 fused vs unfused at {json.dumps(point)}: "
+          f"{json.dumps(errors)}", flush=True)
+    for name, (rel, bias) in errors.items():
+        if not max(rel, bias) <= FUSED_F32_REL:
+            fail(f"unet fuse_apps {name}: f32 fused vs unfused {rel} "
+                 f"(pre-norm biases {bias}) > {FUSED_F32_REL}")
+    plain = timed["unet_train_unfused"]
+    metrics["fuse_apps"] = {"fused": timed["unet_train_fused"],
+                            "unfused": plain,
+                            "f32_fused_vs_unfused": errors,
+                            "f32_point": point}
+    remat = timed["unet_train_remat"]
+    diff = grad_differences(first["unet_train_remat"],
+                            first["unet_train_unfused"])
+    print(f"unet remat first-step gradients vs the plain step: "
+          f"{json.dumps(diff)}", flush=True)
+    for name, d in diff.items():
+        if not d["rel"] <= TRAIN_F32_REL:
+            fail(f"unet remat {name}: gradient {d['rel']} from the plain "
+                 f"step's")
+    if not remat["peak_mib"] < plain["peak_mib"]:
+        fail(f"unet remat: peak {remat['peak_mib']} MiB, not below the "
+             f"plain step's {plain['peak_mib']}")
+    metrics["remat"] = {"remat": remat, "plain": plain,
+                        "gradients_vs_plain": diff}
+
+    # 16.3: dropout in the generators
+    cfg = dict(model_cfg, generator=dict(model_cfg["generator"],
+                                         dropout=True))
+    state, step, launches["unet_train_dropout"], _, first = planned_step(
+        "unet_train_dropout", cfg, plans["unet_train"], MODEL_DIR, batch)
+    start = {name: [p.detach().clone() for p in m.parameters()]
+             for name, m in state.models.items()}
+    losses = [first] + [{k: float(v) for k, v in step(state, *batch).items()}
+                        for _ in range(4)]
+    moved = {name: max(float((p.detach() - p0).abs().max())
+                       for p, p0 in zip(m.parameters(), start[name]))
+             for name, m in state.models.items()}
+    if not all(np.isfinite(v) for m in losses for v in m.values()):
+        fail(f"unet dropout: non-finite loss {losses}")
+    if not all(v > 0 for v in moved.values()):
+        fail(f"unet dropout: a network did not move {moved}")
+    g = state.models["g_AB"]
+    from cyclegan_tpu_torch.data.augment import normalize
+
+    x = normalize(batch[0][:1, :64, :64])
+    with torch.no_grad(), layout.nhcw():
+        xn = layout.to_nhcw(x)
+        masks = g.dropout_masks(tuple(xn.shape), state.dropout_generator)
+        y_card = g(xn, masks=masks)
+        y_none = g(xn)
+        g_cpu = copy.deepcopy(g).cpu()
+        y_cpu = g_cpu(xn.cpu(), masks=[m.cpu() for m in masks])
+    err = float((y_card.cpu() - y_cpu).abs().max())
+    scale = float(y_cpu.abs().max())
+    kept = float(torch.cat([m.reshape(-1) for m in masks]).float().mean())
+    metrics["dropout"] = {"losses": losses, "moved": moved,
+                          "forward_card_vs_cpu_max_abs": err,
+                          "forward_scale": scale, "kept_share": kept,
+                          "masks_change_output": not torch.equal(y_card,
+                                                                 y_none)}
+    print(f"unet dropout: {json.dumps(metrics['dropout'])}", flush=True)
+    if not err <= 1e-4 * scale:
+        fail(f"unet dropout forward: card vs cpu {err} > 1e-4 x {scale}")
+    if torch.equal(y_card, y_none) or not 0.45 < kept < 0.55:
+        fail(f"unet dropout forward: masks kept {kept}, output changed "
+             f"{metrics['dropout']['masks_change_output']}")
+    return launches, metrics
+
+
+def resnet_fuse_apps(model_cfg, plans, out_dir):
+    """Phase 17: the ResNet recipe (seeded weights, batch BATCH, SIZE²,
+    bf16, NHCW) with ``fuse_apps``: its plan, and device ms and img/s
+    beside the unfused step's; the first steps' bf16 gradients of both
+    ways, compared (reported). Returns (launches, metrics)."""
+    batch = _uint8_batch(BATCH)
+    runs, first = [], {}
+    for label, plan, kw in (
+            ("resnet_train_fused", "resnet_train_fused", {"fuse_apps": True}),
+            ("resnet_train_unfused", "resnet_train", {})):
+        state, step, got, first[label], _ = planned_step(
+            label, model_cfg, plans[plan], None, batch, **kw)
+        if label == "resnet_train_fused":
+            launches = got
+        runs.append((label, step, state))
+    timed = compare_steps(runs, batch, out_dir)
+    diff = grad_differences(first["resnet_train_fused"],
+                            first["resnet_train_unfused"])
+    print(f"resnet fuse_apps bf16 first-step gradients vs unfused: "
+          f"{json.dumps(diff)}", flush=True)
+    return launches, {"fused": timed["resnet_train_fused"],
+                      "unfused": timed["resnet_train_unfused"],
+                      "bf16_fused_vs_unfused": diff}
+
+
+def paired(model_cfg, plans, out_dir):
+    """Phase 18: the paired step (NHWC, converged256, batch BATCH, SIZE²,
+    bf16) with and without ``pallas_norm``: K13's launches equal to the
+    NHWC plan with it, no kernel without; every vmapped convolution
+    through ``LibraryConv``'s batching rule and every vmapped norm through
+    K13's; its gradients against the unpaired NHWC step's on the card at
+    ``UNET_NHWC_F32_POINT`` (f32 within TRAIN_F32_REL; the bf16 error from
+    the unpaired f32 step within RATIO times the unpaired bf16 step's);
+    step times and img/s both ways. Returns ({path: launches}, metrics)."""
+    from cyclegan_tpu_torch.ops import conv as conv_ops
+    from cyclegan_tpu_torch.ops import cuda_norm
+
+    batch = _uint8_batch(BATCH)
+    rules = collections.Counter()
+    originals = {}
+    for key, cls in (("conv", conv_ops.LibraryConv),
+                     ("norm", cuda_norm.InstanceNormNHWC)):
+        originals[key] = cls.__dict__["vmap"]
+        rule = cls.vmap
+
+        def counting(*args, key=key, rule=rule):
+            rules[key] += 1
+            return rule(*args)
+
+        cls.vmap = staticmethod(counting)
+    # every conv of the U-Nets is a stride-1 conv: K1's plan counts them
+    convs = sum(len(generator_launches(model_cfg[net], 1, SIZE)["conv_same"])
+                for net in ("generator", "discriminator"))
+    launches, metrics = {}, {}
+    point = UNET_NHWC_F32_POINT
+    x = f32_point_inputs(point)
+    try:
+        for pallas in (True, False):
+            label = "unet_train_paired" + ("" if pallas else "_library")
+            plan = plans["unet_train_paired"] if pallas else {}
+            rules.clear()
+            state, step, launches[label], _, _ = planned_step(
+                label, model_cfg, plan, MODEL_DIR, batch, tpu_layout=False,
+                pallas_norm=pallas, paired=True)
+            first_rules = dict(rules)
+            want = {"conv": 3 * convs,
+                    "norm": len(plan.get("instance_norm_nhwc", [])) // 2}
+            print(f"{label} batching rules per step {first_rules} "
+                  f"(expected {want})", flush=True)
+            if {k: first_rules.get(k, 0) for k in want} != want:
+                fail(f"{label}: batching rules ran {first_rules}, "
+                     f"expected {want}")
+            unpaired_state, unpaired_step, _, _, _ = planned_step(
+                label + "_unpaired", model_cfg,
+                plans["unet_train_nhwc"] if pallas else {}, MODEL_DIR, batch,
+                tpu_layout=False, pallas_norm=pallas)
+            timed = compare_steps(
+                [(label, step, state),
+                 (label + "_unpaired", unpaired_step, unpaired_state)],
+                batch, out_dir)
+            del state, step, unpaired_state, unpaired_step
+            grads = {(paired_, dtype): step_grads(
+                model_cfg, DEVICE, dtype, x, MODEL_DIR, point["seed"],
+                point["beta"], tpu_layout=False, pallas_norm=pallas,
+                paired=paired_)
+                for paired_ in (True, False)
+                for dtype in ("float32", "bfloat16")}
+            ref = grads[(False, "float32")]
+            errors = {}
+            for name in ref:
+                rel, bias = f32_errors(grads[(True, "float32")][name],
+                                       ref[name])
+                errors[name] = {
+                    "f32_paired_vs_unpaired": rel,
+                    "f32_pre_norm_bias_paired_vs_unpaired": bias,
+                    "bf16_paired_vs_f32": _rel(
+                        _flat(grads[(True, "bfloat16")][name]),
+                        _flat(ref[name])),
+                    "bf16_unpaired_vs_f32": _rel(
+                        _flat(grads[(False, "bfloat16")][name]),
+                        _flat(ref[name]))}
+                e = errors[name]
+                if not max(rel, bias) <= TRAIN_F32_REL:
+                    fail(f"{label} {name}: f32 paired vs unpaired {rel} "
+                         f"(pre-norm biases {bias}) > {TRAIN_F32_REL}")
+                if not e["bf16_paired_vs_f32"] <= (
+                        RATIO * e["bf16_unpaired_vs_f32"]):
+                    fail(f"{label} {name}: bf16 error "
+                         f"{e['bf16_paired_vs_f32']} beyond {RATIO}x the "
+                         f"unpaired step's {e['bf16_unpaired_vs_f32']}")
+            print(f"{label} gradients at {json.dumps(point)}: "
+                  f"{json.dumps(errors)}", flush=True)
+            metrics[label] = {"paired": timed[label],
+                              "unpaired": timed[label + "_unpaired"],
+                              "batching_rules_per_step": first_rules,
+                              "gradient_errors": errors}
+    finally:
+        conv_ops.LibraryConv.vmap = originals["conv"]
+        cuda_norm.InstanceNormNHWC.vmap = originals["norm"]
+    return launches, metrics
+
+
+def trainer_options(workdir):
+    """Phase 19: the trainer CLI with the options of this recipe's train
+    config that phase 14 does not take, on phase 14's records in
+    ``workdir``: ``configs/cycle.yaml`` at batch BATCH, NHCW, bf16,
+    ``steps_per_call`` 3 over 4 batches an epoch (a chunk and a ragged
+    single step), ``profile_dir`` (a non-empty Chrome trace of the first 3
+    batches), AdaBelief generators and RMSprop discriminators; a reload
+    that gives back every optimizer slot, the step and both generators
+    exactly; one more epoch from the checkpoint. Returns ({run:
+    launches}, metrics)."""
+    from cyclegan_tpu_torch import kernels
+    from cyclegan_tpu_torch.config import (Namespace, namespace2yaml,
+                                           yaml2namespace)
+    from cyclegan_tpu_torch.optimizers import AdaBeliefTF
+    from cyclegan_tpu_torch.train import main as train_main
+    from cyclegan_tpu_torch.trainer import PROFILE_FILE, CycleGan
+
+    model_cfg = yaml2namespace(ROOT / "configs" / "cycle.yaml")
+    model_cfg.update(location=str(workdir / "models"), name="model_options")
+    train_cfg = yaml2namespace(TRAIN_CONFIG)
+    train_cfg.update(batch_size=BATCH, image_size=SIZE, epochs=1,
+                     tpu_layout=True, steps_per_call=3,
+                     profile_dir=str(workdir / "profile"), profile_steps=3,
+                     g_opt=dict(name="adabelief", learning_rate=2e-4),
+                     d_opt=dict(name="rmsprop", learning_rate=2e-4))
+    train_cfg.summary = dict(train_cfg.summary, model=1)
+    steps_per_epoch = (CLI_IMAGES - int(0.2 * CLI_IMAGES)) // BATCH
+    launches, metrics = {}, {}
+
+    def run(label, model_yaml):
+        train_yaml = workdir / f"{label}_train_config.yaml"
+        namespace2yaml(train_yaml, train_cfg)
+        kernels.reset_launches()
+        start = time.perf_counter()
+        gan = train_main(["--model_config", str(model_yaml),
+                          "--train_config", str(train_yaml),
+                          "--data_dir", str(workdir / "data"),
+                          "--device", DEVICE])
+        torch.cuda.synchronize()
+        launches[label] = {k: v for k, v in kernels.launches.items() if v}
+        metrics[label] = {"seconds": time.perf_counter() - start,
+                          "step": gan.state.step, "epochs": gan.history,
+                          "launches": launches[label]}
+        print(f"trainer {label}: {json.dumps(metrics[label])}", flush=True)
+        for record in gan.history:
+            values = [*record["train"].values(),
+                      *record["validation"].values()]
+            if not all(np.isfinite(v) for v in values):
+                fail(f"trainer {label}: non-finite metrics {record}")
+        return gan
+
+    first = workdir / "model_config_options.yaml"
+    namespace2yaml(first, model_cfg)
+    gan = run("options", first)
+    trace = Path(train_cfg.profile_dir) / PROFILE_FILE
+    metrics["profile_bytes"] = trace.stat().st_size if trace.exists() else 0
+    kinds = {name: type(opt).__name__
+             for name, opt in gan.state.optimizers.items()}
+    metrics["optimizers"] = kinds
+    if gan.state.step != steps_per_epoch or gan.multi_step_fn is None:
+        fail(f"trainer options: step {gan.state.step}, expected "
+             f"{steps_per_epoch} in chunks of 3")
+    if not metrics["profile_bytes"] or '"traceEvents"' not in \
+            trace.read_text():
+        fail(f"trainer options: no trace in {trace}")
+    if not (isinstance(gan.state.optimizers["g_AB"], AdaBeliefTF)
+            and isinstance(gan.state.optimizers["d_A"],
+                           torch.optim.RMSprop)):
+        fail(f"trainer options: optimizers {kinds}")
+    if not gan.tpu_layout or not launches["options"].get("conv_same"):
+        fail(f"trainer options: NHCW {gan.tpu_layout}, launches "
+             f"{launches['options']}")
+
+    folder = Path(gan.model_folder)
+    reloaded = CycleGan(yaml2namespace(folder / "model_config.yaml"),
+                        Namespace(dict(train_cfg)), device=DEVICE)
+    diffs = _same_state(gan.state, reloaded.state)
+    metrics["reload_differences"] = diffs
+    if diffs:
+        fail(f"trainer options reload differs: {diffs[:8]}")
+    del reloaded, gan
+    gan = run("options_resume", folder / "model_config.yaml")
+    if gan.state.step != 2 * steps_per_epoch:
+        fail(f"trainer options resume: step {gan.state.step}, expected "
+             f"{2 * steps_per_epoch}")
+    return launches, metrics
+
+
 def kernel_entries(rows, max_err, launches, forwards, serve_plans):
     """The ``kernels`` JSON line: per kernel, its launches in every main
     path's run (``launches`` their sum), and its times summed over the
-    launches of one train step of each recipe (``paths`` splits them by
-    train step and by serving forward)."""
+    launches of one train step of each planned path: the recipes and the
+    step's options (``paths`` splits them by train step and by serving
+    forward)."""
     from cyclegan_tpu_torch import kernels
 
     planned = set(rows[0]["per_step"]) if rows else set()
@@ -1773,8 +2289,9 @@ def kernel_entries(rows, max_err, launches, forwards, serve_plans):
             **({"copy_ms": total["copy_ms"]} if name in COPY_FLOOR
                else {}),
             "timing": "bf16, the median per launch shape summed over the "
-                      "launches of one batch-8 256x256 train step of each "
-                      f"recipe ({' + '.join(train_paths)})",
+                      "launches of one 256x256 train step of each path "
+                      "(batch 8; unet_patchgan_train batch 4) "
+                      f"({' + '.join(train_paths)})",
             "paths": paths,
         })
     return entries
@@ -1793,6 +2310,26 @@ def _sums(used, launches):
     return out
 
 
+def train_and_serve(name, cfg_path, point, batch_size, cfgs, plans,
+                    serve_plans, launches, forwards, metrics, out_dir):
+    """A seeded recipe trained (``train``) at ``batch_size``, saved with
+    ``save_model_folder`` and served from that folder (``serve``)."""
+    from cyclegan_tpu_torch.utils.checkpoint import save_model_folder
+
+    train_path, serve_path = f"{name}_train", f"{name}_serve"
+    launches[train_path], metrics[train_path], state = train(
+        train_path, cfgs[name], plans[train_path], None, out_dir, point,
+        batch_size=batch_size)
+    stamp(train_path)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_model_folder(Path(tmp), cfg_path, state.models)
+        del state
+        (launches[serve_path], forwards[serve_path],
+         metrics[serve_path]) = serve(serve_path, Path(tmp),
+                                      serve_plans[serve_path], out_dir)
+    stamp(serve_path)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, default=None,
@@ -1805,7 +2342,6 @@ def main(argv=None) -> int:
     warnings.filterwarnings("ignore", message=".*padding='same'.*")
     from cyclegan_tpu_torch.config import yaml2namespace
     from cyclegan_tpu_torch.kernels import _build
-    from cyclegan_tpu_torch.utils.checkpoint import save_model_folder
 
     card = smi_line()
     print(card, flush=True)
@@ -1825,12 +2361,17 @@ def main(argv=None) -> int:
                 fail(f"{lib}: no {op} instruction in its SASS")
 
     # the seeded recipes after the default one, each trained then served
-    # from the folder the port saves: (name, config file, f32 point)
-    seeded = (("resnet", RESNET_CONFIG, RESNET_F32_POINT),
-              ("unet_transpose", TRANSPOSE_CONFIG, UNET_F32_POINT),
-              ("strided", STRIDED_CONFIG, UNET_F32_POINT))
+    # from the folder the port saves: (name, config file, f32 point, batch)
+    seeded = (("resnet", RESNET_CONFIG, RESNET_F32_POINT, BATCH),
+              ("unet_transpose", TRANSPOSE_CONFIG, UNET_F32_POINT, BATCH),
+              ("strided", STRIDED_CONFIG, UNET_F32_POINT, BATCH))
+    # phase 15, after the trainer: the fifth recipe at its own batch
+    fifth = (("unet_patchgan", PATCHGAN_CONFIG, UNET_PATCHGAN_F32_POINT,
+              PATCHGAN_BATCH),)
     cfgs = {"unet": yaml2namespace(MODEL_DIR / "model_config.yaml"),
-            **{name: yaml2namespace(path) for name, path, _ in seeded}}
+            **{name: yaml2namespace(path)
+               for name, path, _, _ in seeded + fifth}}
+    batches = {name: b for name, _, _, b in seeded + fifth}
     serve_plans = {
         f"{name}_serve": (resnet_generator_launches if name == "resnet"
                           else serve_launches)(cfg.generator, BATCH, SIZE)
@@ -1840,7 +2381,8 @@ def main(argv=None) -> int:
             "concat_up2": 3}:
         fail(f"generator launch plan {serve_plans['unet_serve']}")
     plans = {f"{name}_train": (resnet_train_launches if name == "resnet"
-                               else train_launches)(cfg, BATCH, SIZE)
+                               else train_launches)(
+                                   cfg, batches.get(name, BATCH), SIZE)
              for name, cfg in cfgs.items()}
     # phases 12-13: the NHWC layout with pallas_norm
     nhwc = (("unet", MODEL_DIR, UNET_NHWC_F32_POINT),
@@ -1848,6 +2390,13 @@ def main(argv=None) -> int:
     for name, _, _ in nhwc:
         plans[f"{name}_train_nhwc"] = nhwc_train_launches(cfgs[name], BATCH,
                                                           SIZE)
+    # phases 16-18: the step's options
+    plans["unet_train_fused"] = train_launches(cfgs["unet"], BATCH, SIZE,
+                                               fuse_apps=True)
+    plans["unet_train_remat"] = remat_launches(cfgs["unet"], BATCH, SIZE)
+    plans["resnet_train_fused"] = resnet_train_launches(
+        cfgs["resnet"], BATCH, SIZE, fuse_apps=True)
+    plans["unet_train_paired"] = plans["unet_train_nhwc"]
     paths = {path: with_simt(unique_shapes(plan))
              for path, plan in plans.items()}
     with no_tf32():
@@ -1881,18 +2430,9 @@ def main(argv=None) -> int:
     launches["unet_train"], metrics["unet_train"], _ = train(
         "unet_train", cfgs["unet"], plans["unet_train"], MODEL_DIR, out_dir)
     stamp("phase 5 (unet_train)")
-    for name, cfg_path, point in seeded:
-        train_path, serve_path = f"{name}_train", f"{name}_serve"
-        launches[train_path], metrics[train_path], state = train(
-            train_path, cfgs[name], plans[train_path], None, out_dir, point)
-        stamp(train_path)
-        with tempfile.TemporaryDirectory() as tmp:
-            save_model_folder(Path(tmp), cfg_path, state.models)
-            del state
-            (launches[serve_path], forwards[serve_path],
-             metrics[serve_path]) = serve(serve_path, Path(tmp),
-                                          serve_plans[serve_path], out_dir)
-        stamp(serve_path)
+    for name, cfg_path, point, batch_size in seeded:
+        train_and_serve(name, cfg_path, point, batch_size, cfgs, plans,
+                        serve_plans, launches, forwards, metrics, out_dir)
     for name, model_dir, point in nhwc:
         path = f"{name}_train_nhwc"
         launches[path], metrics[path], _ = train(
@@ -1901,8 +2441,30 @@ def main(argv=None) -> int:
         stamp(path)
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches, metrics["trainer_cli"] = trainer_cli(Path(tmp))
-    launches.update(cli_launches)
-    stamp("phase 14 (trainer CLI)")
+        launches.update(cli_launches)
+        stamp("phase 14 (trainer CLI)")
+        for name, cfg_path, point, batch_size in fifth:
+            train_and_serve(name, cfg_path, point, batch_size, cfgs, plans,
+                            serve_plans, launches, forwards, metrics,
+                            out_dir)
+        stamp("phase 15 (unet_patchgan)")
+        option_launches, metrics["unet_options"] = unet_options(
+            cfgs["unet"], plans, out_dir)
+        launches.update(option_launches)
+        stamp("phase 16 (U-Net options)")
+        (launches["resnet_train_fused"],
+         metrics["resnet_fuse_apps"]) = resnet_fuse_apps(cfgs["resnet"],
+                                                         plans, out_dir)
+        stamp("phase 17 (ResNet fuse_apps)")
+        paired_launches, metrics["paired"] = paired(cfgs["unet"], plans,
+                                                    out_dir)
+        launches.update(paired_launches)
+        stamp("phase 18 (paired)")
+        option_launches, metrics["trainer_options"] = trainer_options(
+            Path(tmp))
+        launches.update({f"trainer_cli_{k}": v
+                         for k, v in option_launches.items()})
+        stamp("phase 19 (trainer CLI options)")
 
     entries = kernel_entries(rows, max_err, launches, forwards, serve_plans)
     for path, plan in {**plans, **serve_plans}.items():

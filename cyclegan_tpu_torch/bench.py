@@ -4,7 +4,7 @@
     python -m cyclegan_tpu_torch.bench [--batch 8] [--image-size 256]
         [--steps 30] [--warmup 5] [--dtype bfloat16|float32]
         [--model_config configs/cycle.yaml] [--device cuda|cpu]
-        [--layout nhcw|nhwc] [--pallas]
+        [--layout nhcw|nhwc] [--pallas] [--remat] [--paired] [--fuse-apps]
 
 from the root of the repository. It builds the four networks and their
 optimizers from ``--model_config`` and ``configs/training_config.yaml``
@@ -15,6 +15,9 @@ line: ``metric``, ``value``, ``unit`` (images/sec/chip), the device's name,
 the layout and the mean step time. ``--layout nhcw`` (the default) is the
 kernel path K1-K12; ``--layout nhwc`` the library convolutions, with
 ``--pallas`` every instance norm on K13 (the JAX bench's flags).
+``--remat``, ``--paired`` and ``--fuse-apps`` are the step's options
+(``steps.make_train_step``); ``--paired`` runs NHWC whatever ``--layout``
+says, as the JAX bench forces it.
 ``--device`` defaults to ``cuda`` and the run raises where there is no
 card; ``--device cpu`` runs the kernels' plain versions on the CPU (a check
 that the path runs, not a device number).
@@ -42,10 +45,10 @@ TRAIN_CONFIG = "configs/training_config.yaml"
 
 def build(batch: int, image_size: int, dtype: str, model_config_path: str,
           device: str, seed: int = 0, tpu_layout: bool = True,
-          pallas_norm: bool = False):
-    """(train_step, state, real_a, real_b): the default recipe's step with
-    the jitter inside it, and one seeded uint8 batch per domain on
-    ``device``."""
+          pallas_norm: bool = False, **options):
+    """(train_step, state, real_a, real_b): the recipe's step with the
+    jitter inside it (``options``: remat, paired, fuse_apps), and one
+    seeded uint8 batch per domain on ``device``."""
     model_config = yaml2namespace(model_config_path)
     state = init_train_state(build_models(model_config, seed),
                              yaml2namespace(TRAIN_CONFIG), seed, device)
@@ -56,7 +59,7 @@ def build(batch: int, image_size: int, dtype: str, model_config_path: str,
 
     step = make_train_step(model_config.loss, model_config.loss_weights,
                            dtype, preprocess, tpu_layout=tpu_layout,
-                           pallas_norm=pallas_norm)
+                           pallas_norm=pallas_norm, **options)
     noise = torch.Generator(device=device).manual_seed(seed)
     shape = (batch, image_size, image_size, 3)
     real_a, real_b = (torch.randint(0, 256, shape, generator=noise,
@@ -87,6 +90,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     parser.add_argument("--pallas", action="store_true",
                         help="with --layout nhwc, every instance norm on "
                         "K13")
+    parser.add_argument("--remat", action="store_true",
+                        help="recompute the generator forwards in the "
+                        "backward (less memory)")
+    parser.add_argument("--paired", action="store_true",
+                        help="vmap each twin pair of networks over stacked "
+                        "parameters (runs NHWC)")
+    parser.add_argument("--fuse-apps", action="store_true",
+                        help="each generator's translation and identity "
+                        "applications as one at batch 2N")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default; raises without a card) or "
                         "cpu (the kernels' plain versions)")
@@ -96,10 +108,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         raise RuntimeError("bench: no CUDA device; pass --device cpu to run "
                            "on the CPU")
 
+    layout = "nhwc" if args.paired else args.layout
     step, state, real_a, real_b = build(
         args.batch, args.image_size, args.dtype, args.model_config,
-        args.device, tpu_layout=args.layout == "nhcw",
-        pallas_norm=args.pallas)
+        args.device, tpu_layout=layout == "nhcw", pallas_norm=args.pallas,
+        remat=args.remat, paired=args.paired, fuse_apps=args.fuse_apps)
     for _ in range(args.warmup):
         step(state, real_a, real_b)
     _sync(device)
@@ -111,7 +124,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     result = {
         "metric": f"train_images_per_sec_{args.image_size}px_b{args.batch}_"
                   f"{args.dtype}",
-        "layout": args.layout, "pallas_norm": args.pallas,
+        "layout": layout, "pallas_norm": args.pallas,
+        "remat": args.remat, "paired": args.paired,
+        "fuse_apps": args.fuse_apps,
         "value": args.batch / seconds,
         "unit": "images/sec/chip",
         "device": (torch.cuda.get_device_name(device)

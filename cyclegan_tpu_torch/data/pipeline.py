@@ -8,7 +8,7 @@ domain, and each training epoch reshuffles both domains with a
 membership and order are the same. Batches leave the host as uint8; the
 jitter and normalization run on the batch's device (``data/augment.py``).
 
-Not ported yet (ROADMAP.md queue 1, item 2): the native C++ loader and the
+Not ported yet (ROADMAP.md queue 1, item 4): the native C++ loader and the
 streaming loader.
 """
 

@@ -37,8 +37,8 @@ def init_norm(norm_type: str, channels: int,
     """Instance-norm parameters: ``gamma`` ones, ``beta`` zeros."""
     if norm_type.lower() == "batchnorm":
         raise NotImplementedError(
-            "normalization: batchnorm is not ported yet (ROADMAP.md, "
-            "queue 1, later slices)")
+            "normalization: batchnorm is not ported yet (ROADMAP.md "
+            "queue 1, item 5)")
     params = nn.ParameterDict()
     if affine:
         params["gamma"] = nn.Parameter(torch.ones(channels))

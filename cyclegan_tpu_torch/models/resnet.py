@@ -45,6 +45,7 @@ class ResNetGenerator(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         f = int(config["filters"])
+        self.batchable = True
         self.stem = init_conv(generator, 7, 3, f)
         self.down = nn.ModuleList([init_conv(generator, 3, f, 2 * f),
                                    init_conv(generator, 3, 2 * f, 4 * f)])
@@ -84,6 +85,7 @@ class SimpleDiscriminator(nn.Module):
         filters = list(config["filters"])
         kernels = list(config["kernels"])
         norm = config["normalization"]
+        self.batchable = True
         c = int(config.get("in_channels", 3))
         self.blocks = nn.ModuleList()
         for k, f in zip(kernels, filters):

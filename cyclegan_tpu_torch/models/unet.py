@@ -24,13 +24,25 @@ Parameter names and shapes are the JAX package's. Every op is
 differentiable through the kernels' autograd Functions, so the same module
 serves and trains.
 
-Dropout (``dropout: True``) is applied in training mode in the JAX package;
-it is not ported yet, so a training-mode forward of such a config raises.
-An eval-mode forward never applies dropout, in either package.
+``batchable`` (the JAX ``Model.batchable``): a forward on two batches
+concatenated equals the two forwards concatenated. True but for a U-Net
+with dropout, whose masks differ per application; the train step fuses
+applications (``fuse_apps``) only where both generators are.
+
+Dropout (``dropout: True``, Keras ``Dropout(0.5)`` after each double-conv
+block's activation, as ``cyclegan_tpu/models/base.py`` ``dropout``): a
+forward applies it only when it is given ``masks``, the keep masks that
+``dropout_masks`` draws from an explicit generator, so the train step owns
+the randomness and a rematerialized forward reapplies the same masks. As
+in the JAX package, the discriminators, validation and serving never pass
+masks, whatever the config says. In NHCW the mask multiplies K2's fused
+norm + ReLU output as a torch op, as the TPU package has no kernel for it
+either.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Mapping, Optional
 
 import torch
@@ -43,9 +55,12 @@ from cyclegan_tpu_torch.ops import (
     concat_channels,
     conv2d,
     conv2d_transpose,
+    layout,
     upsample_concat,
 )
 from cyclegan_tpu_torch.ops.init import glorot_uniform
+
+DROPOUT_RATE = 0.5
 
 
 def _double_conv(generator, in_c: int, out_c: int, kernel: int,
@@ -61,10 +76,19 @@ def _double_conv(generator, in_c: int, out_c: int, kernel: int,
     return blocks
 
 
-def _apply_double_conv(blocks: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+def dropout(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Keras inverted dropout with a drawn keep ``mask``:
+    ``where(mask, x / keep, 0)``."""
+    return torch.where(mask, x / (1.0 - DROPOUT_RATE), 0.0)
+
+
+def _apply_double_conv(blocks: nn.ModuleList, x: torch.Tensor,
+                       masks=None) -> torch.Tensor:
     for block in blocks:
         x = conv2d(x, block["conv"]["w"])
         x = apply_norm_act(block["norm"], x, "relu")
+        if masks is not None:
+            x = dropout(x, next(masks))
     return x
 
 
@@ -86,10 +110,17 @@ class UNetGenerator(nn.Module):
         expansion = config["expansion"]
         norm = config["normalization"]
         self.use_dropout = bool(config["dropout"])
+        self.batchable = not self.use_dropout
         output_channels = config["output_channels"]
         self.final_activation = config["final_activation"]
         in_channels = int(config.get("in_channels", 3))
         self.transpose = expansion != "upsample"
+        # (filters, level) of each double-conv block pair, in forward order
+        n_down = len(filters) - 1
+        self._blocks = ([(f, i) for i, f in enumerate(filters[:-1])]
+                        + [(filters[-1], n_down)]
+                        + [(f, n_down - 1 - i)
+                           for i, f in enumerate(filters[::-1][:-1])])
 
         down_specs = list(zip(filters, kernels))[:-1]
         up_filters = filters[::-1][:-1]
@@ -119,17 +150,39 @@ class UNetGenerator(nn.Module):
         self.head = init_conv(generator, 1, c, output_channels,
                               use_bias=True, kernel_init=glorot_uniform)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.use_dropout and self.training:
-            raise NotImplementedError(
-                "unet_generator dropout: True in training mode is not ported "
-                "yet (ROADMAP.md queue 1, item 2, with the trainer)")
+    def dropout_masks(self, shape, generator: torch.Generator,
+                      lead: tuple = ()):
+        """The keep masks of one training forward on an input of ``shape``
+        (in the current layout), two per double-conv block in forward
+        order, drawn from ``generator`` in one call on its device (each
+        element kept with probability 1 - rate, as ``jax.random.bernoulli``
+        draws them); ``lead`` prepends dimensions (a stacked pair). None
+        without dropout."""
+        if not self.use_dropout:
+            return None
+        b, h_axis, w_axis = shape[0], *layout.spatial_axes()
+        shapes = []
+        for f, level in self._blocks:
+            dims = [b, 0, 0, 0]
+            dims[h_axis] = shape[h_axis] >> level
+            dims[w_axis] = shape[w_axis] >> level
+            dims[layout.channel_axis()] = f
+            shapes += [tuple(lead) + tuple(dims)] * 2
+        sizes = [math.prod(s) for s in shapes]
+        keep = torch.rand(sum(sizes), generator=generator,
+                          device=generator.device) < 1.0 - DROPOUT_RATE
+        return [m.view(s) for m, s in zip(keep.split(sizes), shapes)]
+
+    def forward(self, x: torch.Tensor, masks=None) -> torch.Tensor:
+        """``masks`` (``dropout_masks``) applies dropout; without them the
+        forward has none, in training mode too."""
+        masks = iter(masks) if masks is not None else None
         skips = []
         for blocks in self.down:
-            x = _apply_double_conv(blocks, x)
+            x = _apply_double_conv(blocks, x, masks)
             skips.insert(0, x)
             x = avg_pool2x2(x)
-        x = _apply_double_conv(self.bottom, x)
+        x = _apply_double_conv(self.bottom, x, masks)
         for level, skip in zip(self.up, skips):
             if self.transpose:
                 convt = level["convt"]
@@ -138,7 +191,7 @@ class UNetGenerator(nn.Module):
                 x = concat_channels([skip, x])
             else:
                 x = upsample_concat(skip, x)
-            x = _apply_double_conv(level["dc"], x)
+            x = _apply_double_conv(level["dc"], x, masks)
         x = conv2d(x, self.head["w"], self.head["b"])
         return apply_activation(x, self.final_activation)
 
@@ -160,6 +213,7 @@ class StridedUNet(nn.Module):
         norm = config["normalization"]
         output_channels = config["output_channels"]
         self.final_activation = config["final_activation"]
+        self.batchable = True
         c = int(config.get("in_channels", 3))
 
         self.down = nn.ModuleList()

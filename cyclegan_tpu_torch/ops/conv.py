@@ -66,32 +66,71 @@ def _full_f32(dtype: torch.dtype):
 class LibraryConv(torch.autograd.Function):
     """``aten.convolution`` on NCHW and its ``convolution_backward``, each
     under ``_full_f32``: autograd's own backward would run under whatever
-    TF32 setting holds when it runs."""
+    TF32 setting holds when it runs. Under ``torch.func.vmap`` (the paired
+    step's stacked twin networks) it runs the library's own batching rule
+    for a convolution: the stacked members as one grouped convolution, as
+    XLA lowers the JAX package's ``vmap``."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, stride, padding, transposed,
-                output_padding):
-        ctx.save_for_backward(x, w)
-        ctx.conf = ([stride] * 2, [padding] * 2, transposed,
-                    [output_padding] * 2)
-        ctx.has_bias = bias is not None
+    def forward(x, w, bias, stride, padding, transposed, output_padding,
+                groups):
         with _full_f32(x.dtype):
             return torch.ops.aten.convolution(
-                x, w, bias, ctx.conf[0], ctx.conf[1], [1, 1], transposed,
-                ctx.conf[3], 1)
+                x, w, bias, [stride] * 2, [padding] * 2, [1, 1], transposed,
+                [output_padding] * 2, groups)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, bias, stride, padding, transposed, output_padding, groups = \
+            inputs
+        ctx.save_for_backward(x, w)
+        ctx.conf = ([stride] * 2, [padding] * 2, transposed,
+                    [output_padding] * 2, groups)
+        ctx.has_bias = bias is not None
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        stride, padding, transposed, output_padding = ctx.conf
-        out_c = w.shape[1] if transposed else w.shape[0]
+        stride, padding, transposed, output_padding, groups = ctx.conf
+        out_c = w.shape[1] * groups if transposed else w.shape[0]
         mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
                 ctx.has_bias and ctx.needs_input_grad[2]]
         with _full_f32(x.dtype):
             dx, dw, db = torch.ops.aten.convolution_backward(
                 g, x, w, [out_c], stride, padding, [1, 1], transposed,
-                output_padding, 1, mask)
-        return dx, dw, db, None, None, None, None
+                output_padding, groups, mask)
+        return dx, dw, db, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, bias, stride, padding, transposed,
+             output_padding, groups):
+        """G stacked members: x [G, B, C, H, W] becomes [B, G*C, H, W]
+        channels_last, w [G, ...] the G*groups groups of one weight, and
+        the output [B, G*O, H', W'] is viewed back as [G, B, O, H', W'].
+        Where only x is stacked, the members fold into the batch."""
+        n = info.batch_size
+        x_dim, w_dim, b_dim = in_dims[:3]
+
+        def stacked(t, dim):
+            return t.movedim(dim, 0) if dim is not None else t.expand(
+                n, *t.shape)
+
+        args = (stride, padding, transposed, output_padding)
+        if w_dim is None and b_dim is None:
+            x = x.movedim(x_dim, 0)
+            y = LibraryConv.apply(x.reshape(-1, *x.shape[2:]), w, bias,
+                                  *args, groups)
+            return y.view(n, -1, *y.shape[1:]), 0
+        x, w = stacked(x, x_dim), stacked(w, w_dim)
+        g, b, c, h, wd = x.shape
+        xg = x.permute(1, 3, 4, 0, 2).reshape(b, h, wd, g * c).permute(
+            0, 3, 1, 2)
+        wg = w.reshape(g * w.shape[1], *w.shape[2:])
+        bg = None if bias is None else stacked(bias, b_dim).reshape(-1)
+        y = LibraryConv.apply(xg, wg, bg, *args, groups * g)
+        _, go, ho, wo = y.shape
+        y = y.permute(0, 2, 3, 1).reshape(b, ho, wo, g, go // g)
+        return y.permute(3, 0, 4, 1, 2), 0
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -121,7 +160,7 @@ def _library_conv(x: torch.Tensor, kernel: torch.Tensor,
     else:
         xp = _nchw(F.pad(x, (0, 0, *pw, *ph)))
     y = LibraryConv.apply(xp, kernel.permute(3, 2, 0, 1), bias, stride, 0,
-                          False, 0)
+                          False, 0, 1)
     return _from_nchw(y)
 
 
@@ -150,7 +189,8 @@ def conv2d_reflect(x: torch.Tensor, kernel: torch.Tensor,
         return conv_reflect(x, kernel, bias)
     p = int(kernel.shape[0]) // 2
     y = LibraryConv.apply(_nchw(reflection_pad2d(x, (p, p))),
-                          kernel.permute(3, 2, 0, 1), bias, 1, 0, False, 0)
+                          kernel.permute(3, 2, 0, 1), bias, 1, 0, False, 0,
+                          1)
     return _from_nchw(y)
 
 
@@ -170,7 +210,7 @@ def conv2d_transpose(x: torch.Tensor, kernel: torch.Tensor,
     before = max(k - stride, 0) // 2
     extra = stride - k + 2 * before
     y = LibraryConv.apply(_nchw(x), kernel.permute(3, 2, 0, 1), bias, stride,
-                          before, True, max(extra, 0))
+                          before, True, max(extra, 0), 1)
     if extra < 0:
         y = y[:, :, :y.shape[2] + extra, :y.shape[3] + extra]
     return _from_nchw(y)

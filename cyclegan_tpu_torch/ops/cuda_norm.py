@@ -226,22 +226,49 @@ def instance_norm_nhwc_bwd(x, dy, gamma, mean, rstd):
 
 
 class InstanceNormNHWC(torch.autograd.Function):
-    """y = instance_norm(x) [* gamma + beta]: forward K13 (which keeps mean
-    and rstd), backward ``instance_norm_nhwc_bwd``."""
+    """(y, mean, rstd) = instance_norm(x) [* gamma + beta]: forward K13,
+    which keeps mean and rstd, backward ``instance_norm_nhwc_bwd``. Under
+    ``torch.func.vmap`` (the paired step's stacked twin networks) K13 runs
+    once on the members folded into the batch where they share gamma and
+    beta (instance norm is per sample), else once per member: each member
+    is then normalized exactly as an unpaired application."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps):
-        y, mean, rstd = _instance_norm_nhwc(x, gamma, beta, eps)
+    def forward(x, gamma, beta, eps):
+        return _instance_norm_nhwc(x, gamma, beta, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, gamma, _, _ = inputs
+        _, mean, rstd = output
+        ctx.mark_non_differentiable(mean, rstd)
         ctx.save_for_backward(x, gamma, mean, rstd)
-        return y
 
     @staticmethod
-    def backward(ctx, dy):
+    def backward(ctx, dy, _dmean, _drstd):
         x, gamma, mean, rstd = ctx.saved_tensors
         dx, dgamma, dbeta = instance_norm_nhwc_bwd(x, dy, gamma, mean, rstd)
         return (dx if ctx.needs_input_grad[0] else None,
                 dgamma if ctx.needs_input_grad[1] else None,
                 dbeta if ctx.needs_input_grad[2] else None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, gamma, beta, eps):
+        n = info.batch_size
+        x_dim, g_dim, b_dim, _ = in_dims
+        if g_dim is None and b_dim is None:
+            x = x.movedim(x_dim, 0)
+            out = InstanceNormNHWC.apply(
+                x.reshape(-1, *x.shape[2:]).contiguous(), gamma, beta, eps)
+            return tuple(t.view(n, -1, *t.shape[1:]) for t in out), (0, 0, 0)
+
+        def member(t, dim, i):
+            return t if t is None or dim is None else t.select(dim, i)
+
+        outs = [InstanceNormNHWC.apply(
+            member(x, x_dim, i).contiguous(), member(gamma, g_dim, i),
+            member(beta, b_dim, i), eps) for i in range(n)]
+        return tuple(torch.stack(t) for t in zip(*outs)), (0, 0, 0)
 
 
 def instance_norm_nhwc(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
@@ -249,8 +276,4 @@ def instance_norm_nhwc(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
                        eps: float = TFA_EPSILON) -> torch.Tensor:
     """x [N,H,W,C]; gamma, beta [C] or None (non-affine); differentiable in
     x, gamma and beta."""
-    x = x.contiguous()
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, gamma, beta)):
-        return InstanceNormNHWC.apply(x, gamma, beta, eps)
-    return _instance_norm_nhwc(x, gamma, beta, eps)[0]
+    return InstanceNormNHWC.apply(x.contiguous(), gamma, beta, eps)[0]

@@ -51,6 +51,15 @@ def nhwc(enabled: bool = True):
     return _scoped("NHWC", enabled)
 
 
+def scope(name: str):
+    """Scope the layout ``name``, as ``current()`` returns it: a function
+    that runs after its caller's scope has closed (a rematerialized
+    forward) re-enters the layout it was first run in."""
+    if name not in ("NHWC", "NHCW"):
+        raise ValueError(f"layout {name!r} not in ('NHCW', 'NHWC')")
+    return _scoped(name, True)
+
+
 def to_nhcw(x: torch.Tensor) -> torch.Tensor:
     """NHWC -> NHCW, contiguous."""
     return x.transpose(2, 3).contiguous()

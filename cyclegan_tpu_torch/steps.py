@@ -36,8 +36,29 @@ of each op is fixed when the forward runs); the losses are layout-free
 means. The port's steps default to ``tpu_layout=True``, its kernel path;
 the JAX package's default is the other layout.
 
-Not ported yet (ROADMAP.md queue 1, item 2): ``fuse_apps``, ``paired``,
-``remat``, ``steps_per_call``, meshes.
+Options, as the JAX step's:
+
+- ``fuse_apps``: where both generators are ``batchable``, each runs once
+  on the batch-concatenated pair, ``g_AB([real_a; real_b])`` and
+  ``g_BA([real_b; real_a])``, then on the fakes: 4 generator applications
+  instead of 6, two of them at batch 2N.
+- ``remat``: each generator application is recomputed in the backward
+  (``torch.utils.checkpoint``, non-reentrant), and only those, as JAX
+  checkpoints only ``g_ab`` / ``g_ba``. The recompute runs after the
+  step's scopes have closed, so each checkpointed application re-enters
+  the layout and the ``pallas_norm`` setting it first ran in, and takes
+  its dropout masks as inputs, drawn before it.
+- ``paired``: three ``torch.func.vmap``ped generator rounds and two
+  ``vmap``ped discriminator views over parameters stacked as [g_AB, g_BA]
+  and [d_A, d_B] (``_forward_losses_paired``), in NHWC whatever
+  ``tpu_layout`` says and without ``fuse_apps``, as in JAX.
+- dropout: a train step draws the generators' keep masks from the train
+  state's ``dropout_generator`` (on the batch's device), per application,
+  in the order the applications run; the discriminators and the validate
+  step never drop out, as JAX passes them no key.
+- ``make_train_multi_step``: K steps of (K, B, H, W, C) batches, the
+  single step's body K times, metrics stacked along K (JAX's
+  ``steps_per_call``; no CUDA-graph capture).
 """
 
 from __future__ import annotations
@@ -47,7 +68,8 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.func import functional_call
+from torch.func import functional_call, vmap
+from torch.utils.checkpoint import checkpoint
 
 from cyclegan_tpu_torch.losses import (
     accuracy,
@@ -71,11 +93,13 @@ _METRIC_OF = {"g_AB": "gAB_loss", "g_BA": "gBA_loss", "d_A": "dA_loss",
 class TrainState:
     """Everything one training run updates: the four networks (f32 master
     parameters), their optimizers, the host generator that draws the
-    augmentation, and the step count."""
+    augmentation, the generator on the networks' device that draws the
+    dropout masks, and the step count."""
 
     models: Dict[str, nn.Module]
     optimizers: Dict[str, torch.optim.Optimizer]
     generator: torch.Generator
+    dropout_generator: torch.Generator
     step: int = 0
 
 
@@ -106,7 +130,8 @@ def init_train_state(models: Mapping[str, nn.Module],
         train_config["g_opt" if name.startswith("g") else "d_opt"],
         models[name].parameters()) for name in NETWORKS}
     return TrainState(models, optimizers,
-                      torch.Generator().manual_seed(seed))
+                      torch.Generator().manual_seed(seed),
+                      torch.Generator(device=device).manual_seed(seed))
 
 
 def disc_views(model: nn.Module, params: Mapping[str, torch.Tensor],
@@ -121,46 +146,112 @@ def disc_views(model: nn.Module, params: Mapping[str, torch.Tensor],
             functional_call(model, dict(params), (x.detach(),)))
 
 
+def _dropout_kw(masks) -> Dict[str, Any]:
+    return {} if masks is None else {"masks": masks}
+
+
+def _draw_masks(model: nn.Module, shape, generator: Optional[torch.Generator],
+                lead: tuple = ()):
+    """A generator application's dropout masks (``dropout_masks``), None
+    without a generator or without dropout."""
+    draw = getattr(model, "dropout_masks", None)
+    if generator is None or draw is None:
+        return None
+    return draw(tuple(shape), generator, lead)
+
+
+def _rematerialized(fn: Callable, *args):
+    """``fn(*args)`` under a non-reentrant checkpoint whose recompute, run
+    by autograd after the step's scopes have closed, re-enters the layout
+    and ``pallas_norm`` setting of the first run."""
+    name, norm = layout.current(), cuda_norm.is_enabled()
+
+    def run(*inputs):
+        with layout.scope(name), cuda_norm.scope(norm):
+            return fn(*inputs)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def _forward_losses(models: Mapping[str, nn.Module], loss_obj: Callable,
                     weights: Mapping[str, float], real_a: torch.Tensor,
                     real_b: torch.Tensor, compute_dtype: torch.dtype,
                     stop_grads: bool, tpu_layout: bool = True,
-                    pallas_norm: bool = False
+                    pallas_norm: bool = False, *, fuse_apps: bool = False,
+                    remat: bool = False, paired: bool = False,
+                    dropout: Optional[torch.Generator] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The shared forward set and the losses (cyclegan_tpu/steps.py
-    ``_forward_losses``, unfused, unpaired, no remat), in the NHCW layout
-    with ``tpu_layout`` and in NHWC (K13 for the norms with
-    ``pallas_norm``) without. ``real_a``, ``real_b``: NHWC f32 in [-1, 1].
-    Returns (surrogate, metrics); with ``stop_grads`` the surrogate's
-    gradient per network equals the reference's per-network gradient.
-    Without, the two views of each fake batch are one application
-    (validation and the reference gradients)."""
+    ``_forward_losses``, or ``_forward_losses_paired`` with ``paired``), in
+    the NHCW layout with ``tpu_layout`` and in NHWC (K13 for the norms with
+    ``pallas_norm``) without. ``real_a``, ``real_b``: NHWC f32 in [-1, 1];
+    ``dropout``: the generator of the generators' dropout masks (None: no
+    dropout). Returns (surrogate, metrics); with ``stop_grads`` the
+    surrogate's gradient per network equals the reference's per-network
+    gradient. Without, the two views of each fake batch are one
+    application (validation and the reference gradients)."""
+    if paired:
+        with layout.nhwc(), cuda_norm.scope(pallas_norm):
+            return _forward_losses_paired(models, loss_obj, weights, real_a,
+                                          real_b, compute_dtype, stop_grads,
+                                          remat, dropout)
     scope = layout.nhcw() if tpu_layout else layout.nhwc()
     with scope, cuda_norm.scope(pallas_norm):
         if tpu_layout:
             real_a = layout.to_nhcw(real_a)
             real_b = layout.to_nhcw(real_b)
         return _forward_losses_scoped(models, loss_obj, weights, real_a,
-                                      real_b, compute_dtype, stop_grads)
+                                      real_b, compute_dtype, stop_grads,
+                                      fuse_apps, remat, dropout)
+
+
+def _cast_params(models, compute_dtype):
+    """Each network's parameters cast to the compute dtype: the cast's
+    backward lands the gradients on the f32 masters."""
+    return {name: {k: p.to(compute_dtype)
+                   for k, p in models[name].named_parameters()}
+            for name in NETWORKS}
 
 
 def _forward_losses_scoped(models, loss_obj, weights, real_a, real_b,
-                           compute_dtype, stop_grads):
+                           compute_dtype, stop_grads, fuse_apps=False,
+                           remat=False, dropout=None):
     a_net = real_a.to(compute_dtype)
     b_net = real_b.to(compute_dtype)
-    params = {name: {k: p.to(compute_dtype)
-                     for k, p in models[name].named_parameters()}
-              for name in NETWORKS}
+    params = _cast_params(models, compute_dtype)
 
     def run(name, x):
         return functional_call(models[name], params[name], (x,))
 
-    fake_b = run("g_AB", a_net)
-    cycled_a = run("g_BA", fake_b)
-    fake_a = run("g_BA", b_net)
-    cycled_b = run("g_AB", fake_a)
-    same_a = run("g_BA", a_net)
-    same_b = run("g_AB", b_net)
+    def gen(name, x):
+        model = models[name]
+        masks = _draw_masks(model, x.shape, dropout)
+
+        def apply(x, *masks):
+            return functional_call(model, params[name], (x,),
+                                   _dropout_kw(list(masks) or None))
+
+        if remat:
+            return _rematerialized(apply, x, *(masks or ()))
+        return apply(x, *(masks or ()))
+
+    if fuse_apps and all(getattr(models[n], "batchable", False)
+                         for n in ("g_AB", "g_BA")):
+        n = a_net.shape[0]
+        out_ab = gen("g_AB", torch.cat([a_net, b_net]))
+        fake_b, same_b = out_ab[:n], out_ab[n:]
+        out_ba = gen("g_BA", torch.cat([b_net, a_net]))
+        fake_a, same_a = out_ba[:n], out_ba[n:]
+        cycled_a = gen("g_BA", fake_b)
+        cycled_b = gen("g_AB", fake_a)
+    else:
+        fake_b = gen("g_AB", a_net)
+        cycled_a = gen("g_BA", fake_b)
+        fake_a = gen("g_BA", b_net)
+        cycled_b = gen("g_AB", fake_a)
+        same_a = gen("g_BA", a_net)
+        same_b = gen("g_AB", b_net)
 
     disc_real_a = run("d_A", a_net)
     disc_real_b = run("d_B", b_net)
@@ -172,7 +263,75 @@ def _forward_losses_scoped(models, loss_obj, weights, real_a, real_b,
     else:
         disc_fake_a_gen = disc_fake_a_d = run("d_A", fake_a)
         disc_fake_b_gen = disc_fake_b_d = run("d_B", fake_b)
+    return _losses(loss_obj, weights, real_a, real_b, cycled_a, cycled_b,
+                   same_a, same_b, disc_real_a, disc_real_b,
+                   disc_fake_a_gen, disc_fake_b_gen, disc_fake_a_d,
+                   disc_fake_b_d)
 
+
+def _forward_losses_paired(models, loss_obj, weights, real_a, real_b,
+                           compute_dtype, stop_grads, remat=False,
+                           dropout=None):
+    """The paired twin step (cyclegan_tpu/steps.py
+    ``_forward_losses_paired``), in the NHWC scope its caller opens: g_AB
+    and g_BA (d_A and d_B) share an architecture, so each pair of
+    applications is one ``vmap`` over their stacked parameters, which the
+    library convolution runs as one grouped convolution and K13 per
+    member. Generator rounds [g_AB(real_a), g_BA(real_b)],
+    [g_AB(fake_a), g_BA(fake_b)], [g_AB(real_b), g_BA(real_a)]; the
+    discriminators on the stacked reals and, as two applications (the
+    generator and the discriminator view), on the stacked fakes."""
+    a_net = real_a.to(compute_dtype)
+    b_net = real_b.to(compute_dtype)
+    params = _cast_params(models, compute_dtype)
+
+    def stack(first, second):
+        return {k: torch.stack([params[first][k], params[second][k]])
+                for k in params[first]}
+
+    pg, pd = stack("g_AB", "g_BA"), stack("d_A", "d_B")
+    g_model, d_model = models["g_AB"], models["d_A"]
+
+    def g_apply(p, x, masks):
+        return functional_call(g_model, p, (x,), _dropout_kw(masks))
+
+    def d_apply(p, x):
+        return functional_call(d_model, p, (x,))
+
+    def round_(first, second):
+        x = torch.stack([first, second])
+        masks = _draw_masks(g_model, first.shape, dropout, lead=(2,))
+        vg = vmap(g_apply, in_dims=(0, 0, None if masks is None else 0))
+        if remat:
+            return _rematerialized(lambda x, *m: vg(pg, x, list(m) or None),
+                                   x, *(masks or ()))
+        return vg(pg, x, masks)
+
+    vd = vmap(d_apply)
+    fake_b, fake_a = round_(a_net, b_net).unbind(0)
+    cycled_b, cycled_a = round_(fake_a, fake_b).unbind(0)
+    same_b, same_a = round_(b_net, a_net).unbind(0)
+
+    fakes = torch.stack([fake_a, fake_b])
+    disc_real_a, disc_real_b = vd(pd, torch.stack([a_net, b_net])).unbind(0)
+    if stop_grads:
+        frozen = {k: v.detach() for k, v in pd.items()}
+        d_fake_gen = vd(frozen, fakes)
+        d_fake_d = vd(pd, fakes.detach())
+    else:
+        d_fake_gen = d_fake_d = vd(pd, fakes)
+    disc_fake_a_gen, disc_fake_b_gen = d_fake_gen.unbind(0)
+    disc_fake_a_d, disc_fake_b_d = d_fake_d.unbind(0)
+    return _losses(loss_obj, weights, real_a, real_b, cycled_a, cycled_b,
+                   same_a, same_b, disc_real_a, disc_real_b,
+                   disc_fake_a_gen, disc_fake_b_gen, disc_fake_a_d,
+                   disc_fake_b_d)
+
+
+def _losses(loss_obj, w, real_a, real_b, cycled_a, cycled_b, same_a, same_b,
+            disc_real_a, disc_real_b, disc_fake_a_gen, disc_fake_b_gen,
+            disc_fake_a_d, disc_fake_b_d):
+    """(surrogate, metrics) from the forward set's outputs, in f32."""
     f32 = lambda t: t.to(torch.float32)  # noqa: E731
     cycled_a, cycled_b = f32(cycled_a), f32(cycled_b)
     same_a, same_b = f32(same_a), f32(same_b)
@@ -181,7 +340,6 @@ def _forward_losses_scoped(models, loss_obj, weights, real_a, real_b,
         f32(disc_fake_b_gen)
     disc_fake_a_d, disc_fake_b_d = f32(disc_fake_a_d), f32(disc_fake_b_d)
 
-    w = weights
     gab_adv = generator_loss(disc_fake_b_gen, loss_obj, w["generator"])
     gba_adv = generator_loss(disc_fake_a_gen, loss_obj, w["generator"])
     total_cycle = (calc_cycle_loss(real_a, cycled_a, w["cycle"])
@@ -213,13 +371,16 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
                     compute_dtype: str = "float32",
                     preprocess: Optional[Callable] = None,
                     tpu_layout: bool = True,
-                    pallas_norm: bool = False) -> Callable:
+                    pallas_norm: bool = False, remat: bool = False,
+                    paired: bool = False,
+                    fuse_apps: bool = False) -> Callable:
     """The train step ``(state, real_a, real_b) -> metrics``: preprocess
     (``preprocess(generator, a, b) -> (a, b)``, e.g. the jitter), one
-    forward set in the layout ``tpu_layout`` picks, ONE backward, four
-    optimizer updates, in place on ``state``. After it each parameter's
-    ``.grad`` holds the step's gradient. Metrics are detached f32 scalars
-    on the batch's device; the step never waits for the card."""
+    forward set in the layout ``tpu_layout`` picks (with the options of
+    the module docstring), ONE backward, four optimizer updates, in place
+    on ``state``. After it each parameter's ``.grad`` holds the step's
+    gradient. Metrics are detached f32 scalars on the batch's device; the
+    step never waits for the card."""
     loss_obj = get_loss_obj(loss_name)
     weights = _weights(loss_weights)
     cdtype = DTYPES[compute_dtype]
@@ -232,7 +393,9 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
             opt.zero_grad(set_to_none=True)
         surrogate, metrics = _forward_losses(
             state.models, loss_obj, weights, real_a, real_b, cdtype,
-            stop_grads=True, tpu_layout=tpu_layout, pallas_norm=pallas_norm)
+            stop_grads=True, tpu_layout=tpu_layout, pallas_norm=pallas_norm,
+            fuse_apps=fuse_apps, remat=remat, paired=paired,
+            dropout=state.dropout_generator)
         surrogate.backward()
         for name in NETWORKS:
             state.optimizers[name].step()
@@ -242,16 +405,42 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
     return train_step
 
 
+def make_train_multi_step(loss_name: str, loss_weights: Mapping[str, float],
+                          compute_dtype: str = "float32",
+                          preprocess: Optional[Callable] = None,
+                          **options) -> Callable:
+    """K train steps per call (cyclegan_tpu/steps.py
+    ``make_train_multi_step``): ``(state, real_a, real_b) -> metrics``
+    with (K, B, H, W, C) batches runs ``make_train_step``'s step (same
+    ``options``) on each of the K batch pairs in turn and returns each
+    metric stacked along a leading K axis. The per-step math, generator
+    draws included, is that of K single steps."""
+    single = make_train_step(loss_name, loss_weights, compute_dtype,
+                             preprocess, **options)
+
+    def multi_step(state: TrainState, real_a: torch.Tensor,
+                   real_b: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if real_a.shape[0] != real_b.shape[0] or real_a.dim() != 5:
+            raise ValueError(f"multi step takes (K, B, H, W, C) batches of "
+                             f"one K, got {tuple(real_a.shape)} and "
+                             f"{tuple(real_b.shape)}")
+        steps = [single(state, a, b) for a, b in zip(real_a, real_b)]
+        return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+
+    return multi_step
+
+
 def make_validate_step(loss_name: str, loss_weights: Mapping[str, float],
                        compute_dtype: str = "float32",
                        preprocess: Optional[Callable] = None,
                        tpu_layout: bool = True,
-                       pallas_norm: bool = False) -> Callable:
+                       pallas_norm: bool = False,
+                       fuse_apps: bool = False) -> Callable:
     """The eval step ``(state, real_a, real_b) -> metrics``: the forward
-    set without stop-gradients and without a backward (4 discriminator
-    applications), in the layout ``tpu_layout`` picks;
-    ``preprocess(images)`` (e.g. ``prepare_eval_batch``) runs first on each
-    batch."""
+    set without stop-gradients, dropout or a backward (4 discriminator
+    applications), in the layout ``tpu_layout`` picks, ``fuse_apps`` as
+    the train step's; ``preprocess(images)`` (e.g.
+    ``prepare_eval_batch``) runs first on each batch."""
     loss_obj = get_loss_obj(loss_name)
     weights = _weights(loss_weights)
     cdtype = DTYPES[compute_dtype]
@@ -264,7 +453,8 @@ def make_validate_step(loss_name: str, loss_weights: Mapping[str, float],
         _, metrics = _forward_losses(state.models, loss_obj, weights,
                                      real_a, real_b, cdtype,
                                      stop_grads=False, tpu_layout=tpu_layout,
-                                     pallas_norm=pallas_norm)
+                                     pallas_norm=pallas_norm,
+                                     fuse_apps=fuse_apps)
         return metrics
 
     return validate_step

@@ -12,7 +12,7 @@ card (``cpu`` runs the kernels' plain versions). ``--vram`` is accepted and
 unused, as in the JAX CLI. One device only: ``--num_devices`` other than 1
 or -1, ``--spatial_devices`` > 1, ``--dp_shard_map``, ``--distributed`` and
 ``--coordinator`` raise until parallelism is ported (ROADMAP.md queue 1,
-item 5).
+item 7).
 """
 
 from __future__ import annotations
@@ -78,7 +78,7 @@ def main(argv: Optional[Sequence[str]] = None):
     if unported:
         raise NotImplementedError(
             f"{', '.join(unported)}: the port trains on one device; "
-            f"parallelism is not ported yet (ROADMAP.md queue 1, item 5)")
+            f"parallelism is not ported yet (ROADMAP.md queue 1, item 7)")
 
     model_config = yaml2namespace(args.model_config)
     training_config = yaml2namespace(args.train_config)

@@ -4,23 +4,29 @@ The epoch loop around one train step (``steps.make_train_step``): per-batch
 metrics fetched every ``display_every`` batches in one transfer, validation
 each epoch, TensorBoard summaries with the JAX package's tags, fixed sample
 images and their translations, a checkpoint every ``summary.model`` epochs
-and at the end, and full resume: parameters, Adam moments, the step, the
-augmentation generator, the sample images and the epoch count
-(``current_epoch``, written at every periodic save). The checkpoint is the
-JAX trainer's, so either package resumes the other's
+and at the end, and full resume: parameters, every optimizer's state, the
+step, the augmentation and dropout generators, the sample images and the
+epoch count (``current_epoch``, written at every periodic save). The
+checkpoint is the JAX trainer's, so either package resumes the other's
 (``utils/checkpoint.py``).
 
 Train config options, as in the JAX trainer: ``compute_dtype`` (float32 or
 bfloat16), ``display_every`` (0 = at epoch end), ``nan_check``,
-``pallas_norm`` (K13 for the NHWC layout's instance norms) and
-``tpu_layout``: true runs the NHCW layout through the kernels K1-K12, false
-the NHWC layout through the library convolutions; "auto" (the default) is
-NHCW on a CUDA device with bf16 and NHWC otherwise, where the JAX package
-reads "a TPU" for "a CUDA device". ``device`` defaults to ``cuda`` and
-raises without a card. Options the port does not have yet raise
-NotImplementedError: a mesh, ``steps_per_call`` > 1, ``remat``,
-``fuse_apps``, ``dp_shard_map``, ``profile_dir``, a loader other than
-``memory`` (ROADMAP.md queue 1).
+``pallas_norm`` (K13 for the NHWC layout's instance norms), ``tpu_layout``:
+true runs the NHCW layout through the kernels K1-K12, false the NHWC layout
+through the library convolutions; "auto" (the default) is NHCW on a CUDA
+device with bf16 and NHWC otherwise, where the JAX package reads "a TPU"
+for "a CUDA device"; ``remat`` and ``fuse_apps`` (the steps' options);
+``steps_per_call`` K > 1, which runs the epoch's batches in chunks of K
+through ``steps.make_train_multi_step`` (a ragged tail as single steps,
+metrics drained per chunk); ``profile_dir`` (with ``profile_steps``, 5 by
+default), a ``torch.profiler`` Chrome trace of the first epoch's first
+``profile_steps`` train batches, ``<profile_dir>/train_trace.json``, closed
+early if the epoch is shorter. ``device`` defaults to ``cuda`` and raises
+without a card. Options the port does not have yet raise
+NotImplementedError, naming their item of ROADMAP.md queue 1: a mesh and
+``dp_shard_map`` (item 7, parallelism), a loader other than ``memory``
+(item 4, data).
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from cyclegan_tpu_torch.ops import cuda_norm, layout
 from cyclegan_tpu_torch.steps import (
     build_models,
     init_train_state,
+    make_train_multi_step,
     make_train_step,
     make_validate_step,
 )
@@ -65,16 +72,14 @@ logger = logging.getLogger(__name__)
 METRIC_NAMES = ["dA_loss", "dB_loss", "gAB_loss", "gBA_loss", "dA_acc",
                 "dB_acc"]
 CHECKPOINT_FILE = "checkpoint.npz"
+PROFILE_FILE = "train_trace.json"
 
-# train config options of the JAX trainer that are not ported, with the
-# test of whether a config asks for one
+# train config options of the JAX trainer that are not ported: the test of
+# whether a config asks for one, and the item of ROADMAP.md queue 1 that
+# ports it
 _NOT_PORTED = {
-    "steps_per_call": lambda v: int(v) > 1,
-    "remat": bool,
-    "fuse_apps": bool,
-    "dp_shard_map": bool,
-    "profile_dir": bool,
-    "data_loader": lambda v: str(v) != "memory",
+    "dp_shard_map": (bool, "item 7, parallelism"),
+    "data_loader": (lambda v: str(v) != "memory", "item 4, data"),
 }
 
 
@@ -101,7 +106,7 @@ def _progress(iterable, desc: str, total: int):
 
 
 class CycleGan:
-    """Owns the four networks, their Adam optimizers, the steps and the
+    """Owns the four networks, their optimizers, the steps and the
     training loop."""
 
     def __init__(self, model_config: Namespace, train_config: Namespace,
@@ -109,12 +114,12 @@ class CycleGan:
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh (data or spatial parallelism) is not ported "
-                "yet (ROADMAP.md queue 1, item 5)")
-        for key, asks in _NOT_PORTED.items():
+                "yet (ROADMAP.md queue 1, item 7)")
+        for key, (asks, item) in _NOT_PORTED.items():
             if key in train_config and asks(train_config[key]):
                 raise NotImplementedError(
                     f"train config {key}: {train_config[key]!r} is not "
-                    f"ported yet (ROADMAP.md queue 1, item 2)")
+                    f"ported yet (ROADMAP.md queue 1, {item})")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CycleGan: no CUDA device; pass device='cpu' "
@@ -130,6 +135,11 @@ class CycleGan:
         self.display_every = int(train_config.get("display_every", 1))
         self.nan_check = bool(train_config.get("nan_check", True))
         self.pallas_norm = bool(train_config.get("pallas_norm", False))
+        self.remat = bool(train_config.get("remat", False))
+        self.fuse_apps = bool(train_config.get("fuse_apps", False))
+        self.steps_per_call = int(train_config.get("steps_per_call", 1))
+        self.profile_dir = train_config.get("profile_dir")
+        self.profile_steps = int(train_config.get("profile_steps", 5))
         tpu_layout = train_config.get("tpu_layout", "auto")
         if isinstance(tpu_layout, str) and tpu_layout.lower() == "auto":
             tpu_layout = (self.device.type == "cuda"
@@ -149,12 +159,18 @@ class CycleGan:
                     random_jitter_batch(generator, b, image_size))
 
         loss, weights = model_config.loss, dict(model_config.loss_weights)
+        options = dict(tpu_layout=self.tpu_layout,
+                       pallas_norm=self.pallas_norm, fuse_apps=self.fuse_apps)
         self.train_step_fn = make_train_step(
             loss, weights, self.compute_dtype, train_preprocess,
-            tpu_layout=self.tpu_layout, pallas_norm=self.pallas_norm)
+            remat=self.remat, **options)
+        self.multi_step_fn = None
+        if self.steps_per_call > 1:
+            self.multi_step_fn = make_train_multi_step(
+                loss, weights, self.compute_dtype, train_preprocess,
+                remat=self.remat, **options)
         self.validate_step_fn = make_validate_step(
-            loss, weights, self.compute_dtype, prepare_eval_batch,
-            tpu_layout=self.tpu_layout, pallas_norm=self.pallas_norm)
+            loss, weights, self.compute_dtype, prepare_eval_batch, **options)
 
         self.a_samples: Optional[np.ndarray] = None
         self.b_samples: Optional[np.ndarray] = None
@@ -198,10 +214,11 @@ class CycleGan:
         for e in range(current_epoch, current_epoch + epochs):
             record = {"epoch": e}
             start = time.perf_counter()
-            record["train_steps"] = self._run_epoch(
-                self.train_step_fn, train_dataset.batches(batch_size, e),
+            record["train_steps"] = self._run_train_epoch(
+                train_dataset.batches(batch_size, e),
                 f"Epoch {e + 1} training",
-                train_dataset.num_batches(batch_size), train_metrics)
+                train_dataset.num_batches(batch_size), train_metrics,
+                profile=bool(self.profile_dir) and e == current_epoch)
             record["train_seconds"] = time.perf_counter() - start
             record["train"] = self._write_summaries(self.train_summaries, e,
                                                     train_metrics)
@@ -228,6 +245,67 @@ class CycleGan:
 
         self.model_config.current_epoch = current_epoch + epochs
         self.save_model()
+
+    def _run_train_epoch(self, batches, desc: str, total: int, metrics_dict,
+                         profile: bool) -> int:
+        """One epoch of train steps: single steps, or chunks of
+        ``steps_per_call`` batches through the multi step with a ragged
+        tail of single steps; with ``profile`` the first ``profile_steps``
+        batches are traced. Metrics are fetched every ``display_every``
+        batches (a chunk's once it has run) and at the end."""
+        bar = _progress(batches, desc, total)
+        profiler = self._start_profile() if profile else None
+        pending, chunk = [], []
+        steps = 0
+        for images_a, images_b in bar:
+            if self.multi_step_fn is not None:
+                chunk.append((images_a, images_b))
+                if len(chunk) == self.steps_per_call:
+                    pending.append(self._run_chunk(chunk))
+                    chunk = []
+            else:
+                pending.append(self.train_step_fn(
+                    self.state, *self._put(images_a, images_b)))
+            steps += 1
+            if profiler is not None and steps >= self.profile_steps \
+                    and not chunk:
+                self._stop_profile(profiler)
+                profiler = None
+            if self.display_every and steps % self.display_every == 0:
+                self._drain_metrics(metrics_dict, pending)
+                self._display_metrics(metrics_dict, bar)
+        for images_a, images_b in chunk:  # the ragged tail
+            pending.append(self.train_step_fn(
+                self.state, *self._put(images_a, images_b)))
+        if profiler is not None:  # the epoch was shorter than the trace
+            self._stop_profile(profiler)
+        self._drain_metrics(metrics_dict, pending)
+        self._display_metrics(metrics_dict, bar)
+        return steps
+
+    def _run_chunk(self, chunk) -> Dict[str, torch.Tensor]:
+        """K batch pairs stacked to (K, B, H, W, C) through the multi
+        step; its metrics carry K values each."""
+        stack_a = np.stack([a for a, _ in chunk])
+        stack_b = np.stack([b for _, b in chunk])
+        return self.multi_step_fn(self.state, *self._put(stack_a, stack_b))
+
+    def _start_profile(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profile(self, profiler) -> None:
+        """Wait for the traced steps, stop and write the Chrome trace."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        folder = Path(self.profile_dir)
+        folder.mkdir(parents=True, exist_ok=True)
+        profiler.export_chrome_trace(str(folder / PROFILE_FILE))
 
     def _run_epoch(self, step_fn, batches, desc: str, total: int,
                    metrics_dict) -> int:
@@ -301,8 +379,10 @@ class CycleGan:
         if not pending:
             return
         names = list(metrics_dict)
-        values = torch.stack([torch.stack([m[name].float() for name in names])
-                              for m in pending]).cpu().numpy()
+        # one row per step: a multi step's metrics carry one value a step
+        values = torch.cat([torch.stack([m[name].float().reshape(-1)
+                                         for name in names], dim=1)
+                            for m in pending]).cpu().numpy()
         for row in values.astype(np.float64):
             for name, value in zip(names, row):
                 if self.nan_check and not np.isfinite(value):

@@ -8,14 +8,17 @@ is a ``model_config.yaml`` beside a ``checkpoint.npz`` holding at least
 it.
 
 The trainer's checkpoint is the JAX ``TrainState``'s tree, so either
-package resumes the other's: ``params/<net>/...``; ``opt_state/<net>/0/``
-``count``, ``mu/...`` and ``nu/...``, optax Adam's state (the chain's
-second element, the learning-rate scale, holds nothing), which are torch
-Adam's per-parameter ``step`` (one count per network), ``exp_avg`` and
-``exp_avg_sq``; ``rng``, the JAX key, which the port does not use and
-writes through as it was loaded; ``step``. The instance-norm networks'
-``model_state`` has no leaves. The torch generator that draws the
-augmentation is kept under ``GENERATOR_KEY``, which the JAX loader skips.
+package resumes the other's: ``params/<net>/...``; ``opt_state/<net>/...``,
+optax's state of the network's optimizer with exactly its leaves
+(``optimizer_tree``): adam ``0/count``, ``0/mu/...``, ``0/nu/...`` (torch
+Adam's per-parameter ``step``, one count per network, ``exp_avg`` and
+``exp_avg_sq``), rmsprop ``0/nu/...`` only (``square_avg``; torch's step
+is restored from the train state's ``step``), sgd nothing, adabelief
+``count``, ``m/...``, ``s/...``; ``rng``, the JAX key, which the port does
+not use and writes through as it was loaded; ``step``. The instance-norm
+networks' ``model_state`` has no leaves. The torch generators that draw
+the augmentation and the dropout masks are kept under ``GENERATOR_KEY``
+and ``DROPOUT_GENERATOR_KEY``, which the JAX loader skips.
 
 Round-1 checkpoints (``model_instances/demo``) stored the ``TrainState``
 fields by position, ``[<flat index N>]/...``; ``load_pytree`` reads them
@@ -24,6 +27,7 @@ as the JAX loader does, through ``LEGACY_TRAIN_STATE_INDEX``.
 
 from __future__ import annotations
 
+import logging
 import os
 import shutil
 import tempfile
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from cyclegan_tpu_torch.optimizers import AdaBeliefTF
 from cyclegan_tpu_torch.weights import (
     jax_params_to_torch,
     load_jax_params,
@@ -41,7 +46,10 @@ from cyclegan_tpu_torch.weights import (
     module_to_jax_params,
 )
 
+logger = logging.getLogger(__name__)
+
 GENERATOR_KEY = "torch_augment_generator"
+DROPOUT_GENERATOR_KEY = "torch_dropout_generator"
 
 # The positional key prefix of each TrainState field in round-1 checkpoints
 # (the JAX loader's ``_LEGACY_TRAIN_STATE_INDEX``), read where the named key
@@ -135,33 +143,74 @@ def load_pytree(path: Union[str, Path], template: Any) -> Any:
     return restore(template, [])
 
 
-def _adam_tree(model: nn.Module, optimizer: torch.optim.Optimizer) -> list:
-    """optax ``adam``'s state of one network: [ScaleByAdamState, the
-    learning-rate scale's empty state]."""
-    if not isinstance(optimizer, torch.optim.Adam):
-        raise NotImplementedError(
-            f"checkpointing {type(optimizer).__name__} is not ported yet "
-            f"(ROADMAP.md queue 1, item 2)")
+def _slot(model: nn.Module, optimizer: torch.optim.Optimizer, name: str):
+    """One per-parameter slot of ``optimizer`` as a JAX parameter tree
+    (zeros where a parameter has no state yet)."""
+    state = optimizer.state
+    return module_to_jax_params(model, lambda p: (
+        state[p][name].detach().float().cpu().numpy() if p in state else
+        np.zeros(tuple(p.shape), np.float32)))
+
+
+def _count(model: nn.Module, optimizer: torch.optim.Optimizer) -> np.int32:
+    """The one step count of a network's optimizer (torch keeps one per
+    parameter; optax one per tree)."""
     state = optimizer.state
     steps = {int(state[p]["step"]) for p in model.parameters() if p in state}
     if len(steps) > 1:
-        raise ValueError(f"Adam steps differ across parameters: {steps}")
+        raise ValueError(f"optimizer steps differ across parameters: {steps}")
+    return np.int32(steps.pop() if steps else 0)
 
-    def moment(name):
-        return lambda p: (state[p][name].detach().float().cpu().numpy()
-                          if p in state else
-                          np.zeros(tuple(p.shape), np.float32))
 
-    return [{"count": np.int32(steps.pop() if steps else 0),
-             "mu": module_to_jax_params(model, moment("exp_avg")),
-             "nu": module_to_jax_params(model, moment("exp_avg_sq"))}, {}]
+def optimizer_tree(model: nn.Module, optimizer: torch.optim.Optimizer):
+    """optax's state of one network's optimizer, with exactly its leaves:
+    adam ``[ScaleByAdamState(count, mu, nu), {}]``, rmsprop
+    ``[ScaleByRmsState(nu), {}]`` (no count), sgd ``[{}, {}]`` (no leaf),
+    adabelief ``AdaBeliefTfState(count, m, s)`` (not under ``0/``)."""
+    if isinstance(optimizer, torch.optim.Adam):
+        return [{"count": _count(model, optimizer),
+                 "mu": _slot(model, optimizer, "exp_avg"),
+                 "nu": _slot(model, optimizer, "exp_avg_sq")}, {}]
+    if isinstance(optimizer, torch.optim.RMSprop):
+        return [{"nu": _slot(model, optimizer, "square_avg")}, {}]
+    if isinstance(optimizer, torch.optim.SGD):
+        return [{}, {}]
+    if isinstance(optimizer, AdaBeliefTF):
+        return {"count": _count(model, optimizer),
+                "m": _slot(model, optimizer, "m"),
+                "s": _slot(model, optimizer, "s")}
+    raise TypeError(f"no optax state for {type(optimizer).__name__}")
+
+
+def _restore_optimizer(model: nn.Module, optimizer: torch.optim.Optimizer,
+                       tree, step: int) -> None:
+    """Load optax's state ``tree`` of one network into ``optimizer``; the
+    torch step count of RMSprop, which optax does not store, is the train
+    state's ``step``."""
+    if isinstance(optimizer, torch.optim.SGD):
+        return  # nothing stored, nothing to restore
+    if isinstance(optimizer, torch.optim.Adam):
+        tree = tree[0]
+        slots = {"exp_avg": tree["mu"], "exp_avg_sq": tree["nu"]}
+    elif isinstance(optimizer, torch.optim.RMSprop):
+        tree = dict(tree[0], count=step)
+        slots = {"square_avg": tree["nu"]}
+    else:
+        slots = {"m": tree["m"], "s": tree["s"]}
+    slots = {k: jax_params_to_torch(v) for k, v in slots.items()}
+    count = torch.tensor(float(tree["count"]), dtype=torch.float32)
+    saved = optimizer.state_dict()
+    saved["state"] = {
+        i: {"step": count.clone(), **{k: v[key] for k, v in slots.items()}}
+        for i, (key, _) in enumerate(model.named_parameters())}
+    optimizer.load_state_dict(saved)
 
 
 def train_state_tree(state, rng: np.ndarray) -> dict:
     """The JAX ``TrainState`` tree of a port ``steps.TrainState`` (numpy
     leaves), with the JAX key ``rng``."""
     return {"params": models_to_jax_params(state.models),
-            "opt_state": {name: _adam_tree(model, state.optimizers[name])
+            "opt_state": {name: optimizer_tree(model, state.optimizers[name])
                           for name, model in state.models.items()},
             "rng": np.asarray(rng, np.uint32),
             "step": np.int32(state.step)}
@@ -169,33 +218,39 @@ def train_state_tree(state, rng: np.ndarray) -> dict:
 
 def save_train_state(path: Union[str, Path], state, rng: np.ndarray) -> None:
     """Write a ``steps.TrainState`` as the JAX trainer's checkpoint, plus
-    the augmentation generator's state under ``GENERATOR_KEY``."""
+    the augmentation and dropout generators' states under
+    ``GENERATOR_KEY`` and ``DROPOUT_GENERATOR_KEY``."""
     tree = train_state_tree(state, rng)
     tree[GENERATOR_KEY] = state.generator.get_state().numpy()
+    tree[DROPOUT_GENERATOR_KEY] = state.dropout_generator.get_state().numpy()
     save_pytree(path, tree)
 
 
 def load_train_state(path: Union[str, Path], state) -> np.ndarray:
     """Restore a checkpoint of either trainer into ``state`` in place:
-    parameters, Adam moments and counts, the step and, where the port wrote
-    it, the augmentation generator. Returns the JAX key ``rng``."""
+    parameters, every optimizer's state, the step and, where the port
+    wrote them, the augmentation and dropout generators. Returns the JAX
+    key ``rng``."""
     restored = load_pytree(path, train_state_tree(
         state, np.zeros(2, np.uint32)))
     load_jax_params(state.models, restored["params"])
-    for name, model in state.models.items():
-        adam = restored["opt_state"][name][0]
-        mu, nu = jax_params_to_torch(adam["mu"]), jax_params_to_torch(
-            adam["nu"])
-        step = torch.tensor(float(adam["count"]), dtype=torch.float32)
-        optimizer = state.optimizers[name]
-        saved = optimizer.state_dict()
-        saved["state"] = {
-            i: {"step": step.clone(), "exp_avg": mu[key],
-                "exp_avg_sq": nu[key]}
-            for i, (key, _) in enumerate(model.named_parameters())}
-        optimizer.load_state_dict(saved)
     state.step = int(restored["step"])
+    for name, model in state.models.items():
+        _restore_optimizer(model, state.optimizers[name],
+                           restored["opt_state"][name], state.step)
     with np.load(path) as data:
-        if GENERATOR_KEY in data.files:
-            state.generator.set_state(torch.from_numpy(data[GENERATOR_KEY]))
+        for key, generator in ((GENERATOR_KEY, state.generator),
+                               (DROPOUT_GENERATOR_KEY,
+                                state.dropout_generator)):
+            if key not in data.files:
+                continue
+            saved = torch.from_numpy(data[key])
+            if saved.numel() != generator.get_state().numel():
+                # a generator of another device type (a CPU run resumed on
+                # the card): its stream cannot be carried over
+                logger.warning("checkpoint %s is a %d-byte state; the "
+                               "%s generator keeps its own", key,
+                               saved.numel(), generator.device.type)
+                continue
+            generator.set_state(saved)
     return restored["rng"]

@@ -39,3 +39,27 @@ def test_default_device_is_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.main(["--batch", "1", "--image-size", "32", "--steps", "1",
                     "--warmup", "0"])
+
+
+@pytest.mark.parametrize("flags,layout", [
+    (["--remat"], "nhcw"), (["--fuse-apps"], "nhcw"),
+    (["--paired", "--pallas"], "nhwc")])
+def test_step_option_flags_reach_the_step(flags, layout, monkeypatch):
+    """``--remat``, ``--fuse-apps`` and ``--paired`` are the step's
+    options; ``--paired`` runs NHWC whatever ``--layout`` says."""
+    seen = {}
+    make = bench.make_train_step
+
+    def recording(*args, **kwargs):
+        seen.update(kwargs)
+        return make(*args, **kwargs)
+
+    monkeypatch.setattr(bench, "make_train_step", recording)
+    result = bench.main(["--device", "cpu", "--batch", "1", "--image-size",
+                         "32", "--steps", "1", "--warmup", "0", *flags])
+    assert result["layout"] == layout
+    assert seen["tpu_layout"] == (layout == "nhcw")
+    for flag, key in (("--remat", "remat"), ("--fuse-apps", "fuse_apps"),
+                      ("--paired", "paired")):
+        assert seen[key] == result[key] == (flag in flags), key
+    assert result["value"] > 0

@@ -706,3 +706,72 @@ def test_edge_norm_shapes_are_cases_of_the_library_function(name,
                                        rtol=1e-4, atol=1e-4)
         assert nbytes > 0 and len(checks) == 3
     assert seen == {"relu", "leaky_relu", "none", True, False}
+
+
+@pytest.mark.parametrize("config,plan,step_kw", [
+    ("configs/unet_patchgan.yaml", chip_smoke.train_launches, {}),
+    ("model_instances/converged256/model_config.yaml",
+     lambda cfg, b, s: chip_smoke.train_launches(cfg, b, s, fuse_apps=True),
+     {"fuse_apps": True}),
+    ("model_instances/converged256/model_config.yaml",
+     chip_smoke.remat_launches, {"remat": True}),
+    ("configs/resnet.yaml",
+     lambda cfg, b, s: chip_smoke.resnet_train_launches(cfg, b, s,
+                                                        fuse_apps=True),
+     {"fuse_apps": True}),
+    ("model_instances/converged256/model_config.yaml",
+     chip_smoke.nhwc_train_launches,
+     {"paired": True, "tpu_layout": False, "pallas_norm": True}),
+], ids=["unet_patchgan", "unet_fused", "unet_remat", "resnet_fused",
+        "unet_paired"])
+def test_option_launch_plans_match_a_recorded_step(config, plan, step_kw,
+                                                   monkeypatch):
+    """Phases 15-18's plans: the fifth recipe (PatchGAN discriminators),
+    the fused steps (two generator applications at batch 2N), the remat
+    step (each generator forward again in the backward) and the paired
+    step (K13 once per twin through its vmap rule)."""
+    model_cfg = yaml2namespace(config)
+    seen = _record_train_step(monkeypatch, model_cfg, 2, 32, **step_kw)
+    want = plan(model_cfg, 2, 32)
+    assert set(seen) == set(want)
+    for name, shapes in want.items():
+        assert collections.Counter(seen[name]) == \
+            collections.Counter(shapes), name
+
+
+def test_option_launch_counts():
+    """Per batch-8 256x256 step (the fifth recipe at its batch 4)."""
+    unet = yaml2namespace("model_instances/converged256/model_config.yaml")
+    counts = {k: len(v) for k, v in chip_smoke.train_launches(
+        unet, 8, 256, fuse_apps=True).items()}
+    assert counts == {"conv_same": 246, "conv_dw": 104,
+                      "instance_norm_act": 116, "instance_norm_act_bwd": 116,
+                      "sum2x2": 24, "dup2x2": 24, "concat_up2": 24,
+                      "split_pool2": 24}
+    remat = chip_smoke.remat_launches(unet, 8, 256)
+    assert (len(remat["conv_same"]), len(remat["instance_norm_act"])) == (
+        304 + 6 * 15, 144 + 6 * 14)
+    assert (16, 256, 3, 16, 4, False, 1) in chip_smoke.train_launches(
+        unet, 8, 256, fuse_apps=True)["conv_same"]
+    patchgan = chip_smoke.train_launches(
+        yaml2namespace("configs/unet_patchgan.yaml"), 4, 256)
+    assert {k: len(v) for k, v in patchgan.items()} == {
+        "conv_same": 188, "conv_dw": 94, "instance_norm_act": 102,
+        "instance_norm_act_bwd": 102, "sum2x2": 18, "dup2x2": 18,
+        "concat_up2": 18, "split_pool2": 18}
+    assert (4, 32, 256, 1, 1, True, 0) in patchgan["conv_same"]
+    resnet = chip_smoke.resnet_train_launches(
+        yaml2namespace("configs/resnet.yaml"), 8, 256, fuse_apps=True)
+    assert {k: len(resnet[k]) for k in ("conv_reflect", "reflect_fold")} == {
+        "conv_reflect": 80, "reflect_fold": 78}
+
+
+def test_unet_patchgan_f32_point_is_kink_free():
+    """Phase 15's f32 comparison point: no ReLU or LeakyReLU input of the
+    full-width CPU step within KINK_MARGIN of zero."""
+    point = chip_smoke.UNET_PATCHGAN_F32_POINT
+    model_cfg = yaml2namespace("configs/unet_patchgan.yaml")
+    x = chip_smoke.f32_point_inputs(point)
+    _, kink = chip_smoke.nearest_kink(lambda: chip_smoke.step_grads(
+        model_cfg, "cpu", "float32", x, None, point["seed"], point["beta"]))
+    assert kink > chip_smoke.KINK_MARGIN

@@ -91,13 +91,6 @@ def test_adam_takes_keras_epsilon():
     assert group["lr"] == 2e-4
 
 
-@pytest.mark.parametrize("name", ["rmsprop", "sgd", "adabelief"])
-def test_unported_optimizers_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_optimizer(dict(name=name, learning_rate=1e-3),
-                      [torch.nn.Parameter(torch.zeros(2))])
-
-
 def test_unknown_optimizer_raises_as_jax():
     with pytest.raises(ValueError, match="not found"):
         get_optimizer(dict(name="lamb", learning_rate=1e-3),

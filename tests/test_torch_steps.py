@@ -390,17 +390,6 @@ def test_dual_view_routing_matches_jax(point, w_gen, w_d):
         assert _rel(got_x, want_x) <= 1e-4
 
 
-def test_dropout_raises_in_training_only():
-    cfg = dict(CFG.generator, dropout=True)
-    model = steps.build_models({"generator": cfg,
-                                "discriminator": CFG.discriminator})["g_AB"]
-    x = torch.zeros(1, 16, 3, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.train()(x)
-    with torch.no_grad():
-        assert model.eval()(x).shape == (1, 16, 3, 16)
-
-
 def test_train_state_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
