@@ -66,8 +66,9 @@ failing the run if it fails:
 4. U-Net serving: ``InferenceSession`` on converged256, bf16, on the card,
    answers batch-8 and batch-1 requests in both directions; each forward
    must launch 15/14/3/3 conv/norm/pool/junction kernels (no
-   ``conv_same_simt`` launch), and the outputs
-   are held against the plain f32 session on the CPU. Then serving img/s;
+   ``conv_same_simt`` launch), and the outputs are held against the plain
+   f32 session on the CPU, in NHCW, as the card's f32 session serves
+   (``tpu_layout=True``: K1's f32 design). Then serving img/s;
 5. U-Net training, from converged256's four networks with fresh Adam: one
    bf16 step at batch 8 (jitter inside) whose launches of every kernel
    equal the plan ``train_launches`` derives from the configs; the f32
@@ -136,10 +137,33 @@ failing the run if it fails:
     step), ``profile_dir`` (a non-empty Chrome trace), AdaBelief
     generators and RMSprop discriminators, NHCW; a reload that gives back
     every optimizer slot, the step and both generators exactly, and one
-    more epoch from the checkpoint.
+    more epoch from the checkpoint;
+20. serving layouts (``serving_layouts``): converged256 in bf16 with
+    ``tpu_layout`` "auto" (NHCW on the card, the U-Net plan each forward)
+    and False (NHWC: cuDNN and torch ops, no kernel launch at all), each
+    within the serving bounds of the plain f32 NHWC session on the CPU, the
+    card's f32 NHWC session within SERVE_F32_MAX of it; each layout's
+    request img/s, device ms a request and generator forward ms;
+21. the 512x512 TFRecord -> PNG export (``export_512``, BASELINE config
+    #5): seeded 256x256 PNGs sharded by ``tfrecord_writer``,
+    ``export_records`` at 512 and batch 8 (a padded tail), every forward
+    the U-Net plan at 512; K1-K4 held against their plain versions at every
+    unique 512x512 launch shape and timed, as phases 2 and 3 do; two
+    exported images within the serving bounds of the CPU f32 session;
+    export img/s and PNG encode ms an image;
+22. the HTTP server (``http_server``) on 127.0.0.1: ``/healthz``,
+    sequential batch-1 requests (latency p50/p99 and the server's decode,
+    resize, stylize and encode ms), Paeth-filtered PNGs apart, requests in
+    flight at once on an NHCW and an NHWC server (each reply its serial
+    one: the layout scope is per thread), 400 for a bad direction and for a
+    JPEG without a decoder, every reply ``session.stylize``'s;
+23. evaluation (``evaluation``) on phase 21's records: ``evaluate`` on the
+    card against the CPU (no kernel launched), ``evaluate_quality`` in
+    bf16 (the U-Net plan each forward; proxy features against the CPU's).
 
 Phase 2 checks, and phase 3 times, every unique launch shape of every
-plan, the option phases' batch-16 and batch-4 shapes included.
+plan, the option phases' batch-16 and batch-4 shapes included; phase 21
+does the same for the 512x512 serving forward.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' numbers as JSON.
@@ -182,6 +206,14 @@ TIMED_REPS = 20
 TRAIN_STEPS_TIMED = 10
 ALT_ROUNDS = 4           # option phases: rounds of steps, the ways in turn
 ALT_STEPS = 4
+EXPORT_SIZE = 512        # phase 21: BASELINE config #5's resolution
+EXPORT_IMAGES = 20       # a domain: two batches of 8 and a padded tail
+HTTP_REQUESTS = 32       # phase 22: sequential batch-1 requests
+HTTP_PAETH = 4           # ...and requests whose PNG rows are Paeth-filtered
+HTTP_CONCURRENT = 4      # requests in flight at once, in each round
+HTTP_ROUNDS = 3
+STRESS_THREADS = 4       # threads stylizing on one session at once...
+STRESS_CALLS = 25        # ...each this many times
 
 # H100 SXM published peaks (dense): HBM bytes/s and operations/s by type.
 HBM_BYTES_PER_S = 3.35e12
@@ -373,6 +405,11 @@ UNET_NHWC_F32_POINT = {"size": 32, "batch": 1, "seed": 2, "beta": [3.0, 4.0]}
 UNET_PATCHGAN_F32_POINT = {"size": 16, "batch": 1, "seed": 4,
                            "beta": [3.0, 4.0]}
 KINK_MARGIN = 1e-5
+# evaluation on the card (phase 23): the validate step's metrics against
+# the CPU's (f32, cuDNN with TF32 off against ATen: sums in another order);
+# the proxy features (f32 convs with TF32 off), relative to their largest
+EVAL_REL = 1e-3
+FEATURE_REL = 1e-4
 # fuse_apps on the card (phase 16): the fused step's f32 gradients against
 # the unfused step's; the same math, with the batch sums of the fused
 # applications' weight gradients in another order
@@ -1269,6 +1306,96 @@ def device_trace(run, out_dir, n, file_name):
     return result
 
 
+def _launched():
+    """The kernel launches counted since the last reset, those above 0."""
+    from cyclegan_tpu_torch import kernels
+
+    return {k: v for k, v in kernels.launches.items() if v}
+
+
+def _times(plan, forwards):
+    """``plan``'s launches per kernel ({kernel: shapes}) times
+    ``forwards``."""
+    return {name: len(shapes) * forwards for name, shapes in plan.items()}
+
+
+def _generator_call(session, image, direction="a2b"):
+    """The session's generator alone on ``image`` (uint8 NHWC), in the
+    session's layout and dtype: what ``stylize`` runs between its host
+    copies."""
+    from cyclegan_tpu_torch.data.augment import normalize
+    from cyclegan_tpu_torch.ops import layout
+
+    model = session.models[{"a2b": "g_AB", "b2a": "g_BA"}[direction]]
+    x = normalize(torch.as_tensor(image).to(DEVICE)).to(
+        session.compute_dtype)
+    if session.tpu_layout:
+        x = layout.to_nhcw(x)
+
+    def run():
+        with torch.inference_mode(), layout.scope(
+                "NHCW" if session.tpu_layout else "NHWC"):
+            return model(x)
+
+    return run
+
+
+def _request_rate(session, image):
+    """Whole ``stylize`` requests on the host clock (uint8 in and out):
+    median ms and img/s after 3 warm-ups."""
+    for _ in range(3):
+        session.stylize(image, "a2b")
+    walls = []
+    for _ in range(TIMED_REPS):
+        t0 = time.perf_counter()
+        session.stylize(image, "a2b")
+        walls.append(time.perf_counter() - t0)
+    ms = statistics.median(walls) * 1e3
+    return {"request_ms_median": ms, "img_per_s": len(image) / ms * 1e3}
+
+
+def serving_quality(label, out, ref, plain16, card32=None):
+    """The serving bounds: the card's bf16 uint8 output ``out`` against the
+    plain f32 session's ``ref`` on the CPU, in uint8 steps (mean, share of
+    pixels more than SERVE_FAR off, worst), each within its absolute bound
+    or RATIO times the plain bf16 session's own (``plain16``) where larger;
+    the card's f32 output ``card32``, where given, within SERVE_F32_MAX.
+    Returns the numbers."""
+    ref = ref.astype(int)
+    if out.shape != ref.shape or out.dtype != np.uint8:
+        fail(f"{label}: output {out.shape} {out.dtype}")
+        return {}
+    d = np.abs(out.astype(int) - ref)
+    d_plain = np.abs(plain16.astype(int) - ref)
+    q = {"bf16_card_vs_f32_cpu_max": int(d.max()),
+         "bf16_card_vs_f32_cpu_mean": float(d.mean()),
+         "bf16_card_share_beyond_8": float((d > SERVE_FAR).mean()),
+         "bf16_cpu_vs_f32_cpu_max": int(d_plain.max()),
+         "bf16_cpu_vs_f32_cpu_mean": float(d_plain.mean())}
+    if card32 is not None:
+        q["f32_card_vs_f32_cpu_max"] = int(np.abs(card32.astype(int)
+                                                  - ref).max())
+    print(f"{label} quality {json.dumps(q)}", flush=True)
+    q["bf16_cpu_share_beyond_8"] = float((d_plain > SERVE_FAR).mean())
+    mean_max = max(SERVE_MEAN_MAX, RATIO * q["bf16_cpu_vs_f32_cpu_mean"])
+    share_max = max(SERVE_FAR_SHARE, RATIO * q["bf16_cpu_share_beyond_8"])
+    if q["bf16_card_vs_f32_cpu_mean"] > mean_max:
+        fail(f"{label}: mean uint8 diff {q['bf16_card_vs_f32_cpu_mean']} > "
+             f"{mean_max}")
+    if q["bf16_card_share_beyond_8"] > share_max:
+        fail(f"{label}: share of pixels > {SERVE_FAR} off "
+             f"{q['bf16_card_share_beyond_8']} > {share_max}")
+    if q["bf16_card_vs_f32_cpu_max"] > max(
+            SERVE_FAR, RATIO * q["bf16_cpu_vs_f32_cpu_max"]):
+        fail(f"{label}: max uint8 diff {q['bf16_card_vs_f32_cpu_max']} "
+             f"beyond 1.5x the plain bf16 session's "
+             f"{q['bf16_cpu_vs_f32_cpu_max']}")
+    if q.get("f32_card_vs_f32_cpu_max", 0) > SERVE_F32_MAX:
+        fail(f"{label}: f32 card vs cpu max "
+             f"{q['f32_card_vs_f32_cpu_max']} > {SERVE_F32_MAX}")
+    return q
+
+
 def serve(label, model_dir, forward_plan, out_dir):
     """Phases 4 and 7: serving the generators of ``model_dir``, each
     forward launching the kernels of ``forward_plan`` ({kernel: shapes}).
@@ -1301,86 +1428,41 @@ def serve(label, model_dir, forward_plan, out_dir):
     print(f"{label} main path launches {main_launches} over "
           f"{len(requests)} forwards ({per_forward} each)", flush=True)
 
-    cpu32 = InferenceSession(model_dir, "float32", device="cpu")
-    cpu16 = InferenceSession(model_dir, "bfloat16", device="cpu")
-    card32 = InferenceSession(model_dir, "float32", device=DEVICE)
+    # the f32 sessions in the NHCW layout: the card's runs K1's f32 design
+    cpu32 = InferenceSession(model_dir, "float32", tpu_layout=True,
+                             device="cpu")
+    cpu16 = InferenceSession(model_dir, "bfloat16", tpu_layout=True,
+                             device="cpu")
+    card32 = InferenceSession(model_dir, "float32", tpu_layout=True,
+                              device=DEVICE)
     quality = []
     for b, direction in requests:
-        out = outputs[(b, direction)]
-        ref = cpu32.stylize(images[b], direction).astype(int)
-        if out.shape != images[b].shape or out.dtype != np.uint8:
-            fail(f"{label} {b} {direction}: output {out.shape} {out.dtype}")
-        d = np.abs(out.astype(int) - ref)
-        d_plain = np.abs(cpu16.stylize(images[b], direction).astype(int)
-                         - ref)
-        d32 = np.abs(card32.stylize(images[b], direction).astype(int) - ref)
-        q = {"batch": b, "direction": direction,
-             "bf16_card_vs_f32_cpu_max": int(d.max()),
-             "bf16_card_vs_f32_cpu_mean": float(d.mean()),
-             "bf16_card_share_beyond_8": float((d > SERVE_FAR).mean()),
-             "bf16_cpu_vs_f32_cpu_max": int(d_plain.max()),
-             "bf16_cpu_vs_f32_cpu_mean": float(d_plain.mean()),
-             "f32_card_vs_f32_cpu_max": int(d32.max())}
-        quality.append(q)
-        print(f"{label} quality {json.dumps(q)}", flush=True)
-        q["bf16_cpu_share_beyond_8"] = float((d_plain > SERVE_FAR).mean())
-        mean_max = max(SERVE_MEAN_MAX,
-                       RATIO * q["bf16_cpu_vs_f32_cpu_mean"])
-        share_max = max(SERVE_FAR_SHARE,
-                        RATIO * q["bf16_cpu_share_beyond_8"])
-        if q["bf16_card_vs_f32_cpu_mean"] > mean_max:
-            fail(f"{label} {b} {direction}: mean uint8 diff "
-                 f"{q['bf16_card_vs_f32_cpu_mean']} > {mean_max}")
-        if q["bf16_card_share_beyond_8"] > share_max:
-            fail(f"{label} {b} {direction}: share of pixels > {SERVE_FAR} off "
-                 f"{q['bf16_card_share_beyond_8']} > {share_max}")
-        if q["bf16_card_vs_f32_cpu_max"] > max(
-                SERVE_FAR, RATIO * q["bf16_cpu_vs_f32_cpu_max"]):
-            fail(f"{label} {b} {direction}: max uint8 diff "
-                 f"{q['bf16_card_vs_f32_cpu_max']} beyond 1.5x the plain "
-                 f"bf16 session's {q['bf16_cpu_vs_f32_cpu_max']}")
-        if q["f32_card_vs_f32_cpu_max"] > SERVE_F32_MAX:
-            fail(f"{label} {b} {direction}: f32 card vs cpu max "
-                 f"{q['f32_card_vs_f32_cpu_max']} > {SERVE_F32_MAX}")
+        ref = cpu32.stylize(images[b], direction)
+        q = serving_quality(
+            f"{label} {b} {direction}", outputs[(b, direction)], ref,
+            cpu16.stylize(images[b], direction),
+            card32.stylize(images[b], direction))
+        quality.append({"batch": b, "direction": direction, **q})
 
     # throughput at batch 8: whole requests on the host clock (uint8 in,
     # uint8 out), then the generator alone on CUDA events
     image = images[BATCH]
-    for _ in range(3):
-        session.stylize(image, "a2b")
-    walls = []
-    for _ in range(TIMED_REPS):
-        t0 = time.perf_counter()
-        session.stylize(image, "a2b")
-        walls.append(time.perf_counter() - t0)
-    from cyclegan_tpu_torch.data.augment import normalize
-    from cyclegan_tpu_torch.ops import layout
-
-    x = layout.to_nhcw(normalize(torch.as_tensor(image).to(DEVICE)).to(
-        torch.bfloat16))
-    model = session.models["g_AB"]
-    # the generator alone runs in the session's NHCW layout scope
-    with torch.inference_mode(), layout.nhcw():
-        fwd_ms = time_ms(lambda: model(x))
+    rate = _request_rate(session, image)
+    forward = _generator_call(session, image)
+    fwd_ms = time_ms(forward)
     torch.cuda.reset_peak_memory_stats()
-    with torch.inference_mode(), layout.nhcw():
-        model(x)
+    forward()
     torch.cuda.synchronize()
     enqueue = []  # host time to issue one forward, the card idle before
-    with torch.inference_mode(), layout.nhcw():
-        for _ in range(TIMED_REPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model(x)
-            enqueue.append(time.perf_counter() - t0)
+    for _ in range(TIMED_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward()
+        enqueue.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    with torch.inference_mode(), layout.nhcw():
-        trace = device_trace(lambda: model(x), out_dir, 5,
-                             f"{label}_forward_trace.json")
+    trace = device_trace(forward, out_dir, 5, f"{label}_forward_trace.json")
     metrics = {
-        "batch": BATCH, "size": SIZE, "compute_dtype": "bfloat16",
-        "request_ms_median": statistics.median(walls) * 1e3,
-        "img_per_s": BATCH / statistics.median(walls),
+        "batch": BATCH, "size": SIZE, "compute_dtype": "bfloat16", **rate,
         "forward_ms_median": fwd_ms,
         "forward_img_per_s": BATCH / fwd_ms * 1e3,
         "forward_peak_mib": torch.cuda.max_memory_allocated() / 2**20,
@@ -2244,6 +2326,464 @@ def trainer_options(workdir):
     return launches, metrics
 
 
+def serving_layouts(cfg, out_dir):
+    """Phase 20: converged256 served bf16 at batch 8 with ``tpu_layout``
+    "auto", which must pick NHCW on the card (each forward the U-Net plan),
+    and False, NHWC (cuDNN and torch ops: no kernel launch at all). Both
+    bf16 outputs within the serving bounds of the plain f32 NHWC session on
+    the CPU, the card's f32 NHWC output (TF32 off in its library convs)
+    within SERVE_F32_MAX of it; then each layout's request img/s, device
+    busy ms per request and generator forward ms."""
+    from cyclegan_tpu_torch import kernels
+    from cyclegan_tpu_torch.apps.inference import InferenceSession
+
+    per_forward = serve_launches(cfg.generator, BATCH, SIZE)
+    image = np.random.default_rng(20).integers(
+        0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+    sessions = {"nhcw": InferenceSession(MODEL_DIR, "bfloat16",
+                                         device=DEVICE),
+                "nhwc": InferenceSession(MODEL_DIR, "bfloat16",
+                                         tpu_layout=False, device=DEVICE)}
+    if not sessions["nhcw"].tpu_layout:
+        fail("serving layouts: tpu_layout auto is not NHCW on the card in "
+             "bf16")
+    card32 = InferenceSession(MODEL_DIR, "float32", tpu_layout=False,
+                              device=DEVICE)
+    cpu32 = InferenceSession(MODEL_DIR, "float32", tpu_layout=False,
+                             device="cpu")
+    cpu16 = InferenceSession(MODEL_DIR, "bfloat16", tpu_layout=False,
+                             device="cpu")
+    launches, metrics = {}, {}
+    for way, session in (*sessions.items(), ("nhwc_f32", card32)):
+        kernels.reset_launches()
+        outputs = {d: session.stylize(image, d) for d in ("a2b", "b2a")}
+        torch.cuda.synchronize()
+        launches[way] = _launched()
+        want = _times(per_forward, 2) if way == "nhcw" else {}
+        if launches[way] != want:
+            fail(f"serving layouts {way}: launches {launches[way]}, "
+                 f"expected {want}")
+        metrics[way] = {"launches": launches[way], "quality": {}}
+        for d, out in outputs.items():
+            ref = cpu32.stylize(image[:2], d)
+            if way == "nhwc_f32":
+                far = int(np.abs(out[:2].astype(int) - ref).max())
+                metrics[way]["quality"][d] = {"f32_card_vs_f32_cpu_max": far}
+                print(f"serving layouts {way} {d}: f32 card vs cpu max "
+                      f"{far}", flush=True)
+                if far > SERVE_F32_MAX:
+                    fail(f"serving layouts {way} {d}: f32 card vs cpu max "
+                         f"{far} > {SERVE_F32_MAX}")
+            else:
+                metrics[way]["quality"][d] = serving_quality(
+                    f"serving layouts {way} {d}", out[:2], ref,
+                    cpu16.stylize(image[:2], d))
+    for way, session in sessions.items():
+        m = metrics[way]
+        m.update(_request_rate(session, image))
+        m["forward_ms_median"] = time_ms(_generator_call(session, image))
+        m["trace"] = device_trace(lambda: session.stylize(image, "a2b"),
+                                  out_dir, 5, f"serve_{way}_trace.json")
+        busy = (m["trace"] or {}).get("device_busy_ms_per_call")
+        print(f"serving layouts {way}: {m['img_per_s']:.1f} img/s per "
+              f"batch-{BATCH} request (median {m['request_ms_median']:.3f} "
+              f"ms), generator forward {m['forward_ms_median']:.3f} ms, "
+              f"device busy {busy} ms a request", flush=True)
+    return {"unet_serve_auto": launches["nhcw"]}, metrics
+
+
+def export_512(cfg, workdir, out_dir):
+    """Phase 21: the 512x512 TFRecord -> PNG export (BASELINE config #5).
+    ``EXPORT_IMAGES`` seeded 256x256 images a domain written as PNGs and
+    sharded by ``tfrecord_writer``; ``export_records`` at 512, batch 8 (two
+    batches and a padded tail, bf16, NHCW on the card), each forward the
+    U-Net plan at 512; two exported images (the first and the tail's last)
+    within the serving bounds of the plain f32 session on the CPU. Returns
+    the records of both domains (phase 23 evaluates on them), the path's
+    launches and plan, and its metrics."""
+    from cyclegan_tpu_torch import kernels
+    from cyclegan_tpu_torch.apps.export import export_records
+    from cyclegan_tpu_torch.apps.inference import InferenceSession
+    from cyclegan_tpu_torch.data import codec
+    from cyclegan_tpu_torch.data.pipeline import _load_domain
+    from cyclegan_tpu_torch.data.tfrecord import tfrecord_writer
+
+    rng = np.random.default_rng(21)
+    records = {}
+    t0 = time.perf_counter()
+    for domain in ("a", "b"):
+        src = workdir / f"export_images_{domain}"
+        src.mkdir()
+        for i in range(EXPORT_IMAGES):
+            (src / f"{i:03d}.png").write_bytes(codec.encode_png_bgr(
+                rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)))
+        records[domain] = [str(p) for p in tfrecord_writer(
+            src, workdir / f"records_{domain}", seed=0)]
+    write_s = time.perf_counter() - t0
+
+    plan = serve_launches(cfg.generator, BATCH, EXPORT_SIZE)
+    forwards = math.ceil(EXPORT_IMAGES / BATCH)
+    out = workdir / "exports"
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    written = export_records(records["a"], MODEL_DIR, out, "a2b",
+                             size=EXPORT_SIZE, batch=BATCH, device=DEVICE)
+    export_s = time.perf_counter() - t0
+    launches = _launched()
+    if launches != _times(plan, forwards):
+        fail(f"export 512: launches {launches}, expected "
+             f"{_times(plan, forwards)} ({forwards} forwards)")
+    names = [p.name for p in written]
+    if names != [f"{i:06d}_a2b.png" for i in range(EXPORT_IMAGES)]:
+        fail(f"export 512: wrote {names}")
+
+    images = _load_domain(records["a"], EXPORT_SIZE)
+    pick = [0, EXPORT_IMAGES - 1]
+    got = np.stack([codec.decode_image_rgb(written[i].read_bytes())
+                    for i in pick])
+    cpu32 = InferenceSession(MODEL_DIR, "float32", device="cpu")
+    cpu16 = InferenceSession(MODEL_DIR, "bfloat16", device="cpu")
+    quality = serving_quality("export 512", got,
+                              cpu32.stylize(images[pick], "a2b"),
+                              cpu16.stylize(images[pick], "a2b"))
+    session = InferenceSession(MODEL_DIR, "bfloat16", device=DEVICE)
+    batch = images[:BATCH]
+    rate = _request_rate(session, batch)
+    stylized = session.stylize(batch, "a2b")
+    encode = {}
+    for name, scope in ((codec_name(), contextlib.nullcontext),
+                        ("stdlib", stdlib_codec)):
+        encode[name] = []
+        with scope():
+            for rgb in stylized:
+                t0 = time.perf_counter()
+                codec.encode_png_bgr(np.ascontiguousarray(rgb[..., ::-1]))
+                encode[name].append(time.perf_counter() - t0)
+        encode[name] = statistics.median(encode[name]) * 1e3
+    trace = device_trace(_generator_call(session, batch), out_dir, 3,
+                         "export_512_forward_trace.json")
+    metrics = {"images": EXPORT_IMAGES, "size": EXPORT_SIZE, "batch": BATCH,
+               "forwards": forwards, "records_write_s": write_s,
+               "export_s": export_s,
+               "export_img_per_s": EXPORT_IMAGES / export_s,
+               "stylize_request_ms_median": rate["request_ms_median"],
+               "stylize_img_per_s": rate["img_per_s"],
+               "codec": codec_name(), "png_encode_ms_per_image": encode,
+               "trace": trace, "quality": quality}
+    print(f"export 512: {EXPORT_IMAGES} images in {export_s:.2f} s "
+          f"({metrics['export_img_per_s']:.1f} img/s, session and records "
+          f"included, {codec_name()} codec); stylize "
+          f"{rate['img_per_s']:.1f} img/s a batch-8 request; PNG encode ms "
+          f"an image {json.dumps(encode)}", flush=True)
+    return records, launches, plan, forwards, metrics
+
+
+@contextlib.contextmanager
+def stdlib_codec():
+    """The port's codec without cv2 and PIL, as on a machine that has
+    neither: PNG only, through the standard library's zlib and numpy (and
+    Python loops for Average and Paeth rows); torch's bilinear resize."""
+    from cyclegan_tpu_torch.data import codec
+
+    saved = codec.cv2, codec.Image
+    codec.cv2 = codec.Image = None
+    try:
+        yield
+    finally:
+        codec.cv2, codec.Image = saved
+
+
+def codec_name():
+    from cyclegan_tpu_torch.data import codec
+
+    return ("cv2" if codec.cv2 is not None
+            else "PIL" if codec.Image is not None else "stdlib")
+
+
+def _post(url, body):
+    """(status, headers, body) of a POST, error statuses included."""
+    import urllib.error
+    import urllib.request
+
+    request = urllib.request.Request(url, data=body, method="POST")
+    try:
+        with urllib.request.urlopen(request, timeout=120) as response:
+            return response.status, dict(response.headers), response.read()
+    except urllib.error.HTTPError as err:
+        return err.code, dict(err.headers), err.read()
+
+
+def _server_timing(headers):
+    """{stage: ms} from a reply's Server-Timing header."""
+    out = {}
+    for part in headers.get("Server-Timing", "").split(", "):
+        name, _, dur = part.partition(";dur=")
+        if dur:
+            out[name] = float(dur)
+    return out
+
+
+def _percentiles(values):
+    return {"p50": float(np.percentile(values, 50)),
+            "p99": float(np.percentile(values, 99)), "n": len(values)}
+
+
+def stress(session, image):
+    """``STRESS_THREADS`` threads stylizing ``image`` (batch 1, both
+    directions) ``STRESS_CALLS`` times each on one session at once: every
+    output must be its serial one (the layout scope and each kernel's
+    launch attributes hold per call, whatever another thread does)."""
+    import threading
+
+    serial = {d: session.stylize(image[None], d) for d in ("a2b", "b2a")}
+    mismatches, errors = [0], []
+
+    def run(t):
+        direction = ("a2b", "b2a")[t % 2]
+        try:
+            for _ in range(STRESS_CALLS):
+                out = session.stylize(image[None], direction)
+                if not np.array_equal(out, serial[direction]):
+                    mismatches[0] += 1
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=run, args=(t,))
+               for t in range(STRESS_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    result = {"threads": STRESS_THREADS, "calls": STRESS_CALLS,
+              "mismatches": mismatches[0], "errors": errors[:3],
+              "alive": sum(t.is_alive() for t in threads)}
+    print(f"stress: {json.dumps(result)}", flush=True)
+    if mismatches[0] or errors or result["alive"]:
+        fail(f"stress: {result}")
+    return result
+
+
+def http_server(cfg):
+    """Phase 22: the HTTP server (``make_handler``) on 127.0.0.1 in a
+    thread, serving converged256 in bf16 (NHCW) at 256: ``/healthz``;
+    ``HTTP_REQUESTS`` sequential batch-1 POSTs of filter-0 PNGs in both
+    directions (latency p50/p99 on the client's clock, and the server's
+    decode, resize, stylize and encode ms), each forward the U-Net plan at
+    batch 1; ``HTTP_PAETH`` Paeth-filtered PNGs apart; both again with the
+    standard-library codec (``stdlib_codec``: a machine without cv2 and
+    PIL); rounds of ``HTTP_CONCURRENT`` requests at once to this server and
+    to a second one serving NHWC f32, each reply equal to its serial one,
+    and ``STRESS_THREADS`` threads stylizing at once on the NHCW session,
+    each output its serial one; 400 for a bad direction and for a JPEG
+    with no decoder installed. Every reply equals ``session.stylize`` of
+    the same resized image."""
+    import logging
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from cyclegan_tpu_torch import kernels
+    from cyclegan_tpu_torch.apps.inference import InferenceSession
+    from cyclegan_tpu_torch.apps.server import make_handler
+    from cyclegan_tpu_torch.data import codec, png
+
+    sessions = {"nhcw": InferenceSession(MODEL_DIR, "bfloat16",
+                                         device=DEVICE),
+                "nhwc": InferenceSession(MODEL_DIR, "float32",
+                                         tpu_layout=False, device=DEVICE)}
+    for session in sessions.values():  # as serve() does before it listens
+        for d in ("a2b", "b2a"):
+            session.stylize(np.zeros((1, SIZE, SIZE, 3), np.uint8), d)
+    servers = {way: ThreadingHTTPServer(("127.0.0.1", 0),
+                                        make_handler(s, SIZE))
+               for way, s in sessions.items()}
+    threads = [threading.Thread(target=srv.serve_forever, daemon=True)
+               for srv in servers.values()]
+    for t in threads:
+        t.start()
+    urls = {way: f"http://127.0.0.1:{srv.server_address[1]}"
+            for way, srv in servers.items()}
+    # one log line a request would bury the phase's own lines
+    logging.getLogger("cyclegan_tpu_torch.apps.server").setLevel(
+        logging.WARNING)
+    rng = np.random.default_rng(22)
+    images = rng.integers(0, 256, (HTTP_REQUESTS, SIZE, SIZE, 3),
+                          dtype=np.uint8)
+    metrics = {"codec": codec_name()}
+    try:
+        for way, url in urls.items():
+            with urllib.request.urlopen(f"{url}/healthz",
+                                        timeout=60) as response:
+                if response.status != 200 or response.read() != b"ok":
+                    fail(f"http {way}: /healthz did not answer ok")
+
+        def run(filter_kind, count, way="nhcw"):
+            latency, stages, replies = [], collections.defaultdict(list), []
+            for i in range(count):
+                direction = ("a2b", "b2a")[i % 2]
+                body = png.encode_png(images[i], filter_kind)
+                t0 = time.perf_counter()
+                code, headers, reply = _post(
+                    f"{urls[way]}/stylize?direction={direction}", body)
+                latency.append((time.perf_counter() - t0) * 1e3)
+                if code != 200:
+                    fail(f"http {way} request {i}: status {code} {reply!r}")
+                    continue
+                for stage, ms in _server_timing(headers).items():
+                    stages[stage].append(ms)
+                replies.append((i, direction, reply))
+            return ({"latency_ms": _percentiles(latency),
+                     "server_ms": {k: _percentiles(v)
+                                   for k, v in stages.items()}}, replies)
+
+        kernels.reset_launches()
+        metrics["filter_0"], replies = run(0, HTTP_REQUESTS)
+        launches = _launched()
+        want = _times(serve_launches(cfg.generator, 1, SIZE), HTTP_REQUESTS)
+        if launches != want:
+            fail(f"http: launches {launches}, expected {want}")
+        metrics["paeth"], paeth = run(4, HTTP_PAETH)
+        with stdlib_codec():
+            metrics["filter_0_stdlib"], plain = run(0, HTTP_PAETH)
+            metrics["paeth_stdlib"], plain_paeth = run(4, HTTP_PAETH)
+        for (i, direction, reply) in replies + paeth + plain + plain_paeth:
+            want_rgb = sessions["nhcw"].stylize(
+                codec.resize_rgb(images[i], (SIZE, SIZE))[None],
+                direction)[0]
+            if not np.array_equal(png.decode_png(reply), want_rgb):
+                fail(f"http request {i} {direction}: reply differs from "
+                     f"session.stylize")
+
+        # concurrency: each request's serial reply, then rounds at once
+        jobs = [(("nhcw", "nhwc")[j % 2], ("a2b", "b2a")[(j // 2) % 2], j)
+                for j in range(HTTP_CONCURRENT)]
+        bodies = {j: png.encode_png(images[j]) for _, _, j in jobs}
+        serial = {j: _post(f"{urls[w]}/stylize?direction={d}", bodies[j])[2]
+                  for w, d, j in jobs}
+        mismatches, errors = 0, []
+        for _ in range(HTTP_ROUNDS):
+            got = {}
+
+            def send(w, d, j):
+                try:
+                    got[j] = _post(f"{urls[w]}/stylize?direction={d}",
+                                   bodies[j])
+                except Exception as exc:  # noqa: BLE001 - reported below
+                    errors.append(repr(exc))
+
+            workers = [threading.Thread(target=send, args=job)
+                       for job in jobs]
+            for t in workers:
+                t.start()
+            for t in workers:
+                t.join(timeout=120)
+            for _, _, j in jobs:
+                code, _, reply = got.get(j, (None, None, None))
+                if code != 200 or not np.array_equal(
+                        png.decode_png(reply), png.decode_png(serial[j])):
+                    mismatches += 1
+        metrics["concurrent"] = {"requests": HTTP_CONCURRENT,
+                                 "rounds": HTTP_ROUNDS,
+                                 "mismatches": mismatches, "errors": errors}
+        if mismatches or errors:
+            fail(f"http concurrent: {mismatches} replies differ from the "
+                 f"serial ones, errors {errors}")
+
+        metrics["stress"] = stress(sessions["nhcw"], images[0])
+
+        code, _, text = _post(f"{urls['nhcw']}/stylize?direction=x2y",
+                              png.encode_png(images[0]))
+        if code != 400:
+            fail(f"http bad direction: status {code}")
+        ok, jpeg = True, None
+        if codec.cv2 is not None:  # a real JPEG where this machine makes one
+            ok, jpeg = codec.cv2.imencode(".jpg", images[0])
+        jpeg = jpeg.tobytes() if ok and jpeg is not None else (
+            b"\xff\xd8\xff\xe0" + bytes(64))  # a JPEG's first bytes
+        with stdlib_codec():
+            code, _, text = _post(f"{urls['nhcw']}/stylize", jpeg)
+        if code != 400 or b"needs cv2 or PIL" not in text:
+            fail(f"http JPEG without a decoder: status {code} {text!r}")
+        metrics["jpeg_without_decoder"] = {
+            "status": code, "reply": text.decode(errors="replace")}
+    finally:
+        for srv in servers.values():
+            srv.shutdown()
+            srv.server_close()
+        for t in threads:
+            t.join(timeout=60)
+    for kind in ("filter_0", "paeth", "filter_0_stdlib", "paeth_stdlib"):
+        m = metrics[kind]
+        print(f"http {kind}: latency p50 {m['latency_ms']['p50']:.2f} ms, "
+              f"p99 {m['latency_ms']['p99']:.2f} ms; server p50 "
+              + ", ".join(f"{k} {v['p50']:.2f}" for k, v in
+                          m["server_ms"].items()) + " ms", flush=True)
+    return {"unet_http": launches}, metrics
+
+
+def evaluation(cfg, records):
+    """Phase 23: ``evaluate`` on phase 21's records (train split, batch 8),
+    on the card against the CPU: the six metrics within EVAL_REL relative,
+    and no kernel launched (the NHWC validate step); ``evaluate_quality``
+    in bf16 on the card, each of its forwards the U-Net plan, its proxy
+    features within FEATURE_REL of the CPU's on the same images, and
+    ``fid_proxy``, ``kid_proxy`` and ``swd`` beside the CPU's (f32)."""
+    from cyclegan_tpu_torch import kernels
+    from cyclegan_tpu_torch.apps.evaluate import evaluate, evaluate_quality
+    from cyclegan_tpu_torch.data.pipeline import _load_domain
+    from cyclegan_tpu_torch.utils.quality import (
+        make_random_feature_extractor,
+    )
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    card = evaluate(MODEL_DIR, records["a"], records["b"], batch=BATCH,
+                    split="train", device=DEVICE)
+    card_s = time.perf_counter() - t0
+    if _launched():
+        fail(f"evaluate: launched {_launched()}, expected no kernel")
+    cpu = evaluate(MODEL_DIR, records["a"], records["b"], batch=BATCH,
+                   split="train", device="cpu")
+    for key, want in cpu.items():
+        got = card[key]
+        if isinstance(want, float):
+            if abs(got - want) > EVAL_REL * abs(want) + 1e-7:
+                fail(f"evaluate {key}: card {got} vs cpu {want}")
+        elif got != want:
+            fail(f"evaluate {key}: card {got} vs cpu {want}")
+
+    kernels.reset_launches()
+    max_images = 2 * BATCH
+    q_card = evaluate_quality(MODEL_DIR, records["a"], records["b"],
+                              batch=BATCH, split="train",
+                              max_images=max_images,
+                              compute_dtype="bfloat16", device=DEVICE)
+    launches = _launched()
+    forwards = 2 * math.ceil(q_card["n_images"] / BATCH)
+    want = _times(serve_launches(cfg.generator, BATCH, SIZE), forwards)
+    if launches != want:
+        fail(f"evaluate_quality: launches {launches}, expected {want}")
+    q_cpu = evaluate_quality(MODEL_DIR, records["a"], records["b"],
+                             batch=BATCH, split="train",
+                             max_images=max_images, device="cpu")
+    images = _load_domain(records["a"], SIZE)[:max_images]
+    f_card = make_random_feature_extractor(device=DEVICE)(images)
+    f_cpu = make_random_feature_extractor(device="cpu")(images)
+    feature_err = float(np.abs(f_card - f_cpu).max() / np.abs(f_cpu).max())
+    if feature_err > FEATURE_REL:
+        fail(f"evaluate_quality: proxy features {feature_err} (relative) "
+             f"from the CPU's > {FEATURE_REL}")
+    print(f"evaluate: card {json.dumps(card)} in {card_s:.2f} s; cpu "
+          f"{json.dumps(cpu)}", flush=True)
+    print(f"evaluate_quality: card bf16 {json.dumps(q_card)}; cpu f32 "
+          f"{json.dumps(q_cpu)}; features {feature_err:.2e} relative",
+          flush=True)
+    return {"unet_quality": launches}, {
+        "evaluate_card": card, "evaluate_cpu": cpu,
+        "evaluate_card_s": card_s, "quality_card_bf16": q_card,
+        "quality_cpu_f32": q_cpu, "feature_rel_err": feature_err}
+
+
 def kernel_entries(rows, max_err, launches, forwards, serve_plans):
     """The ``kernels`` JSON line: per kernel, its launches in every main
     path's run (``launches`` their sum), and its times summed over the
@@ -2260,8 +2800,8 @@ def kernel_entries(rows, max_err, launches, forwards, serve_plans):
         by_shape = {tuple(r["shape"]): r for r in mine}
         paths = {}
         for path in train_paths:
-            used = [(r, r["per_step"][path]) for r in mine
-                    if r["per_step"][path]]
+            used = [(r, r["per_step"].get(path, 0)) for r in mine
+                    if r["per_step"].get(path, 0)]
             paths[path] = _sums(used, launches[path].get(name, 0))
         for path, plan in serve_plans.items():
             used = [(by_shape[shape], n) for shape, n in
@@ -2272,8 +2812,8 @@ def kernel_entries(rows, max_err, launches, forwards, serve_plans):
             if path not in paths:
                 paths[path] = {"launches": launches[path].get(name, 0)}
         paths = {path: v for path, v in paths.items() if v["launches"]}
-        total = _sums([(r, sum(r["per_step"][p] for p in train_paths))
-                       for r in mine], 0)
+        total = _sums([(r, sum(r["per_step"].get(p, 0)
+                               for p in train_paths)) for r in mine], 0)
         source, replaces, also = SOURCES[name]
         library = ({"library_call": LIBRARY_NOTES[name]}
                    if name in LIBRARY_NOTES else {})
@@ -2465,6 +3005,27 @@ def main(argv=None) -> int:
         launches.update({f"trainer_cli_{k}": v
                          for k, v in option_launches.items()})
         stamp("phase 19 (trainer CLI options)")
+        layout_launches, metrics["serving_layouts"] = serving_layouts(
+            cfgs["unet"], out_dir)
+        launches.update(layout_launches)
+        stamp("phase 20 (serving layouts)")
+        (records, launches["unet_export_512"],
+         serve_plans["unet_export_512"], forwards["unet_export_512"],
+         metrics["export_512"]) = export_512(cfgs["unet"], Path(tmp),
+                                             out_dir)
+        with no_tf32():
+            shapes = unique_shapes(serve_plans["unet_export_512"])
+            for key, err in check_kernels(shapes, "512 ").items():
+                max_err[key] = max(max_err.get(key, 0.0), err)
+            rows += time_kernels({"unet_export_512": shapes})
+        stamp("phase 21 (512x512 export)")
+        http_launches, metrics["http"] = http_server(cfgs["unet"])
+        launches.update(http_launches)
+        stamp("phase 22 (HTTP server)")
+        eval_launches, metrics["evaluation"] = evaluation(cfgs["unet"],
+                                                          records)
+        launches.update(eval_launches)
+        stamp("phase 23 (evaluation)")
 
     entries = kernel_entries(rows, max_err, launches, forwards, serve_plans)
     for path, plan in {**plans, **serve_plans}.items():

@@ -1,57 +1,87 @@
 """Batched inference over trained checkpoints
 (cyclegan_tpu/apps/inference.py ``InferenceSession``).
 
-Loads the model config and the two generators' weights from a model
-folder and stylizes uint8 image batches. The generator runs in the NHCW
-layout (``layout.nhcw()``) between one transpose in and one out, so on the
-card every conv, norm, pool and junction of the forward is a hand-written
-kernel. The
-generators are the modules training updates; serving freezes them
-(``requires_grad_(False)``, eval mode) and runs under ``inference_mode``,
-so no backward state is kept and the norm kernel writes no statistics.
+Loads the model config and the four networks' weights from a model folder
+and stylizes uint8 image batches with the generators. ``tpu_layout``
+picks the layout as the JAX session does, with "CUDA" for "TPU": NHCW
+(``layout.nhcw()``, between one transpose in and one out), where every
+conv, norm, pool and junction of the forward is a hand-written kernel on
+the card, or NHWC, the JAX session's XLA path: library convolutions
+(cuDNN, TF32 off in f32) and torch ops, no kernel. ``"auto"`` is NHCW on
+a CUDA device in bf16 and NHWC otherwise. The layout is scoped on the
+calling thread, so sessions of either layout serve side by side on
+threads. The networks are the modules training updates; serving freezes
+them (``requires_grad_(False)``, eval mode) and runs under
+``inference_mode``, so no backward state is kept and the norm kernel
+writes no statistics.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Union
+from typing import Dict, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from cyclegan_tpu_torch.config import yaml2namespace
 from cyclegan_tpu_torch.data.augment import denormalize_to_uint8, normalize
+from cyclegan_tpu_torch.data.codec import resize_rgb
 from cyclegan_tpu_torch.models import create_model
-from cyclegan_tpu_torch.ops import layout
+from cyclegan_tpu_torch.ops import cuda_norm, layout
 from cyclegan_tpu_torch.utils.checkpoint import load_pytree
 from cyclegan_tpu_torch.weights import jax_params_to_torch, module_to_jax_params
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _GENERATORS = {"a2b": "g_AB", "b2a": "g_BA"}
+# each network and the model config section that builds it
+_NETWORKS = {"d_A": "discriminator", "d_B": "discriminator",
+             "g_AB": "generator", "g_BA": "generator"}
+
+
+class _InferenceState(NamedTuple):
+    """The four networks, the slice of ``TrainState`` that
+    ``steps.make_validate_step`` reads (duck-typed)."""
+
+    models: Dict[str, nn.Module]
 
 
 class InferenceSession:
-    """Loads g_AB and g_BA from a trained model folder and stylizes images.
+    """Loads the four networks from a trained model folder and stylizes
+    images with g_AB and g_BA.
 
     ``compute_dtype="bfloat16"`` casts the parameters and the normalized
     input to bf16 (the serving mode); ``"float32"`` keeps the parity
-    numerics. Output is uint8 either way. ``device`` defaults to ``cuda``
-    and raises where there is no card; pass ``device="cpu"`` to run the
-    plain PyTorch versions of the kernels.
+    numerics. Output is uint8 either way. ``tpu_layout``: True, False or
+    "auto" (see the module docstring); ``self.tpu_layout`` is the bool it
+    resolved to. ``device`` defaults to ``cuda`` and raises where there is
+    no card; pass ``device="cpu"`` to run the plain PyTorch versions of the
+    kernels.
     """
 
     def __init__(self, model_dir: Union[str, Path],
                  compute_dtype: str = "float32",
+                 tpu_layout: Union[str, bool] = "auto",
+                 spatial_devices: int = 0,
                  device: Union[str, torch.device] = "cuda"):
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype!r} not in "
                              f"{sorted(_DTYPES)}")
+        if int(spatial_devices) > 1:
+            raise NotImplementedError(
+                "InferenceSession(spatial_devices > 1): H-axis spatial "
+                "sharding is not ported yet (ROADMAP.md queue 1, item 7)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "InferenceSession: no CUDA device; pass device='cpu' to run "
                 "on the CPU")
         self.compute_dtype = _DTYPES[compute_dtype]
+        if isinstance(tpu_layout, str) and tpu_layout.lower() == "auto":
+            tpu_layout = (self.device.type == "cuda"
+                          and compute_dtype == "bfloat16")
+        self.tpu_layout = bool(tpu_layout)
 
         model_dir = Path(model_dir)
         config_path = model_dir / "model_config.yaml"
@@ -59,11 +89,12 @@ class InferenceSession:
             config_path = model_dir / "config.yaml"
         self.model_config = yaml2namespace(config_path)
 
-        # Only the generators serve; their random init is a template for
-        # the checkpoint's shapes and is overwritten entirely.
-        self.models = {name: create_model(self.model_config.generator,
-                                          torch.Generator().manual_seed(0))
-                       for name in _GENERATORS.values()}
+        # The random init is a template for the checkpoint's shapes and is
+        # overwritten entirely.
+        self.models = {
+            name: create_model(getattr(self.model_config, section),
+                               torch.Generator().manual_seed(0))
+            for name, section in _NETWORKS.items()}
         template = {"params": {name: module_to_jax_params(m)
                                for name, m in self.models.items()}}
         restored = load_pytree(model_dir / "checkpoint.npz", template)
@@ -74,14 +105,32 @@ class InferenceSession:
             model.eval()
             # the JAX session casts the f32 params per call; once is the same
             model.to(device=self.device, dtype=self.compute_dtype)
+        self.state = _InferenceState(self.models)
 
     @torch.inference_mode()
     def stylize(self, images: np.ndarray, direction: str = "a2b") -> np.ndarray:
-        """uint8 RGB batch (N, H, W, 3) -> stylized uint8 RGB batch."""
+        """uint8 RGB batch (N, H, W, 3) -> stylized uint8 RGB batch; float
+        input is taken as already in [-1, 1]."""
         model = self.models[_GENERATORS[direction]]
         x = torch.as_tensor(np.asarray(images)).to(self.device)
         x = normalize(x) if x.dtype == torch.uint8 else x.to(torch.float32)
         x = x.to(self.compute_dtype)
-        with layout.nhcw():
-            y = layout.from_nhcw(model(layout.to_nhcw(x)))
+        if self.tpu_layout:
+            with layout.nhcw():
+                y = layout.from_nhcw(model(layout.to_nhcw(x)))
+        else:
+            with layout.nhwc(), cuda_norm.scope(False):
+                y = model(x)
         return denormalize_to_uint8(y.to(torch.float32)).cpu().numpy()
+
+    def prediction_triple(self, image_bgr: np.ndarray,
+                          size: Tuple[int, int] = (256, 256)):
+        """(original RGB, A->B stylized, B->A stylized) at ``size``
+        ((width, height), as cv2 takes it): the display triple of the
+        JAX package's ``predict.py``."""
+        rgb = np.ascontiguousarray(np.asarray(image_bgr)[..., ::-1])
+        resized = resize_rgb(rgb, size)
+        batch = resized[np.newaxis]
+        ab = self.stylize(batch, "a2b")[0]
+        ba = self.stylize(batch, "b2a")[0]
+        return resized, ab, ba

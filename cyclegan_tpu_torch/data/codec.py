@@ -1,20 +1,25 @@
 """Image <-> Example conversion (cyclegan_tpu/data/codec.py
-``encode_png_bgr``, ``decode_image_rgb``, ``image2example``,
-``example2image``).
+``imread_bgr``, ``encode_png_bgr``, ``decode_image_rgb``, ``image2example``,
+``example2image``) and the host-side bilinear resize (``resize_rgb``).
 
 Channel conventions follow the JAX package: images enter in cv2's BGR
 order, are PNG-encoded in the right order, and decode back to RGB, as
 ``tf.image.decode_image`` gives them. The codec is cv2 where it can be
 imported, then PIL, as in the JAX package, and otherwise the standard
-library's (``data/png.py``: PNG only; a JPEG then raises).
+library's (``data/png.py``: PNG only; a JPEG then raises). The resize
+makes the same choice, and without either it is torch's bilinear in
+place of cv2's.
 """
 
 from __future__ import annotations
 
 import io
-from typing import Dict
+from pathlib import Path
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from cyclegan_tpu_torch.data import png
 from cyclegan_tpu_torch.data.example_proto import (
@@ -31,6 +36,49 @@ try:  # pragma: no cover - import guard
     from PIL import Image
 except Exception:  # pragma: no cover
     Image = None
+
+
+def resize_rgb(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """Bilinear resize of an HxWxC uint8 image to ``size`` = (width,
+    height), as cv2 takes it: cv2's INTER_LINEAR where cv2 imports, else
+    PIL's BILINEAR (which averages over the source when it shrinks), as the
+    JAX package chooses, else torch's half-pixel bilinear without
+    antialiasing, rounded: cv2's formula in floating point, within one
+    step of cv2's fixed-point result."""
+    width, height = int(size[0]), int(size[1])
+    if image.shape[0] == height and image.shape[1] == width:
+        return image
+    if cv2 is not None:
+        return cv2.resize(image, (width, height),
+                          interpolation=cv2.INTER_LINEAR)
+    if Image is not None:
+        return np.asarray(Image.fromarray(image).resize((width, height),
+                                                        Image.BILINEAR))
+    x = torch.from_numpy(np.ascontiguousarray(image)).permute(2, 0, 1)
+    y = F.interpolate(x[None].float(), size=(height, width), mode="bilinear",
+                      align_corners=False, antialias=False)
+    return y[0].permute(1, 2, 0).round().clamp(0, 255).to(
+        torch.uint8).numpy()
+
+
+def imread_bgr(path: Union[str, Path],
+               image_size: Optional[int] = None) -> Optional[np.ndarray]:
+    """Read an image file as HxWx3 uint8 BGR (cv2.imread's convention),
+    resized to (image_size, image_size) where given, as the JAX writer
+    does; None where the file cannot be decoded (without cv2 or PIL only a
+    PNG can)."""
+    if cv2 is not None:
+        img = cv2.imread(str(path), cv2.IMREAD_COLOR)
+    else:
+        try:
+            img = decode_image_rgb(Path(path).read_bytes())[..., ::-1]
+        except (OSError, ValueError, RuntimeError):
+            return None
+    if img is None:
+        return None
+    if image_size:
+        img = resize_rgb(np.ascontiguousarray(img), (image_size, image_size))
+    return np.ascontiguousarray(img)
 
 
 def encode_png_bgr(image: np.ndarray) -> bytes:

@@ -8,7 +8,8 @@ domain, and each training epoch reshuffles both domains with a
 membership and order are the same. Batches leave the host as uint8; the
 jitter and normalization run on the batch's device (``data/augment.py``).
 
-Not ported yet (ROADMAP.md queue 1, item 4): the native C++ loader and the
+The shards are written by ``data/tfrecord.py`` ``tfrecord_writer``. Not
+ported yet (ROADMAP.md queue 1, item 4): the native C++ loader and the
 streaming loader.
 """
 
@@ -19,39 +20,10 @@ import os
 from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
-from cyclegan_tpu_torch.data.codec import decode_image_rgb
+from cyclegan_tpu_torch.data.codec import decode_image_rgb, resize_rgb
 from cyclegan_tpu_torch.data.example_proto import decode_example
 from cyclegan_tpu_torch.data.tfrecord import read_tfrecord_file
-
-try:  # pragma: no cover - import guard
-    import cv2
-except Exception:  # pragma: no cover
-    cv2 = None
-
-try:  # pragma: no cover - import guard
-    from PIL import Image
-except Exception:  # pragma: no cover
-    Image = None
-
-
-def _resize(img: np.ndarray, width: int) -> np.ndarray:
-    """Bilinear resize to width x width on the host, where a record's size
-    differs: cv2 (INTER_LINEAR), else PIL (BILINEAR), as the JAX package,
-    else torch's half-pixel bilinear, rounded."""
-    if img.shape[0] == width and img.shape[1] == width:
-        return img
-    if cv2 is not None:
-        return cv2.resize(img, (width, width), interpolation=cv2.INTER_LINEAR)
-    if Image is not None:
-        return np.asarray(Image.fromarray(img).resize((width, width),
-                                                      Image.BILINEAR))
-    x = torch.from_numpy(img).permute(2, 0, 1)[None].float()
-    y = F.interpolate(x, size=(width, width), mode="bilinear",
-                      align_corners=False, antialias=False)
-    return y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()
 
 
 def _load_domain(records: Sequence[str], width: int) -> np.ndarray:
@@ -63,7 +35,8 @@ def _load_domain(records: Sequence[str], width: int) -> np.ndarray:
 
     def decode_one(example_bytes: bytes) -> np.ndarray:
         features = decode_example(example_bytes)
-        return _resize(decode_image_rgb(features["image_raw"][0]), width)
+        return resize_rgb(decode_image_rgb(features["image_raw"][0]),
+                          (width, width))
 
     workers = min(32, max(4, os.cpu_count() or 4))
     with cf.ThreadPoolExecutor(workers) as pool:

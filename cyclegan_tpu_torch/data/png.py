@@ -1,5 +1,5 @@
 """PNG encode and decode with the standard library (zlib) and numpy, for
-machines without cv2 or PIL (the card's machine has neither).
+machines without cv2 or PIL.
 
 The decoder reads what the training records hold: 8-bit gray, gray with
 alpha, RGB and RGBA, not interlaced, every one of the five row filters.

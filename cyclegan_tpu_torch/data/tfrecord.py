@@ -1,5 +1,6 @@
-"""TFRecord file framing (cyclegan_tpu/data/tfrecord.py
-``write_tfrecord_file``, ``read_tfrecord_file``), byte-compatible with
+"""TFRecord file framing and the sharded image -> records writer
+(cyclegan_tpu/data/tfrecord.py ``write_tfrecord_file``,
+``read_tfrecord_file``, ``tfrecord_writer``), byte-compatible with
 ``tf.io.TFRecordWriter`` and the JAX package:
 
     uint64 little-endian length
@@ -14,9 +15,13 @@ checksums unless asked, as in the JAX package.
 
 from __future__ import annotations
 
+import logging
+import random
 import struct
 from pathlib import Path
-from typing import Iterable, Iterator, Union
+from typing import Iterable, Iterator, List, Optional, Union
+
+logger = logging.getLogger(__name__)
 
 _CRC_MASK_DELTA = 0xA282EAD8
 _POLY = 0x82F63B78  # CRC32C, reflected
@@ -89,3 +94,49 @@ def read_tfrecord_file(path: Union[str, Path],
                 if _masked_crc32c(data) != expected:
                     raise IOError(f"corrupt data crc in {path}")
             yield data
+
+
+def tfrecord_writer(image_paths: Union[str, Path], target: Union[str, Path],
+                    image_size: Optional[int] = None, shard_size: int = 800,
+                    seed: Optional[int] = None,
+                    use_native: bool = True) -> List[Path]:
+    """Shard a directory of images into ``NNNNN.tfrecords`` files of
+    ``shard_size`` examples each, and pin them in ``manifest.json``
+    (``data/manifest.py``); returns the shard paths.
+
+    The file list is sorted, then shuffled by ``random.Random(seed)``, as
+    the JAX writer does, so shard membership and order are the same; each
+    image is read as BGR, resized to (image_size, image_size) where given,
+    and PNG-encoded (``codec.image2example``). An unreadable file is
+    skipped with a warning. The port has no native writer yet (ROADMAP.md
+    queue 1, item 4): with ``use_native`` the Python path writes, and the
+    manifest records ``writer: "python"``, as the JAX writer does where its
+    native library is absent."""
+    from cyclegan_tpu_torch.data.codec import image2example, imread_bgr
+    from cyclegan_tpu_torch.data.manifest import write_manifest
+
+    del use_native  # no native writer to prefer
+    images = sorted(Path(image_paths).iterdir())
+    random.Random(seed).shuffle(images)
+    logger.info("Images Found: %d", len(images))
+    target = Path(target)
+    target.mkdir(parents=True, exist_ok=True)
+
+    def shard_records(paths: List[Path]) -> Iterator[bytes]:
+        for image_path in paths:
+            img = imread_bgr(image_path, image_size)
+            if img is None:
+                logger.warning("skipping unreadable image %s", image_path)
+                continue
+            yield image2example(img)
+
+    shard_paths: List[Path] = []
+    for i in range(0, len(images), shard_size):
+        record_file = target / f"{i // shard_size:05d}.tfrecords"
+        write_tfrecord_file(record_file,
+                            shard_records(images[i:i + shard_size]))
+        shard_paths.append(record_file)
+    write_manifest(target, extra=dict(image_size=image_size,
+                                      shard_size=shard_size, seed=seed,
+                                      writer="python"))
+    return shard_paths

@@ -97,6 +97,13 @@ constexpr int TILE_H = 8;    // output rows per block: one warp per row
 constexpr int CO_TILE = 16;  // output channels per thread, in registers
 constexpr int CI_CHUNK = 8;  // input channels staged per shared-memory round
 
+// The H100's opt-in limit of dynamic shared memory per block. A kernel's
+// limit is raised to it, never to one launch's size: the attribute is one
+// per kernel in the process, and two host threads launching the same kernel
+// at two sizes would otherwise each lower it under the other's launch
+// ("too many resources requested for launch").
+constexpr int SMEM_OPT_IN_MAX = 232448;
+
 size_t smem_bytes(int K) {
   const size_t xs = (size_t)(TILE_H + K - 1) * CI_CHUNK * (TILE_W + K - 1);
   const size_t ws = (size_t)K * K * CI_CHUNK * CO_TILE;
@@ -238,7 +245,7 @@ int launch_simt(const void* x, const void* w, const void* bias, void* out,
   const size_t smem = smem_bytes(K);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_OPT_IN_MAX);
     if (e != cudaSuccess) return (int)e;
   }
   const int Ho = H + 2 * grow, Wo = W + 2 * grow;
@@ -258,7 +265,7 @@ int launch_simt(const void* x, const void* w, const void* bias, void* out,
 constexpr int TC_CONSUMERS = 2;  // consumer warpgroups, MW m64 tiles each
 constexpr int TC_THREADS = TC_CONSUMERS * 128 + 32;  // + the producer warp
 constexpr int TC_MAX_STAGES = 3;
-constexpr int TC_SMEM_MAX = 232448;  // the H100's opt-in limit per block
+constexpr int TC_SMEM_MAX = SMEM_OPT_IN_MAX;
 constexpr int TC_N_MAX = 256;        // the widest N tile
 
 // The launch's geometry (ops/cuda_conv.py `conv_tc_geometry` is the same
@@ -560,7 +567,7 @@ int launch_tc_n(bool reflect, const TcGeometry& g, const uint16_t* xp,
   auto kernel = reflect ? conv_reflect_tc_kernel<N, MW>
                         : conv_same_tc_kernel<N, MW>;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM_MAX);
   if (e != cudaSuccess) return (int)e;
   kernel<<<dim3(g.blocks, g.nt), TC_THREADS, g.smem, s>>>(
       xp, wp, (const __nv_bfloat16*)bias, (__nv_bfloat16*)out, g);

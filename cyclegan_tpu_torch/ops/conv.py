@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -49,18 +50,35 @@ def _same_pad(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+class _F32Calls:
+    """The f32 library calls in flight, over every thread: cuDNN's TF32
+    switch is one flag for the process."""
+    lock = threading.Lock()
+    count = 0
+    saved = True
+
+
 @contextlib.contextmanager
 def _full_f32(dtype: torch.dtype):
-    """cuDNN without TF32 for f32 operands."""
+    """cuDNN without TF32 for f32 operands. The first f32 call in flight
+    turns TF32 off and the last one to leave restores the setting it found,
+    so a thread leaving its call never turns TF32 on under another
+    thread's f32 call (bf16 calls do not depend on the flag)."""
     if dtype != torch.float32:
         yield
         return
-    previous = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    with _F32Calls.lock:
+        if _F32Calls.count == 0:
+            _F32Calls.saved = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+        _F32Calls.count += 1
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = previous
+        with _F32Calls.lock:
+            _F32Calls.count -= 1
+            if _F32Calls.count == 0:
+                torch.backends.cudnn.allow_tf32 = _F32Calls.saved
 
 
 class LibraryConv(torch.autograd.Function):

@@ -18,13 +18,15 @@ no gate, so with ``pallas_norm`` every NHWC instance norm runs K13.
 
 ``scope(enabled)`` turns the kernel on for one train or validation step
 and restores the previous setting after it (the JAX trainer flips a process
-flag once and never resets it).
+flag once and never resets it). The setting belongs to the thread that
+enters the scope; a thread that never entered one has the kernel off.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -42,24 +44,29 @@ THREADS, MAX_TILE, MAX_CLUSTER = 256, 4, 16
 TARGET_BYTES, SMEM_MAX = 32 << 10, 160 << 10
 TARGET_BLOCKS = 4 * 132  # a few waves over the H100's 132 SMs
 
-_ENABLED = False
+
+
+class _Scope(threading.local):
+    enabled = False  # what a thread reads before it enters a scope
+
+
+_SCOPE = _Scope()
 
 
 def is_enabled() -> bool:
-    return _ENABLED
+    return _SCOPE.enabled
 
 
 @contextlib.contextmanager
 def scope(enabled: bool = True):
     """Route NHWC instance norms through K13 (on a CPU tensor its plain
-    version) inside the block."""
-    global _ENABLED
-    prev = _ENABLED
-    _ENABLED = bool(enabled)
+    version) inside the block, on this thread."""
+    prev = _SCOPE.enabled
+    _SCOPE.enabled = bool(enabled)
     try:
         yield
     finally:
-        _ENABLED = prev
+        _SCOPE.enabled = prev
 
 
 def _check(x, gamma, beta):

@@ -7,37 +7,48 @@ K1-K12 take what their TPU counterparts took. A train step or a serving
 session picks one with the ``nhcw()`` scope, with one transpose of the
 batch in (and one out); every op in ``ops`` reads the scope for its axes.
 Parameters, checkpoints and configs are the same in both layouts.
+
+The scope belongs to the thread that enters it, as the JAX package scopes
+the layout per trace: a thread that never entered one reads NHWC, and two
+sessions serving on two threads (the HTTP server's) do not see each
+other's layout.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Optional, Sequence
 
 import torch
 
 from cyclegan_tpu_torch.ops.cuda_concat import concat2_nhcw
 
-_LAYOUT = "NHWC"
+
+
+class _Scope(threading.local):
+    layout = "NHWC"  # what a thread reads before it enters a scope
+
+
+_SCOPE = _Scope()
 
 
 def current() -> str:
-    return _LAYOUT
+    return _SCOPE.layout
 
 
 def is_nhcw() -> bool:
-    return _LAYOUT == "NHCW"
+    return _SCOPE.layout == "NHCW"
 
 
 @contextlib.contextmanager
 def _scoped(name: str, enabled: bool):
-    global _LAYOUT
-    prev = _LAYOUT
-    _LAYOUT = name if enabled else prev
+    prev = _SCOPE.layout
+    _SCOPE.layout = name if enabled else prev
     try:
         yield
     finally:
-        _LAYOUT = prev
+        _SCOPE.layout = prev
 
 
 def nhcw(enabled: bool = True):

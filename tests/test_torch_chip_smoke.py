@@ -775,3 +775,89 @@ def test_unet_patchgan_f32_point_is_kink_free():
     _, kink = chip_smoke.nearest_kink(lambda: chip_smoke.step_grads(
         model_cfg, "cpu", "float32", x, None, point["seed"], point["beta"]))
     assert kink > chip_smoke.KINK_MARGIN
+
+
+def test_export_512_plan_is_the_serving_forward_at_512():
+    """Phase 21 checks and times K1-K4 at the 512x512 forward's launches:
+    the U-Net plan's 15/14/3/3 at side 512, the stem at full size."""
+    cfg = yaml2namespace("model_instances/converged256/model_config.yaml")
+    plan = chip_smoke.serve_launches(cfg.generator, 8, chip_smoke.EXPORT_SIZE)
+    assert chip_smoke._times(plan, 3) == {
+        "conv_same": 45, "instance_norm_act": 42, "sum2x2": 9,
+        "concat_up2": 9}
+    assert plan["conv_same"][0] == (8, 512, 3, 16, 4, False, 1)
+    assert (8, 512, 16, "relu", True) in plan["instance_norm_act"]
+    assert plan["concat_up2"][-1] == (8, 512, 16, 64)
+    assert chip_smoke._server_timing(
+        {"Server-Timing": "decode;dur=1.500, stylize;dur=2.000"}) == {
+        "decode": 1.5, "stylize": 2.0}
+
+
+def test_serving_phases_on_the_cpu(tmp_path, monkeypatch):
+    """Phases 20-23 end to end on the CPU at 32x32 (export at 64), batch 2,
+    a copy of converged256 whose train config says 32, with the serving
+    kernels' dispatchers counted as their launches are on the card and
+    "auto" resolved as on the card (NHCW in bf16): every check holds."""
+    import shutil
+
+    from cyclegan_tpu_torch import kernels
+    from cyclegan_tpu_torch.apps import inference
+
+    model = tmp_path / "model"
+    model.mkdir()
+    for name in ("checkpoint.npz", "model_config.yaml"):
+        shutil.copy(chip_smoke.MODEL_DIR / name, model / name)
+    (model / "train_config.yaml").write_text("image_size: 32\n")
+    for name, value in (("DEVICE", "cpu"), ("SIZE", 32), ("BATCH", 2),
+                        ("EXPORT_SIZE", 64), ("EXPORT_IMAGES", 3),
+                        ("HTTP_REQUESTS", 2), ("HTTP_PAETH", 1),
+                        ("HTTP_CONCURRENT", 2), ("HTTP_ROUNDS", 1),
+                        ("STRESS_THREADS", 2), ("STRESS_CALLS", 2),
+                        ("TIMED_REPS", 1), ("MODEL_DIR", model)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "failures", [])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, *a, **k: 0.25)
+    monkeypatch.setattr(chip_smoke, "device_trace", lambda *a, **k: None)
+    for module, name, key in (
+            (cuda_conv, "_conv_same", "conv_same"),
+            (cuda_norm_act, "_instance_norm_act", "instance_norm_act"),
+            (cuda_resize, "sum2x2", "sum2x2"),
+            (cuda_concat, "_concat_up2", "concat_up2")):
+        def counted(*args, _plain=getattr(module, name), _key=key,
+                    **kwargs):
+            kernels.launches[_key] += 1
+            return _plain(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, counted)
+    init = inference.InferenceSession.__init__
+
+    def card_auto(self, model_dir, compute_dtype="float32",
+                  tpu_layout="auto", spatial_devices=0, device="cuda"):
+        if tpu_layout == "auto":
+            tpu_layout = compute_dtype == "bfloat16"
+        init(self, model_dir, compute_dtype, tpu_layout, spatial_devices,
+             device)
+
+    monkeypatch.setattr(inference.InferenceSession, "__init__", card_auto)
+    cfg = yaml2namespace(model / "model_config.yaml")
+    per_forward = {"conv_same": 15, "instance_norm_act": 14, "sum2x2": 3,
+                   "concat_up2": 3}
+
+    with layout.nhwc():  # the phases run outside any layout scope
+        launches, metrics = chip_smoke.serving_layouts(cfg, None)
+        assert launches["unet_serve_auto"] == chip_smoke._times(
+            {k: [None] * n for k, n in per_forward.items()}, 2)
+        assert metrics["nhwc"]["launches"] == {}
+        records, launched, plan, forwards, _ = chip_smoke.export_512(
+            cfg, tmp_path, None)
+        assert forwards == 2 and launched == chip_smoke._times(plan, 2)
+        launches, metrics = chip_smoke.http_server(cfg)
+        assert metrics["concurrent"]["mismatches"] == 0
+        assert set(metrics["filter_0"]["server_ms"]) == {
+            "decode", "resize", "stylize", "encode"}
+        assert metrics["jpeg_without_decoder"]["status"] == 400
+        assert metrics["stress"]["mismatches"] == 0
+        launches, metrics = chip_smoke.evaluation(cfg, records)
+        assert metrics["feature_rel_err"] <= chip_smoke.FEATURE_REL
+    assert chip_smoke.failures == []

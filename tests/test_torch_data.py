@@ -188,9 +188,10 @@ def test_load_domain_resizes_only_other_sizes(shards, monkeypatch):
     want = np.stack([im[..., ::-1] for im in _images(13, 16, 4)])
     np.testing.assert_array_equal(same, want)
     assert pipeline._load_domain(shards[0], 8).shape == (13, 8, 8, 3)
-    # without cv2 and PIL: torch's bilinear, within one step of cv2's
-    monkeypatch.setattr(pipeline, "cv2", None)
-    monkeypatch.setattr(pipeline, "Image", None)
+    # without cv2 and PIL: torch's bilinear, within one step of cv2's (the
+    # resize is codec.resize_rgb, which the pipeline calls)
+    monkeypatch.setattr(codec, "cv2", None)
+    monkeypatch.setattr(codec, "Image", None)
     small = pipeline._load_domain(shards[0], 8)
     ref = np.stack([cv2.resize(im, (8, 8), interpolation=cv2.INTER_LINEAR)
                     for im in want])

@@ -23,7 +23,10 @@ def image():
 
 @pytest.fixture(scope="module")
 def sessions():
-    return (InferenceSession(MODEL_DIR, "float32", device="cpu"),
+    # the port's NHCW serving path (plain versions of its kernels) against
+    # JAX's f32 session; tests/test_torch_serving_apps.py takes both layouts
+    return (InferenceSession(MODEL_DIR, "float32", tpu_layout=True,
+                             device="cpu"),
             JaxSession(MODEL_DIR, "float32"))
 
 
@@ -37,7 +40,14 @@ def test_stylize_f32_matches_jax(sessions, image, direction):
 
 
 def test_only_generators_are_built(sessions):
-    assert sorted(sessions[0].models) == ["g_AB", "g_BA"]
+    """The session builds the two generators it serves with and, as the
+    JAX session does, the two discriminators (for evaluation), all frozen;
+    only the generators stylize."""
+    port, ref = sessions
+    assert sorted(port.models) == sorted(ref.models) == [
+        "d_A", "d_B", "g_AB", "g_BA"]
+    assert not any(p.requires_grad for m in port.models.values()
+                   for p in m.parameters())
 
 
 def test_bf16_session_casts_params_and_serves(image):

@@ -29,6 +29,19 @@ def test_port_files_found():
     assert "cyclegan_tpu_torch/apps/inference.py" in PORT_FILES
 
 
+@pytest.mark.parametrize("path", [
+    "cyclegan_tpu_torch/apps/server.py", "cyclegan_tpu_torch/apps/export.py",
+    "cyclegan_tpu_torch/apps/evaluate.py", "cyclegan_tpu_torch/apps/flows.py",
+    "cyclegan_tpu_torch/predict.py", "cyclegan_tpu_torch/data/manifest.py",
+    "cyclegan_tpu_torch/utils/quality.py",
+    "cyclegan_tpu_torch/utils/extractor.py",
+    "cyclegan_tpu_torch/utils/jax_random.py"])
+def test_serving_and_evaluation_modules_are_checked(path):
+    """The serving and evaluation modules are among the files whose
+    imports are read and which one process imports below."""
+    assert path in PORT_FILES
+
+
 @pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py"])
 def test_no_forbidden_import(path):
     for name in _imported_modules(path):

@@ -376,7 +376,7 @@ def test_saved_folder_serves_in_both_packages(tmp_path, point,
     save_model_folder(tmp_path / "model", config, models)
     images = np.random.default_rng(5).integers(0, 256, (2, 32, 32, 3),
                                                dtype=np.uint8)
-    got = InferenceSession(tmp_path / "model", "float32",
+    got = InferenceSession(tmp_path / "model", "float32", tpu_layout=True,
                            device="cpu").stylize(images, "a2b")
     with torch.no_grad():
         x = torch.from_numpy(images).float() / 127.5 - 1.0
