@@ -159,7 +159,26 @@ failing the run if it fails:
     JPEG without a decoder, every reply ``session.stylize``'s;
 23. evaluation (``evaluation``) on phase 21's records: ``evaluate`` on the
     card against the CPU (no kernel launched), ``evaluate_quality`` in
-    bf16 (the U-Net plan each forward; proxy features against the CPU's).
+    bf16 (the U-Net plan each forward; proxy features against the CPU's);
+24. batch norm (``batchnorm``): ``configs/cycle.yaml`` with
+    ``normalization: batchnorm`` in all four networks, seeded weights,
+    bf16, NHCW, batch 8: one step launches K1, K3, K4, K5, K7 and K8 as
+    ``batchnorm_launches`` plans (the U-Net plan without its norms) and no
+    K2, K6 or K13; 3 steps move every network and moving statistic, 10
+    are timed (img/s, device busy ms, idle share, host issue ms, peak
+    MiB); the f32 step at ``BN_F32_POINT`` on the card against the plain
+    CPU step (gradients within TRAIN_F32_REL, the kept moving statistics
+    within STATS_REL, kink-free) and bf16 within RATIO times the plain
+    bf16 step's error; a checkpoint reloaded exactly; the trained networks
+    served on their moving statistics in NHCW and NHWC within the serving
+    bounds of the CPU f32 session;
+25. the data layer (``data_layer``) on phase 14's records: the streaming
+    loader's batches equal to the memory loader's for epochs 0 and 1; the
+    trainer CLI with ``data_loader: streaming`` (NHCW); whether the native
+    loader built (else the compiler's first error line), its decode
+    against the Python path's and ms per image of both, and the images
+    each path decoded in the run; the 256x256 Average and Paeth PNG
+    decode, the C unfilter against the Python byte loops.
 
 Phase 2 checks, and phase 3 times, every unique launch shape of every
 plan, the option phases' batch-16 and batch-4 shapes included; phase 21
@@ -175,6 +194,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import itertools
 import json
 import math
 import statistics
@@ -414,6 +434,19 @@ FEATURE_REL = 1e-4
 # the unfused step's; the same math, with the batch sums of the fused
 # applications' weight gradients in another order
 FUSED_F32_REL = 1e-5
+# Batch norm (phase 24): the kernels its U-Net must not launch, the norms
+# running in torch ops; its f32 point, seeded weights with every affine
+# norm's beta at +-(3..4) and seeded input, batch 2 at 32x32 (no ReLU input
+# within KINK_MARGIN of zero, asserted); the kept moving statistics of the
+# f32 card step within STATS_REL of the CPU's (0.99 old + 0.01 batch: the
+# batch statistics' f32 sums in another order, damped)
+BN_UNLAUNCHED = ("instance_norm_act", "instance_norm_act_bwd",
+                 "instance_norm_nhwc")
+BN_F32_POINT = {"size": 32, "batch": 2, "seed": 0, "beta": [3.0, 4.0]}
+STATS_REL = 1e-5
+# the native loader's decode against the Python path's, in uint8 steps
+# (the JAX package's own bound for its native loader)
+NATIVE_MAX_STEPS = 2
 # Phase 2's K1 and K9 shapes beyond the plans, as the plans key them: two
 # stages of all K*K taps' weights do not fit 227 KB (k7 32->128, k4
 # 64->256), so the tensor-core design runs the tap rows in shorter runs; Cout
@@ -2784,6 +2817,383 @@ def evaluation(cfg, records):
         "quality_cpu_f32": q_cpu, "feature_rel_err": feature_err}
 
 
+def batchnorm_config():
+    """``configs/cycle.yaml`` with ``normalization: batchnorm`` in the
+    generators and the discriminators (phase 24), built in memory."""
+    from cyclegan_tpu_torch.config import yaml2namespace
+
+    cfg = yaml2namespace(ROOT / "configs" / "cycle.yaml")
+    for part in ("generator", "discriminator"):
+        cfg[part] = dict(cfg[part], normalization="batchnorm")
+    return cfg
+
+
+def batchnorm_launches(plan):
+    """A U-Net plan (``train_launches`` or ``serve_launches``) with batch
+    norms: the same K1, K3, K4, K5, K7 and K8 launches and no norm kernel,
+    as batch norm runs in torch ops."""
+    return {k: v for k, v in plan.items() if k not in BN_UNLAUNCHED}
+
+
+def _stats(state):
+    """{network: {buffer: value, f32 on the CPU}}: the moving statistics."""
+    return {name: {key: b.detach().float().cpu().clone()
+                   for key, b in model.named_buffers()}
+            for name, model in state.models.items()}
+
+
+def _bn_step(model_cfg, device, dtype, x, point):
+    """(gradients, moving statistics) after one train step (no jitter) on
+    ``x`` from the weights of ``point`` (its seed and betas)."""
+    from cyclegan_tpu_torch.steps import make_train_step
+
+    s = _train_state(model_cfg, device, None, point["seed"],
+                     point.get("beta"))
+    make_train_step(model_cfg["loss"], model_cfg["loss_weights"], dtype)(
+        s, *(t.to(device) for t in x))
+    return _grads(s), _stats(s)
+
+
+def batchnorm(cfg, plan, serve_plan, workdir, out_dir):
+    """Phase 24: ``cfg`` (``batchnorm_config``) from seeded weights, bf16,
+    NHCW, batch BATCH at SIZE²: one step's launches against ``plan`` and
+    none of K2, K6 or K13; 3 steps with finite losses that move every
+    network and every moving statistic, then TRAIN_STEPS_TIMED timed; the
+    f32 step at BN_F32_POINT on the card against the plain CPU step
+    (gradients within TRAIN_F32_REL, the kept moving statistics within
+    STATS_REL, asserted kink-free) and the bf16 card step's gradient error
+    within RATIO times the plain bf16 step's; a checkpoint saved and
+    reloaded exactly; the trained networks served through
+    ``InferenceSession`` in bf16, NHCW (each forward ``serve_plan``) and
+    NHWC (no kernel), within the serving bounds of the CPU f32 session.
+    Returns ({path: launches}, NHCW forwards, metrics)."""
+    from cyclegan_tpu_torch import kernels
+    from cyclegan_tpu_torch.apps.inference import InferenceSession
+    from cyclegan_tpu_torch.config import namespace2yaml
+    from cyclegan_tpu_torch.steps import make_train_step
+    from cyclegan_tpu_torch.utils.checkpoint import (load_train_state,
+                                                     save_model_folder,
+                                                     save_train_state)
+
+    label = "unet_bn_train"
+    want = {k: len(v) for k, v in plan.items()}
+    batch = _uint8_batch(BATCH)
+    state = _train_state(cfg, DEVICE)
+    start = {name: [p.detach().clone() for p in m.parameters()]
+             for name, m in state.models.items()}
+    stats0 = _stats(state)
+    step16 = make_train_step(cfg["loss"], cfg["loss_weights"], "bfloat16",
+                             preprocess=_jitter)
+
+    # 24.1: the main path, one bf16 step with the counts zeroed around it
+    kernels.reset_launches()
+    losses = [step16(state, *batch)]
+    torch.cuda.synchronize()
+    main_launches = {k: v for k, v in kernels.launches.items()
+                     if v or k in want}
+    if main_launches != want:
+        fail(f"{label}: launches {main_launches}, plan {want}")
+    for name in BN_UNLAUNCHED:
+        if kernels.launches[name]:
+            fail(f"{label}: {kernels.launches[name]} {name} launches; batch "
+                 f"norm runs no norm kernel")
+    print(f"{label} main path launches {main_launches} in one step (plan "
+          f"{want})", flush=True)
+    for _ in range(2):
+        losses.append(step16(state, *batch))
+    losses = [{k: float(v) for k, v in m.items()} for m in losses]
+    if not all(np.isfinite(v) for m in losses for v in m.values()):
+        fail(f"{label}: non-finite loss {losses}")
+    moved = {name: max(float((p.detach() - p0).abs().max())
+                       for p, p0 in zip(m.parameters(), start[name]))
+             for name, m in state.models.items()}
+    stats = _stats(state)
+    still = [f"{n}.{k}" for n in stats for k in stats[n]
+             if torch.equal(stats[n][k], stats0[n][k])]
+    if not all(v > 0 for v in moved.values()) or still:
+        fail(f"{label}: a network {moved} or a moving statistic "
+             f"{still[:4]} did not move in 3 steps")
+
+    # 24.2: throughput, peak memory, host issue time and the trace
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS_TIMED):
+        step16(state, *batch)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_STEPS_TIMED
+    torch.cuda.reset_peak_memory_stats()
+    step16(state, *batch)
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    issue = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step16(state, *batch)
+        issue.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    trace = device_trace(lambda: step16(state, *batch), out_dir, 3,
+                         f"{label}_trace.json")
+
+    # 24.3: the f32 step at BN_F32_POINT, card against the plain CPU step;
+    # the bf16 card step against the plain bf16 step
+    x = f32_point_inputs(BN_F32_POINT)
+    (ref, ref_stats), kink = nearest_kink(
+        lambda: _bn_step(cfg, "cpu", "float32", x, BN_F32_POINT))
+    if not kink > KINK_MARGIN:
+        fail(f"{label}: a ReLU input {kink} from its kink at the f32 point, "
+             f"not beyond {KINK_MARGIN}")
+    card, card_stats = _bn_step(cfg, DEVICE, "float32", x, BN_F32_POINT)
+    card16, _ = _bn_step(cfg, DEVICE, "bfloat16", x, BN_F32_POINT)
+    cpu16, _ = _bn_step(cfg, "cpu", "bfloat16", x, BN_F32_POINT)
+    errors = {"f32_point": dict(BN_F32_POINT, nearest_kink=kink)}
+    for name in ref:
+        f32_rel, f32_bias = f32_errors(card[name], ref[name])
+        e = {"f32_card_vs_f32_cpu": f32_rel,
+             "f32_pre_norm_bias_card_vs_cpu": f32_bias,
+             "moving_stats_card_vs_cpu": _rel(_flat(card_stats[name]),
+                                              _flat(ref_stats[name])),
+             "bf16_card_vs_f32_cpu": _rel(_flat(card16[name]),
+                                          _flat(ref[name])),
+             "bf16_cpu_vs_f32_cpu": _rel(_flat(cpu16[name]),
+                                         _flat(ref[name]))}
+        errors[name] = e
+        print(f"{label} gradients {name}: {json.dumps(e)}", flush=True)
+        for key, bound in (("f32_card_vs_f32_cpu", TRAIN_F32_REL),
+                           ("f32_pre_norm_bias_card_vs_cpu", TRAIN_F32_REL),
+                           ("moving_stats_card_vs_cpu", STATS_REL),
+                           ("bf16_card_vs_f32_cpu",
+                            RATIO * e["bf16_cpu_vs_f32_cpu"])):
+            if not e[key] <= bound:
+                fail(f"{label} {name}: {key} {e[key]} > {bound}")
+
+    # 24.4: a checkpoint reloaded into other weights gives the state back
+    save_train_state(workdir / "bn_checkpoint.npz", state,
+                     np.zeros(2, np.uint32))
+    other = _train_state(cfg, DEVICE, seed=1)
+    load_train_state(workdir / "bn_checkpoint.npz", other)
+    diffs = _same_state(state, other)
+    back = _stats(other)
+    diffs += [f"{n}.{k}" for n in stats for k in stats[n]
+              if not torch.equal(_stats(state)[n][k], back[n][k])]
+    if diffs:
+        fail(f"{label}: the reloaded checkpoint differs: {diffs[:8]}")
+    del other
+
+    # 24.5: served from the folder the port saves, both layouts
+    folder = workdir / "bn_model"
+    namespace2yaml(workdir / "bn_model_config.yaml", cfg)
+    save_model_folder(folder, workdir / "bn_model_config.yaml", state.models)
+    del state
+    rng = np.random.default_rng(0)
+    images = {b: rng.integers(0, 256, (b, SIZE, SIZE, 3), dtype=np.uint8)
+              for b in (BATCH, 1)}
+    requests = [(BATCH, "a2b"), (BATCH, "b2a"), (1, "a2b"), (1, "b2a")]
+    cpu32 = InferenceSession(folder, "float32", tpu_layout=False,
+                             device="cpu")
+    refs = {r: cpu32.stylize(images[r[0]], r[1]) for r in requests}
+    serving, launches = {}, {}
+    for layout_name, tpu_layout in (("nhcw", True), ("nhwc", False)):
+        session = InferenceSession(folder, "bfloat16", tpu_layout=tpu_layout,
+                                   device=DEVICE)
+        plain16 = InferenceSession(folder, "bfloat16", tpu_layout=tpu_layout,
+                                   device="cpu")
+        per_forward = ({k: len(v) for k, v in serve_plan.items()}
+                       if tpu_layout else {})
+        kernels.reset_launches()
+        quality, served = [], collections.Counter()
+        for b, direction in requests:
+            before = dict(kernels.launches)
+            out = session.stylize(images[b], direction)
+            added = {k: kernels.launches[k] - before[k] for k in before
+                     if kernels.launches[k] != before[k]
+                     or k in per_forward}
+            served.update(added)
+            if added != per_forward:
+                fail(f"unet_bn_serve {layout_name} {b} {direction}: "
+                     f"launches {added}, expected {per_forward}")
+            quality.append({"batch": b, "direction": direction,
+                            **serving_quality(
+                                f"unet_bn_serve {layout_name} {b} "
+                                f"{direction}", out, refs[(b, direction)],
+                                plain16.stylize(images[b], direction))})
+        launches[layout_name] = {k: v for k, v in served.items() if v}
+        serving[layout_name] = {**_request_rate(session, images[BATCH]),
+                                "launches": launches[layout_name],
+                                "quality": quality}
+        shown = {k: v for k, v in serving[layout_name].items()
+                 if k != "quality"}
+        print(f"unet_bn_serve {layout_name}: {json.dumps(shown)}",
+              flush=True)
+    result = {"batch": BATCH, "size": SIZE, "compute_dtype": "bfloat16",
+              "step_ms": step_s * 1e3, "img_per_s": BATCH / step_s,
+              "peak_mib": peak_mib,
+              "host_issue_ms_median": statistics.median(issue) * 1e3,
+              "device_busy_ms": (trace or {}).get(
+                  "device_busy_ms_per_call"),
+              "idle_share": (trace or {}).get("idle_share"),
+              "gradient_errors": errors, "losses": losses,
+              "reload_differences": diffs, "serving": serving,
+              "trace": trace}
+    print(f"{label} batch {BATCH}: {result['img_per_s']:.2f} img/s "
+          f"({result['step_ms']:.1f} ms per step), device busy "
+          f"{result['device_busy_ms']} ms, idle share "
+          f"{result['idle_share']}, peak {peak_mib:.0f} MiB, host issue "
+          f"{result['host_issue_ms_median']:.1f} ms ({smi_line()})",
+          flush=True)
+    return ({label: main_launches, "unet_bn_serve": launches["nhcw"]},
+            len(requests), result)
+
+
+def _ms_per_image(fn, images):
+    """``fn()``'s host time per image over one call after a warm-up."""
+    fn()
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3 / images
+
+
+def data_layer(workdir):
+    """Phase 25 on phase 14's records in ``workdir``: the streaming loader
+    against the memory loader (every batch of epochs 0 and 1 and the sample
+    pairs, exactly); the trainer CLI with ``data_loader: streaming`` in
+    NHCW; the native loader (whether it built, else the compiler's first
+    error line; its decode against the Python path's, within
+    NATIVE_MAX_STEPS; ms per image of both) and which path decoded how
+    many images; the SIZE² Average and Paeth PNG decode, the C unfilter
+    against the Python byte loops. Returns ({run: launches}, metrics)."""
+    from cyclegan_tpu_torch import kernels
+    from cyclegan_tpu_torch.config import namespace2yaml, yaml2namespace
+    from cyclegan_tpu_torch.data import native, pipeline, png
+    from cyclegan_tpu_torch.data.streaming import create_streaming_dataset
+    from cyclegan_tpu_torch.train import main as train_main
+
+    data = workdir / "data"
+    records = [sorted(str(p) for p in (data / d).glob("*.tfrecords"))
+               for d in ("tabby_records", "tortie_records")]
+    metrics = {"card": smi_line()}
+
+    # 25.1: streamed batches are the memory loader's
+    memory = pipeline.create_dataset(*records, width=SIZE, seed=0)
+    streamed = create_streaming_dataset(*records, width=SIZE, seed=0)
+    compared = differ = 0
+    for s, m in zip(streamed, memory):
+        for epoch in (0, 1):
+            pairs = list(itertools.zip_longest(s.batches(BATCH, epoch),
+                                               m.batches(BATCH, epoch)))
+            for got, want in pairs:
+                compared += 1
+                if got is None or want is None or not all(
+                        np.array_equal(g, w) and g.dtype == np.uint8
+                        for g, w in zip(got, want)):
+                    differ += 1
+        if not all(np.array_equal(g, w) for g, w in
+                   zip(s.take_pairs(4), m.take_pairs(4))):
+            differ += 1
+    t0 = time.perf_counter()
+    n_streamed = sum(len(a) for a, _ in streamed[0].batches(BATCH, 2))
+    metrics["streaming"] = {
+        "batches_compared": compared, "batches_differing": differ,
+        "epoch_ms_per_image": (time.perf_counter() - t0) * 1e3
+        / max(n_streamed, 1)}
+    if differ or not compared:
+        fail(f"streaming: {differ} of {compared} batches differ from the "
+             f"memory loader's")
+
+    # 25.2: the trainer CLI with the streaming loader, NHCW
+    model_cfg = yaml2namespace(ROOT / "configs" / "cycle.yaml")
+    model_cfg.update(location=str(workdir / "models"), name="streaming")
+    train_cfg = yaml2namespace(TRAIN_CONFIG)
+    train_cfg.update(batch_size=BATCH, image_size=SIZE, epochs=1,
+                     tpu_layout=True, data_loader="streaming")
+    namespace2yaml(workdir / "streaming_model.yaml", model_cfg)
+    namespace2yaml(workdir / "streaming_train.yaml", train_cfg)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    gan = train_main(["--model_config", str(workdir / "streaming_model.yaml"),
+                      "--train_config", str(workdir / "streaming_train.yaml"),
+                      "--data_dir", str(data), "--device", DEVICE])
+    torch.cuda.synchronize()
+    launches = _launched()
+    steps = (CLI_IMAGES - int(0.2 * CLI_IMAGES)) // BATCH
+    record = gan.history[0]
+    metrics["trainer_streaming"] = {
+        "seconds": time.perf_counter() - t0, "step": gan.state.step,
+        "launches": launches, "train_img_per_s": record["train_steps"]
+        * BATCH / record["train_seconds"]}
+    nhcw = ("conv_same", "instance_norm_act", "sum2x2", "concat_up2",
+            "conv_dw", "instance_norm_act_bwd", "dup2x2", "split_pool2")
+    if gan.state.step != steps or not all(launches.get(k) for k in nhcw) \
+            or not all(np.isfinite(v) for v in [*record["train"].values(),
+                                                 *record["validation"]
+                                                 .values()]):
+        fail(f"trainer streaming: step {gan.state.step} (expected {steps}), "
+             f"launches {launches}, epoch {record}")
+    del gan
+
+    # 25.3: the native loader against the Python path
+    built = native.available()
+    lines = (native.build_error or "").splitlines()
+    errors = [line for line in lines if "error" in line] or lines
+    entry = {"built": built,
+             "build_error_first_line": errors[0].strip() if errors else None}
+
+    def python_path():
+        loader = native.load_domain_native
+        native.load_domain_native = lambda *a, **k: None
+        try:
+            return pipeline._load_domain(records[0], SIZE)
+        finally:
+            native.load_domain_native = loader
+
+    n_images = CLI_IMAGES
+    entry["python_ms_per_image"] = _ms_per_image(python_path, n_images)
+    if built:
+        got = native.load_domain_native(records[0], SIZE)
+        entry["max_steps_from_python"] = int(np.abs(
+            got.astype(int) - python_path().astype(int)).max())
+        entry["native_ms_per_image"] = _ms_per_image(
+            lambda: native.load_domain_native(records[0], SIZE), n_images)
+        if got.shape != (n_images, SIZE, SIZE, 3) or \
+                entry["max_steps_from_python"] > NATIVE_MAX_STEPS:
+            fail(f"native loader: {got.shape}, "
+                 f"{entry['max_steps_from_python']} steps from the Python "
+                 f"path's decode")
+    entry["decoded_by_path"] = dict(native.decoded)
+    metrics["native_loader"] = entry
+    print(f"native loader: {json.dumps(entry)}", flush=True)
+
+    # 25.4: the SIZE² Average and Paeth PNG decode, C against Python
+    image = np.random.default_rng(1).integers(0, 256, (SIZE, SIZE, 3),
+                                              dtype=np.uint8)
+    plain_row = png.unfilter_row
+
+    def byte_loops(kind, line, prev, bpp, out):
+        out[:] = png.unfilter_row_plain(kind, line, prev, bpp)
+
+    metrics["png_unfilter"] = {}
+    for row_filter, name in ((3, "average"), (4, "paeth")):
+        blob = png.encode_png(image, row_filter)
+        c_ms = _ms_per_image(lambda: png.decode_png(blob), 1)
+        c_out = png.decode_png(blob)
+        png.unfilter_row = byte_loops
+        try:
+            py_ms = _ms_per_image(lambda: png.decode_png(blob), 1)
+            py_out = png.decode_png(blob)
+        finally:
+            png.unfilter_row = plain_row
+        metrics["png_unfilter"][name] = {"c_ms": c_ms,
+                                         "python_byte_loops_ms": py_ms}
+        if not (np.array_equal(c_out, image)
+                and np.array_equal(py_out, image)):
+            fail(f"PNG {name} decode: the C unfilter or the byte loops "
+                 f"differ from the image")
+    print(f"data layer ({metrics['card']}): "
+          f"{json.dumps({k: v for k, v in metrics.items() if k != 'card'})}",
+          flush=True)
+    return {"trainer_cli_streaming": launches}, metrics
+
+
 def kernel_entries(rows, max_err, launches, forwards, serve_plans):
     """The ``kernels`` JSON line: per kernel, its launches in every main
     path's run (``launches`` their sum), and its times summed over the
@@ -2937,6 +3347,12 @@ def main(argv=None) -> int:
     plans["resnet_train_fused"] = resnet_train_launches(
         cfgs["resnet"], BATCH, SIZE, fuse_apps=True)
     plans["unet_train_paired"] = plans["unet_train_nhwc"]
+    # phase 24: the default recipe with batch norm
+    bn_cfg = batchnorm_config()
+    plans["unet_bn_train"] = batchnorm_launches(train_launches(bn_cfg, BATCH,
+                                                               SIZE))
+    serve_plans["unet_bn_serve"] = batchnorm_launches(
+        serve_launches(bn_cfg["generator"], BATCH, SIZE))
     paths = {path: with_simt(unique_shapes(plan))
              for path, plan in plans.items()}
     with no_tf32():
@@ -3026,6 +3442,14 @@ def main(argv=None) -> int:
                                                           records)
         launches.update(eval_launches)
         stamp("phase 23 (evaluation)")
+        bn_launches, forwards["unet_bn_serve"], metrics["unet_bn"] = \
+            batchnorm(bn_cfg, plans["unet_bn_train"],
+                      serve_plans["unet_bn_serve"], Path(tmp), out_dir)
+        launches.update(bn_launches)
+        stamp("phase 24 (batch norm)")
+        data_launches, metrics["data_layer"] = data_layer(Path(tmp))
+        launches.update(data_launches)
+        stamp("phase 25 (data layer)")
 
     entries = kernel_entries(rows, max_err, launches, forwards, serve_plans)
     for path, plan in {**plans, **serve_plans}.items():

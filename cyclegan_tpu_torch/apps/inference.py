@@ -13,7 +13,10 @@ calling thread, so sessions of either layout serve side by side on
 threads. The networks are the modules training updates; serving freezes
 them (``requires_grad_(False)``, eval mode) and runs under
 ``inference_mode``, so no backward state is kept and the norm kernel
-writes no statistics.
+writes no statistics. A batch-norm network serves on its moving
+statistics, restored from the checkpoint's ``model_state`` and kept f32
+whatever ``compute_dtype`` casts the parameters to (as the JAX session
+keeps ``model_state`` f32).
 """
 
 from __future__ import annotations
@@ -31,7 +34,11 @@ from cyclegan_tpu_torch.data.codec import resize_rgb
 from cyclegan_tpu_torch.models import create_model
 from cyclegan_tpu_torch.ops import cuda_norm, layout
 from cyclegan_tpu_torch.utils.checkpoint import load_pytree
-from cyclegan_tpu_torch.weights import jax_params_to_torch, module_to_jax_params
+from cyclegan_tpu_torch.weights import (
+    load_jax_params,
+    models_to_jax_params,
+    models_to_jax_state,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _GENERATORS = {"a2b": "g_AB", "b2a": "g_BA"}
@@ -95,16 +102,19 @@ class InferenceSession:
             name: create_model(getattr(self.model_config, section),
                                torch.Generator().manual_seed(0))
             for name, section in _NETWORKS.items()}
-        template = {"params": {name: module_to_jax_params(m)
-                               for name, m in self.models.items()}}
+        template = {"params": models_to_jax_params(self.models),
+                    "model_state": models_to_jax_state(self.models)}
         restored = load_pytree(model_dir / "checkpoint.npz", template)
-        for name, model in self.models.items():
-            model.load_state_dict(
-                jax_params_to_torch(restored["params"][name]), strict=True)
+        load_jax_params(self.models, restored["params"],
+                        restored["model_state"])
+        for model in self.models.values():
             model.requires_grad_(False)
             model.eval()
-            # the JAX session casts the f32 params per call; once is the same
-            model.to(device=self.device, dtype=self.compute_dtype)
+            model.to(device=self.device)
+            # the JAX session casts the f32 params per call; once is the
+            # same. The buffers (moving statistics) stay f32.
+            for p in model.parameters():
+                p.data = p.data.to(self.compute_dtype)
         self.state = _InferenceState(self.models)
 
     @torch.inference_mode()

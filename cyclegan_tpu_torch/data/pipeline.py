@@ -8,9 +8,10 @@ domain, and each training epoch reshuffles both domains with a
 membership and order are the same. Batches leave the host as uint8; the
 jitter and normalization run on the batch's device (``data/augment.py``).
 
-The shards are written by ``data/tfrecord.py`` ``tfrecord_writer``. Not
-ported yet (ROADMAP.md queue 1, item 4): the native C++ loader and the
-streaming loader.
+The shards are written by ``data/tfrecord.py`` ``tfrecord_writer``. The
+native C++ loader (``data/native.py``) decodes them where it builds, the
+Python path otherwise; ``data/streaming.py`` is the loader that decodes
+per batch.
 """
 
 from __future__ import annotations
@@ -26,21 +27,34 @@ from cyclegan_tpu_torch.data.example_proto import decode_example
 from cyclegan_tpu_torch.data.tfrecord import read_tfrecord_file
 
 
+def decode_record(example_bytes: bytes, width: int) -> np.ndarray:
+    """One serialized example -> its (width, width, 3) uint8 RGB image."""
+    features = decode_example(example_bytes)
+    return resize_rgb(decode_image_rgb(features["image_raw"][0]),
+                      (width, width))
+
+
+def decode_workers() -> int:
+    """The decode thread pool's size, the JAX package's."""
+    return min(32, max(4, os.cpu_count() or 4))
+
+
 def _load_domain(records: Sequence[str], width: int) -> np.ndarray:
     """Decode (and resize where needed) every example of a list of shard
-    files into one (N, width, width, 3) uint8 array, on a thread pool."""
+    files into one (N, width, width, 3) uint8 array: through the native
+    loader (``data/native.py``) where it builds, else on a Python thread
+    pool."""
+    from cyclegan_tpu_torch.data import native
+
+    images = native.load_domain_native(records, width)
+    if images is not None:
+        return images
     raw: List[bytes] = []
     for path in records:
         raw.extend(read_tfrecord_file(path))
-
-    def decode_one(example_bytes: bytes) -> np.ndarray:
-        features = decode_example(example_bytes)
-        return resize_rgb(decode_image_rgb(features["image_raw"][0]),
-                          (width, width))
-
-    workers = min(32, max(4, os.cpu_count() or 4))
-    with cf.ThreadPoolExecutor(workers) as pool:
-        images = list(pool.map(decode_one, raw))
+    with cf.ThreadPoolExecutor(decode_workers()) as pool:
+        images = list(pool.map(lambda r: decode_record(r, width), raw))
+    native.decoded["python"] += len(images)
     if not images:
         return np.zeros((0, width, width, 3), np.uint8)
     return np.stack(images).astype(np.uint8)

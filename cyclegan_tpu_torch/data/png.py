@@ -3,18 +3,25 @@ machines without cv2 or PIL.
 
 The decoder reads what the training records hold: 8-bit gray, gray with
 alpha, RGB and RGBA, not interlaced, every one of the five row filters.
-Sub and Up are vectorized over the row; Average and Paeth depend on the
-pixel just decoded to their left, so they run byte by byte in Python (the
-slow case, written down in PERF.md). The encoder writes 8-bit RGB (or gray,
-or RGBA) rows, all with one filter, None (0) unless asked.
+Each row is unfiltered by ``csrc/png_unfilter.c`` (one C call a row,
+built with the host's compiler at first use, ``host_build.py``; a build
+that fails raises with the compiler's output). Average and Paeth depend
+on the byte just decoded to their left, which numpy cannot vectorize; the
+plain version (``unfilter_row_plain``: Sub and Up vectorized, Average and
+Paeth byte by byte in Python) is what the C function is tested against.
+The encoder writes 8-bit RGB (or gray, or RGBA) rows, all with one filter,
+None (0) unless asked.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 
 import numpy as np
+
+from cyclegan_tpu_torch.data import host_build
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # PNG colour type -> samples/pixel
@@ -52,6 +59,48 @@ def _paeth(line: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
     return np.frombuffer(bytes(cur), np.uint8)
 
 
+def unfilter_row_plain(kind: int, line: np.ndarray, prev: np.ndarray,
+                       bpp: int) -> np.ndarray:
+    """One row's filter undone in numpy and Python: the plain version of
+    ``png_unfilter_row``."""
+    if kind == 0:
+        return line.copy()
+    if kind == 1:  # Sub: a running sum of each sample along the row
+        return np.cumsum(line.reshape(-1, bpp), axis=0,
+                         dtype=np.uint8).reshape(-1)
+    if kind == 2:  # Up
+        return line + prev
+    if kind == 3:
+        return _average(line, prev, bpp)
+    if kind == 4:
+        return _paeth(line, prev, bpp)
+    raise ValueError(f"PNG row filter {kind} unknown")
+
+
+_unfilter = None
+
+
+def _unfilter_fn():
+    global _unfilter
+    if _unfilter is None:
+        lib = host_build.load("png_unfilter.c", ("-O3", "-std=c99"))
+        fn = lib.png_unfilter_row
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_long, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        _unfilter = fn
+    return _unfilter
+
+
+def unfilter_row(kind: int, line: np.ndarray, prev: np.ndarray, bpp: int,
+                 out: np.ndarray) -> None:
+    """One row's filter undone into ``out`` (contiguous uint8 arrays of
+    one length) by ``png_unfilter_row``."""
+    if _unfilter_fn()(int(kind), line.ctypes.data, prev.ctypes.data,
+                      out.ctypes.data, line.size, bpp):
+        raise ValueError(f"PNG row filter {kind} unknown")
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes -> HxWx3 uint8 RGB (gray replicated, alpha dropped, as
     ``tf.image.decode_image(channels=3)``)."""
@@ -78,24 +127,11 @@ def decode_png(data: bytes) -> np.ndarray:
     stride = width * bpp
     rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     rows = rows[:height * (stride + 1)].reshape(height, stride + 1)
+    lines = np.ascontiguousarray(rows[:, 1:])
     out = np.empty((height, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for y in range(height):
-        kind, line = rows[y, 0], rows[y, 1:]
-        if kind == 0:
-            cur = line
-        elif kind == 1:  # Sub: a running sum of each sample along the row
-            cur = np.cumsum(line.reshape(width, bpp), axis=0,
-                            dtype=np.uint8).reshape(-1)
-        elif kind == 2:  # Up
-            cur = line + prev
-        elif kind == 3:
-            cur = _average(line, prev, bpp)
-        elif kind == 4:
-            cur = _paeth(line, prev, bpp)
-        else:
-            raise ValueError(f"PNG row filter {kind} unknown")
-        out[y] = cur
+        unfilter_row(rows[y, 0], lines[y], prev, bpp, out[y])
         prev = out[y]
     image = out.reshape(height, width, bpp)
     if bpp <= 2:

@@ -108,19 +108,29 @@ def tfrecord_writer(image_paths: Union[str, Path], target: Union[str, Path],
     the JAX writer does, so shard membership and order are the same; each
     image is read as BGR, resized to (image_size, image_size) where given,
     and PNG-encoded (``codec.image2example``). An unreadable file is
-    skipped with a warning. The port has no native writer yet (ROADMAP.md
-    queue 1, item 4): with ``use_native`` the Python path writes, and the
-    manifest records ``writer: "python"``, as the JAX writer does where its
-    native library is absent."""
+    skipped with a warning. With ``use_native`` the C++ writer
+    (``data/native.py``) writes where it builds, and the manifest records
+    ``writer: "native"``; else the Python path, ``writer: "python"``, as
+    the JAX writer does."""
     from cyclegan_tpu_torch.data.codec import image2example, imread_bgr
     from cyclegan_tpu_torch.data.manifest import write_manifest
 
-    del use_native  # no native writer to prefer
     images = sorted(Path(image_paths).iterdir())
     random.Random(seed).shuffle(images)
     logger.info("Images Found: %d", len(images))
     target = Path(target)
     target.mkdir(parents=True, exist_ok=True)
+    extra = dict(image_size=image_size, shard_size=shard_size, seed=seed)
+
+    if use_native:
+        from cyclegan_tpu_torch.data.native import write_domain_native
+
+        written = write_domain_native([str(p) for p in images], target,
+                                      image_size, shard_size)
+        if written is not None:
+            logger.info("native writer: %d images", written)
+            write_manifest(target, extra=dict(extra, writer="native"))
+            return sorted(target.glob("*.tfrecords"))
 
     def shard_records(paths: List[Path]) -> Iterator[bytes]:
         for image_path in paths:
@@ -136,7 +146,5 @@ def tfrecord_writer(image_paths: Union[str, Path], target: Union[str, Path],
         write_tfrecord_file(record_file,
                             shard_records(images[i:i + shard_size]))
         shard_paths.append(record_file)
-    write_manifest(target, extra=dict(image_size=image_size,
-                                      shard_size=shard_size, seed=seed,
-                                      writer="python"))
+    write_manifest(target, extra=dict(extra, writer="python"))
     return shard_paths

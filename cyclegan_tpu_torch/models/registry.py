@@ -24,6 +24,6 @@ _BUILDERS = {
 def create_model(config: Mapping[str, Any],
                  generator: Optional[torch.Generator] = None) -> nn.Module:
     """Build a model from its config's ``type``; an unknown type raises
-    KeyError. Every type of the JAX package is ported; a config option that
-    is not (batch norm, dropout in training) raises NotImplementedError."""
+    KeyError. Every type and normalization of the JAX package is
+    ported."""
     return _BUILDERS[config["type"]](config, generator)

@@ -6,16 +6,19 @@ and the PatchGAN discriminator.
 stride-2 3x3 downsamples, nine residual blocks of two reflect-padded 3x3
 convs, two stride-2 3x3 transposed-conv upsamples and a reflect-padded 7x7
 tanh head; every instance norm is non-affine, so the only parameters are
-conv kernels and biases. ``SimpleDiscriminator`` (``simple_discriminator``):
-N stride-2 convs, each followed by a non-affine instance norm and
+conv kernels and biases, and it holds no state whatever the config says,
+as in JAX. ``SimpleDiscriminator`` (``simple_discriminator``): N stride-2
+convs, each followed by a non-affine norm (instance norm, or a batch norm
+with its moving statistics where ``normalization: batchnorm``) and
 LeakyReLU(0.2), then a 1x1 conv to one channel of patch logits.
 
 Parameter names and shapes are the JAX package's, so ``state_dict`` keys are
 the checkpoint's paths: ``stem``, ``down.{0,1}``, ``res.{i}.conv{1,2}``,
 ``up.{0,1}`` (HWOI), ``head``; ``blocks.{i}.conv`` and ``head``. The
 PatchGAN's non-affine norms hold no parameter; ``blocks.{i}.norm`` is kept
-as an empty block so the JAX tree's ``norm: {}`` survives the trip back
-(``weights.module_to_jax_params``).
+as a block of its own so the JAX tree's ``norm: {}`` survives the trip back
+(``weights.module_to_jax_params``), and holds a batch norm's buffers
+(``model_state`` ``blocks/{i}/norm/moving_mean``).
 """
 
 from __future__ import annotations
@@ -85,7 +88,7 @@ class SimpleDiscriminator(nn.Module):
         filters = list(config["filters"])
         kernels = list(config["kernels"])
         norm = config["normalization"]
-        self.batchable = True
+        self.batchable = norm.lower() != "batchnorm"
         c = int(config.get("in_channels", 3))
         self.blocks = nn.ModuleList()
         for k, f in zip(kernels, filters):

@@ -24,10 +24,16 @@ Parameter names and shapes are the JAX package's. Every op is
 differentiable through the kernels' autograd Functions, so the same module
 serves and trains.
 
+Each "instance norm" above is the config's ``normalization``: with
+``batchnorm`` every norm is a Keras batch norm instead, with its moving
+statistics as buffers of the norm's block (``models/base.py``), in torch
+ops in both layouts (``ops/norm.py`` ``batch_norm``).
+
 ``batchable`` (the JAX ``Model.batchable``): a forward on two batches
 concatenated equals the two forwards concatenated. True but for a U-Net
-with dropout, whose masks differ per application; the train step fuses
-applications (``fuse_apps``) only where both generators are.
+with dropout, whose masks differ per application, and for batch norm,
+whose statistics couple the samples; the train step fuses applications
+(``fuse_apps``) only where both generators are.
 
 Dropout (``dropout: True``, Keras ``Dropout(0.5)`` after each double-conv
 block's activation, as ``cyclegan_tpu/models/base.py`` ``dropout``): a
@@ -110,7 +116,7 @@ class UNetGenerator(nn.Module):
         expansion = config["expansion"]
         norm = config["normalization"]
         self.use_dropout = bool(config["dropout"])
-        self.batchable = not self.use_dropout
+        self.batchable = not self.use_dropout and norm.lower() != "batchnorm"
         output_channels = config["output_channels"]
         self.final_activation = config["final_activation"]
         in_channels = int(config.get("in_channels", 3))
@@ -213,7 +219,7 @@ class StridedUNet(nn.Module):
         norm = config["normalization"]
         output_channels = config["output_channels"]
         self.final_activation = config["final_activation"]
-        self.batchable = True
+        self.batchable = norm.lower() != "batchnorm"
         c = int(config.get("in_channels", 3))
 
         self.down = nn.ModuleList()

@@ -166,13 +166,15 @@ def _from_nchw(y: torch.Tensor) -> torch.Tensor:
 
 
 def _library_conv(x: torch.Tensor, kernel: torch.Tensor,
-                  bias: Optional[torch.Tensor], stride: int) -> torch.Tensor:
-    """TF-'SAME' conv as the library's, on the explicitly padded input: in
-    NHWC the pad is on dims 1-2, so the NCHW view stays channels_last."""
+                  bias: Optional[torch.Tensor], stride: int,
+                  same: bool = True) -> torch.Tensor:
+    """TF-'SAME' (or, without ``same``, 'VALID') conv as the library's, on
+    the explicitly padded input: in NHWC the pad is on dims 1-2, so the
+    NCHW view stays channels_last."""
     k = int(kernel.shape[0])
     h_axis, w_axis = layout.spatial_axes()
-    ph = _same_pad(int(x.shape[h_axis]), k, stride)
-    pw = _same_pad(int(x.shape[w_axis]), k, stride)
+    ph = _same_pad(int(x.shape[h_axis]), k, stride) if same else (0, 0)
+    pw = _same_pad(int(x.shape[w_axis]), k, stride) if same else (0, 0)
     if layout.is_nhcw():
         xp = F.pad(_nchw(x), (*pw, *ph))
     else:
@@ -186,15 +188,14 @@ def conv2d(x: torch.Tensor, kernel: torch.Tensor,
            bias: Optional[torch.Tensor] = None, stride: int = 1,
            padding: str = "SAME") -> torch.Tensor:
     """x in the current layout, kernel [K,K,C,Cout] HWIO -> ceil(H/s) x
-    ceil(W/s) x Cout, TF 'SAME'. In NHCW stride 1 is K1; anything else is
-    the library convolution on the explicitly padded input."""
-    if padding != "SAME":
-        raise NotImplementedError(
-            f"conv2d(padding={padding!r}): only 'SAME' is ported; the "
-            f"reflect-padded VALID conv is conv2d_reflect")
-    if stride == 1 and layout.is_nhcw():
+    ceil(W/s) x Cout with TF 'SAME' padding, or floor((H-K)/s)+1 ... with
+    'VALID'. In NHCW a stride-1 SAME conv is K1; anything else is the
+    library convolution on the explicitly padded input."""
+    if padding not in ("SAME", "VALID"):
+        raise ValueError(f"conv2d(padding={padding!r}): 'SAME' or 'VALID'")
+    if padding == "SAME" and stride == 1 and layout.is_nhcw():
         return conv_same(x, kernel, bias)
-    return _library_conv(x, kernel, bias, stride)
+    return _library_conv(x, kernel, bias, stride, padding == "SAME")
 
 
 def conv2d_reflect(x: torch.Tensor, kernel: torch.Tensor,

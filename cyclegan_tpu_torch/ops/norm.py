@@ -1,6 +1,6 @@
-"""Instance norm (cyclegan_tpu/ops/norm.py ``instance_norm``), with the
-activation that follows it. Epsilon 1e-3 as tensorflow_addons'
-InstanceNormalization.
+"""Instance norm and batch norm (cyclegan_tpu/ops/norm.py ``instance_norm``,
+``batch_norm_stats``), with the activation that follows them. Epsilon 1e-3
+as tensorflow_addons' InstanceNormalization and Keras' BatchNormalization.
 
 - NHCW: norm and activation fused, K2 forward and K6 backward on the card
   (``ops/cuda_norm_act.py``), their plain versions on the CPU.
@@ -14,7 +14,9 @@ InstanceNormalization.
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import threading
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,3 +68,163 @@ def instance_norm(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
     else:
         y = _xla_instance_norm(x, gamma, beta, eps)
     return activation(y, act, alpha)
+
+
+BN_EPSILON = 1e-3
+BN_MOMENTUM = 0.99  # Keras: new = old * momentum + batch * (1 - momentum)
+
+
+class _BatchStats(threading.local):
+    train = False
+    sink: Optional[Dict[Any, Tuple[torch.Tensor, torch.Tensor]]] = None
+
+
+_BN = _BatchStats()
+
+
+@contextlib.contextmanager
+def batch_stats(train: bool = True, sink: Optional[dict] = None):
+    """Scope the batch norms' mode on this thread: ``train`` normalizes
+    with the batch's statistics, else with the moving ones; ``sink`` (a
+    dict, or None to discard) receives each norm's new moving statistics,
+    ``{owner: (mean, var)}``."""
+    prev = _BN.train, _BN.sink
+    _BN.train, _BN.sink = train, sink
+    try:
+        yield sink
+    finally:
+        _BN.train, _BN.sink = prev
+
+
+def batch_mode() -> Tuple[bool, Optional[dict]]:
+    """The scope's (train, sink)."""
+    return _BN.train, _BN.sink
+
+
+def commit_batch_stats(sink: dict) -> None:
+    """Write the statistics a ``batch_stats`` sink received into their
+    owners' ``moving_mean`` and ``moving_var``."""
+    with torch.no_grad():
+        for owner, (mean, var) in sink.items():
+            owner.moving_mean.copy_(mean)
+            owner.moving_var.copy_(var)
+
+
+def batch_norm_stats(x: torch.Tensor, gamma: Optional[torch.Tensor],
+                     beta: Optional[torch.Tensor], moving_mean: torch.Tensor,
+                     moving_var: torch.Tensor, train: bool,
+                     eps: float = BN_EPSILON, momentum: float = BN_MOMENTUM
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Keras BatchNormalization per channel over the batch and spatial
+    axes, in f32: ``(y in x.dtype, new_moving_mean, new_moving_var)``. In
+    train mode the batch statistics normalize and the moving ones take
+    Keras' momentum step (the new statistics are detached: state, not
+    differentiated); else the moving statistics normalize and pass through
+    unchanged."""
+    axes = (0,) + layout.spatial_axes()
+    xf = x.float()
+    if train:
+        mean = xf.mean(dim=axes)
+        var = ((xf - layout.channel_param(mean)) ** 2).mean(dim=axes)
+        new_mean = moving_mean * momentum + mean.detach() * (1.0 - momentum)
+        new_var = moving_var * momentum + var.detach() * (1.0 - momentum)
+    else:
+        mean, var = moving_mean, moving_var
+        new_mean, new_var = moving_mean, moving_var
+    y = (xf - layout.channel_param(mean)) * torch.rsqrt(
+        layout.channel_param(var) + eps)
+    if gamma is not None:
+        y = y * layout.channel_param(gamma)
+    if beta is not None:
+        y = y + layout.channel_param(beta)
+    return y.to(x.dtype), new_mean, new_var
+
+
+class BatchNormAct(torch.autograd.Function):
+    """Train-mode batch norm and its activation, ``batch_norm_stats``'
+    math with the backward in closed form: ``apply(x, gamma, beta, axes,
+    act, alpha, eps) -> (y in x.dtype, batch mean, batch variance)``, the
+    statistics f32 with the reduced ``axes`` kept as size 1 (not
+    differentiated). Autograd through the forward's ops keeps f32 copies
+    of x for the backward and runs about 40 kernels a norm; this keeps x
+    and y in their dtype, and with xc = x - mean, g the output's gradient
+    through the activation and n the count reduced over:
+
+        y     = act(xc * (rstd gamma) + beta)
+        dbeta = sum(g),  dgamma = rstd sum(g xc)
+        dx    = rstd gamma (g - dbeta / n - xc rstd dgamma / n)
+
+    (x_hat never materialized), each line a few passes over x. The
+    activation's gradient is read off y (relu: y > 0; leaky_relu: y >= 0,
+    else alpha), so the pre-activation is not kept either."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, gamma, beta, axes, act, alpha, eps):
+        xf = x.float()
+        mean = xf.mean(dim=axes, keepdim=True)
+        xc = xf - mean
+        var = (xc * xc).mean(dim=axes, keepdim=True)
+        scale = torch.rsqrt(var + eps)
+        if gamma is not None:
+            scale = scale * gamma.reshape(mean.shape)
+        z = (xc * scale if beta is None
+             else torch.addcmul(beta.reshape(mean.shape).float(), xc, scale))
+        return activation(z, act, alpha).to(x.dtype), mean, var
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, gamma, beta, axes, act, alpha, eps = inputs
+        y, mean, var = output
+        ctx.mark_non_differentiable(mean, var)
+        ctx.save_for_backward(x, gamma, y, mean, var)
+        ctx.axes, ctx.act, ctx.alpha, ctx.eps = axes, act, alpha, eps
+        ctx.beta_dtype = None if beta is None else beta.dtype
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, gamma, y, mean, var = ctx.saved_tensors
+        axes = ctx.axes
+        g = gy.float()
+        if ctx.act == "relu":
+            g = torch.where(y > 0, g, 0.0)
+        elif ctx.act == "leaky_relu":
+            g = torch.where(y >= 0, g, g * ctx.alpha)
+        xc = x.float() - mean
+        n = xc.numel() // mean.numel()
+        rstd = torch.rsqrt(var + ctx.eps)
+        sum_g = g.sum(dim=axes, keepdim=True)
+        dgamma_c = rstd * (g * xc).sum(dim=axes, keepdim=True)
+        k1 = rstd if gamma is None else rstd * gamma.reshape(mean.shape)
+        dx = torch.addcmul(torch.addcmul(-k1 * sum_g / n, g, k1), xc,
+                           -k1 * rstd * dgamma_c / n)
+        dgamma = dbeta = None
+        if gamma is not None and ctx.needs_input_grad[1]:
+            dgamma = dgamma_c.reshape(gamma.shape).to(gamma.dtype)
+        if ctx.beta_dtype is not None and ctx.needs_input_grad[2]:
+            dbeta = sum_g.reshape(-1).to(ctx.beta_dtype)
+        return dx.to(x.dtype), dgamma, dbeta, None, None, None, None
+
+
+def batch_norm(x: torch.Tensor, gamma: Optional[torch.Tensor],
+               beta: Optional[torch.Tensor], moving_mean: torch.Tensor,
+               moving_var: torch.Tensor, owner: Any, act: str = "none",
+               alpha: float = 0.2) -> torch.Tensor:
+    """Batch norm then the activation, in the scope's mode
+    (``batch_stats``): in train mode ``BatchNormAct``, and the new moving
+    statistics (Keras' momentum step from the old ones) go to the scope's
+    sink under ``owner``; else ``batch_norm_stats`` on the moving
+    statistics."""
+    if not _BN.train:
+        y, _, _ = batch_norm_stats(x, gamma, beta, moving_mean, moving_var,
+                                   False)
+        return activation(y, act, alpha)
+    y, mean, var = BatchNormAct.apply(x, gamma, beta,
+                                      (0,) + layout.spatial_axes(), act,
+                                      alpha, BN_EPSILON)
+    if _BN.sink is not None:
+        m = BN_MOMENTUM
+        _BN.sink[owner] = (moving_mean * m + mean.reshape(-1) * (1.0 - m),
+                           moving_var * m + var.reshape(-1) * (1.0 - m))
+    return y

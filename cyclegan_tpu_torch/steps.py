@@ -59,10 +59,23 @@ Options, as the JAX step's:
 - ``make_train_multi_step``: K steps of (K, B, H, W, C) batches, the
   single step's body K times, metrics stacked along K (JAX's
   ``steps_per_call``; no CUDA-graph capture).
+
+Batch norm (``normalization: batchnorm``): every application of a train
+step normalizes with its own batch's statistics, and all of them read the
+same old moving statistics (``ops/norm.py`` ``batch_stats``). As in JAX
+(``steps.py`` ``_forward_losses``' ``new_model_state``), one
+application's new moving statistics are kept per network and committed
+once, after the optimizer updates: g_AB's cycle pass ``g_AB(fake_a)``,
+g_BA's translation pass ``g_BA(real_b)``, each discriminator's
+application to the fake batch (the parameter view of ``disc_views``);
+identity and real-batch passes, the recompute of ``remat`` and the
+``paired`` step (which keeps the old statistics, as JAX's does) commit
+nothing. The validate step normalizes with the moving statistics.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
@@ -81,6 +94,7 @@ from cyclegan_tpu_torch.losses import (
 )
 from cyclegan_tpu_torch.models import create_model
 from cyclegan_tpu_torch.ops import cuda_norm, layout
+from cyclegan_tpu_torch.ops import norm as norm_ops
 from cyclegan_tpu_torch.optimizers import get_optimizer
 
 NETWORKS = ("g_AB", "g_BA", "d_A", "d_B")
@@ -92,7 +106,8 @@ _METRIC_OF = {"g_AB": "gAB_loss", "g_BA": "gBA_loss", "d_A": "dA_loss",
 @dataclasses.dataclass
 class TrainState:
     """Everything one training run updates: the four networks (f32 master
-    parameters), their optimizers, the host generator that draws the
+    parameters, and a batch norm's f32 moving statistics as buffers),
+    their optimizers, the host generator that draws the
     augmentation, the generator on the networks' device that draws the
     dropout masks, and the step count."""
 
@@ -135,15 +150,26 @@ def init_train_state(models: Mapping[str, nn.Module],
 
 
 def disc_views(model: nn.Module, params: Mapping[str, torch.Tensor],
-               x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+               x: torch.Tensor, sink: Optional[dict] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The two gradient views of one discriminator on one fake batch
     (cyclegan_tpu/steps.py ``_dual_disc_views``), as two applications:
     ``y_gen = d(stop_grad(params), x)`` pulls its cotangent back only into
     ``x``, ``y_d = d(params, stop_grad(x))`` only into the parameters.
-    Forward-identical; each application's kernels skip the dead half."""
+    Forward-identical; each application's kernels skip the dead half. A
+    batch norm's new statistics go to ``sink`` from the second."""
     frozen = {k: v.detach() for k, v in params.items()}
-    return (functional_call(model, frozen, (x,)),
-            functional_call(model, dict(params), (x.detach(),)))
+    y_gen = functional_call(model, frozen, (x,))
+    with _keeping(sink):
+        return y_gen, functional_call(model, dict(params), (x.detach(),))
+
+
+def _keeping(sink: Optional[dict]):
+    """The scope of an application whose batch-norm statistics are kept
+    (into ``sink``), in train mode; none where ``sink`` is None."""
+    if sink is None:
+        return contextlib.nullcontext()
+    return norm_ops.batch_stats(True, sink)
 
 
 def _dropout_kw(masks) -> Dict[str, Any]:
@@ -162,12 +188,17 @@ def _draw_masks(model: nn.Module, shape, generator: Optional[torch.Generator],
 
 def _rematerialized(fn: Callable, *args):
     """``fn(*args)`` under a non-reentrant checkpoint whose recompute, run
-    by autograd after the step's scopes have closed, re-enters the layout
-    and ``pallas_norm`` setting of the first run."""
+    by autograd after the step's scopes have closed, re-enters the layout,
+    ``pallas_norm`` setting and batch-norm mode of the first run; only
+    the first run reports to the batch-norm sink, the recompute keeps no
+    statistics."""
     name, norm = layout.current(), cuda_norm.is_enabled()
+    train, sink = norm_ops.batch_mode()
+    sinks = [sink]
 
     def run(*inputs):
-        with layout.scope(name), cuda_norm.scope(norm):
+        with layout.scope(name), cuda_norm.scope(norm), \
+                norm_ops.batch_stats(train, sinks.pop() if sinks else None):
             return fn(*inputs)
 
     return checkpoint(run, *args, use_reentrant=False,
@@ -180,7 +211,8 @@ def _forward_losses(models: Mapping[str, nn.Module], loss_obj: Callable,
                     stop_grads: bool, tpu_layout: bool = True,
                     pallas_norm: bool = False, *, fuse_apps: bool = False,
                     remat: bool = False, paired: bool = False,
-                    dropout: Optional[torch.Generator] = None
+                    dropout: Optional[torch.Generator] = None,
+                    train: bool = True, stats: Optional[dict] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The shared forward set and the losses (cyclegan_tpu/steps.py
     ``_forward_losses``, or ``_forward_losses_paired`` with ``paired``), in
@@ -190,25 +222,33 @@ def _forward_losses(models: Mapping[str, nn.Module], loss_obj: Callable,
     dropout). Returns (surrogate, metrics); with ``stop_grads`` the
     surrogate's gradient per network equals the reference's per-network
     gradient. Without, the two views of each fake batch are one
-    application (validation and the reference gradients)."""
+    application (validation and the reference gradients).
+
+    Batch norms normalize with each batch's statistics with ``train``,
+    else with the moving statistics. ``stats``, a dict, receives each
+    network's kept application's new moving statistics ({network: {norm
+    block: (mean, var)}}, the module docstring), for
+    ``ops/norm.commit_batch_stats``; the paired step keeps none."""
     if paired:
-        with layout.nhwc(), cuda_norm.scope(pallas_norm):
+        with layout.nhwc(), cuda_norm.scope(pallas_norm), \
+                norm_ops.batch_stats(train):
             return _forward_losses_paired(models, loss_obj, weights, real_a,
                                           real_b, compute_dtype, stop_grads,
                                           remat, dropout)
     scope = layout.nhcw() if tpu_layout else layout.nhwc()
-    with scope, cuda_norm.scope(pallas_norm):
+    with scope, cuda_norm.scope(pallas_norm), norm_ops.batch_stats(train):
         if tpu_layout:
             real_a = layout.to_nhcw(real_a)
             real_b = layout.to_nhcw(real_b)
         return _forward_losses_scoped(models, loss_obj, weights, real_a,
                                       real_b, compute_dtype, stop_grads,
-                                      fuse_apps, remat, dropout)
+                                      fuse_apps, remat, dropout, stats)
 
 
 def _cast_params(models, compute_dtype):
     """Each network's parameters cast to the compute dtype: the cast's
-    backward lands the gradients on the f32 masters."""
+    backward lands the gradients on the f32 masters. Buffers (a batch
+    norm's moving statistics) stay f32, as JAX's ``model_state``."""
     return {name: {k: p.to(compute_dtype)
                    for k, p in models[name].named_parameters()}
             for name in NETWORKS}
@@ -216,15 +256,21 @@ def _cast_params(models, compute_dtype):
 
 def _forward_losses_scoped(models, loss_obj, weights, real_a, real_b,
                            compute_dtype, stop_grads, fuse_apps=False,
-                           remat=False, dropout=None):
+                           remat=False, dropout=None, stats=None):
     a_net = real_a.to(compute_dtype)
     b_net = real_b.to(compute_dtype)
     params = _cast_params(models, compute_dtype)
 
+    def sink(name):
+        """Network ``name``'s kept statistics' sink, where kept."""
+        if stats is None:
+            return None
+        return stats.setdefault(name, {})
+
     def run(name, x):
         return functional_call(models[name], params[name], (x,))
 
-    def gen(name, x):
+    def gen(name, x, keep=False):
         model = models[name]
         masks = _draw_masks(model, x.shape, dropout)
 
@@ -232,9 +278,10 @@ def _forward_losses_scoped(models, loss_obj, weights, real_a, real_b,
             return functional_call(model, params[name], (x,),
                                    _dropout_kw(list(masks) or None))
 
-        if remat:
-            return _rematerialized(apply, x, *(masks or ()))
-        return apply(x, *(masks or ()))
+        with _keeping(sink(name) if keep else None):
+            if remat:
+                return _rematerialized(apply, x, *(masks or ()))
+            return apply(x, *(masks or ()))
 
     if fuse_apps and all(getattr(models[n], "batchable", False)
                          for n in ("g_AB", "g_BA")):
@@ -245,21 +292,21 @@ def _forward_losses_scoped(models, loss_obj, weights, real_a, real_b,
         fake_a, same_a = out_ba[:n], out_ba[n:]
         cycled_a = gen("g_BA", fake_b)
         cycled_b = gen("g_AB", fake_a)
-    else:
+    else:  # batch norm keeps g_BA's translation and g_AB's cycle pass
         fake_b = gen("g_AB", a_net)
         cycled_a = gen("g_BA", fake_b)
-        fake_a = gen("g_BA", b_net)
-        cycled_b = gen("g_AB", fake_a)
+        fake_a = gen("g_BA", b_net, keep=True)
+        cycled_b = gen("g_AB", fake_a, keep=True)
         same_a = gen("g_BA", a_net)
         same_b = gen("g_AB", b_net)
 
     disc_real_a = run("d_A", a_net)
     disc_real_b = run("d_B", b_net)
     if stop_grads:
-        disc_fake_a_gen, disc_fake_a_d = disc_views(models["d_A"],
-                                                    params["d_A"], fake_a)
-        disc_fake_b_gen, disc_fake_b_d = disc_views(models["d_B"],
-                                                    params["d_B"], fake_b)
+        disc_fake_a_gen, disc_fake_a_d = disc_views(
+            models["d_A"], params["d_A"], fake_a, sink("d_A"))
+        disc_fake_b_gen, disc_fake_b_d = disc_views(
+            models["d_B"], params["d_B"], fake_b, sink("d_B"))
     else:
         disc_fake_a_gen = disc_fake_a_d = run("d_A", fake_a)
         disc_fake_b_gen = disc_fake_b_d = run("d_B", fake_b)
@@ -379,8 +426,9 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
     forward set in the layout ``tpu_layout`` picks (with the options of
     the module docstring), ONE backward, four optimizer updates, in place
     on ``state``. After it each parameter's ``.grad`` holds the step's
-    gradient. Metrics are detached f32 scalars on the batch's device; the
-    step never waits for the card."""
+    gradient, and each batch norm's kept moving statistics are committed
+    after the updates (the module docstring). Metrics are detached f32
+    scalars on the batch's device; the step never waits for the card."""
     loss_obj = get_loss_obj(loss_name)
     weights = _weights(loss_weights)
     cdtype = DTYPES[compute_dtype]
@@ -391,14 +439,17 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
             real_a, real_b = preprocess(state.generator, real_a, real_b)
         for opt in state.optimizers.values():
             opt.zero_grad(set_to_none=True)
+        stats = {}
         surrogate, metrics = _forward_losses(
             state.models, loss_obj, weights, real_a, real_b, cdtype,
             stop_grads=True, tpu_layout=tpu_layout, pallas_norm=pallas_norm,
             fuse_apps=fuse_apps, remat=remat, paired=paired,
-            dropout=state.dropout_generator)
+            dropout=state.dropout_generator, stats=stats)
         surrogate.backward()
         for name in NETWORKS:
             state.optimizers[name].step()
+        for kept in stats.values():
+            norm_ops.commit_batch_stats(kept)
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -438,9 +489,10 @@ def make_validate_step(loss_name: str, loss_weights: Mapping[str, float],
                        fuse_apps: bool = False) -> Callable:
     """The eval step ``(state, real_a, real_b) -> metrics``: the forward
     set without stop-gradients, dropout or a backward (4 discriminator
-    applications), in the layout ``tpu_layout`` picks, ``fuse_apps`` as
-    the train step's; ``preprocess(images)`` (e.g.
-    ``prepare_eval_batch``) runs first on each batch."""
+    applications), batch norms on their moving statistics, in the layout
+    ``tpu_layout`` picks, ``fuse_apps`` as the train step's;
+    ``preprocess(images)`` (e.g. ``prepare_eval_batch``) runs first on
+    each batch."""
     loss_obj = get_loss_obj(loss_name)
     weights = _weights(loss_weights)
     cdtype = DTYPES[compute_dtype]
@@ -454,7 +506,7 @@ def make_validate_step(loss_name: str, loss_weights: Mapping[str, float],
                                      real_a, real_b, cdtype,
                                      stop_grads=False, tpu_layout=tpu_layout,
                                      pallas_norm=pallas_norm,
-                                     fuse_apps=fuse_apps)
+                                     fuse_apps=fuse_apps, train=False)
         return metrics
 
     return validate_step
@@ -466,7 +518,8 @@ def reference_gradients(models: Mapping[str, nn.Module], loss_name: str,
                         ) -> Dict[str, Dict[str, torch.Tensor]]:
     """The naive four-backward gradients, as the reference's four
     ``tape.gradient`` calls compute them (cyclegan_tpu/steps.py
-    ``reference_gradients``): one f32 forward without stop-gradients, then
+    ``reference_gradients``): one f32 forward in train mode without
+    stop-gradients, then
     each network's own total loss differentiated with respect to that
     network alone. For the tests."""
     _, metrics = _forward_losses(models, get_loss_obj(loss_name),

@@ -6,7 +6,10 @@
         [--device cuda|cpu]
 
 from the root of the repository. ``--data_dir`` holds ``tabby_records/``
-and ``tortie_records/`` of ``*.tfrecords`` shards. The flags are the JAX
+and ``tortie_records/`` of ``*.tfrecords`` shards; the train config's
+``data_loader`` picks the loader, ``memory`` (the default: every image
+decoded up front) or ``streaming`` (decoded per batch,
+``data/streaming.py``). The flags are the JAX
 CLI's plus ``--device``, which defaults to ``cuda`` and raises without a
 card (``cpu`` runs the kernels' plain versions). ``--vram`` is accepted and
 unused, as in the JAX CLI. One device only: ``--num_devices`` other than 1
@@ -24,6 +27,7 @@ from typing import Optional, Sequence
 
 from cyclegan_tpu_torch.config import yaml2namespace
 from cyclegan_tpu_torch.data.pipeline import create_dataset
+from cyclegan_tpu_torch.data.streaming import create_streaming_dataset
 from cyclegan_tpu_torch.trainer import CycleGan
 
 logger = logging.getLogger(__name__)
@@ -82,18 +86,26 @@ def main(argv: Optional[Sequence[str]] = None):
 
     model_config = yaml2namespace(args.model_config)
     training_config = yaml2namespace(args.train_config)
+    loader = str(training_config.get("data_loader", "memory"))
+    if loader == "streaming":
+        dataset_fn = create_streaming_dataset
+    elif loader == "memory":
+        dataset_fn = create_dataset
+    else:
+        raise ValueError(f"unknown data_loader {loader!r} "
+                         "(expected 'memory' or 'streaming')")
     gan = CycleGan(model_config, training_config, device=args.device)
 
     records_a = sorted(map(str, (args.data_dir / "tabby_records")
                            .glob("*.tfrecords")))
     records_b = sorted(map(str, (args.data_dir / "tortie_records")
                            .glob("*.tfrecords")))
-    train_ds, val_ds = create_dataset(
+    train_ds, val_ds = dataset_fn(
         records_a=records_a, records_b=records_b,
         width=int(training_config.image_size),
         seed=int(model_config.get("seed", 0)))
-    logger.info("device %s: %d train and %d validation pairs", args.device,
-                len(train_ds), len(val_ds))
+    logger.info("device %s, %s loader: %d train and %d validation pairs",
+                args.device, loader, len(train_ds), len(val_ds))
     gan.train(train_dataset=train_ds, validation_dataset=val_ds)
     return gan
 

@@ -23,10 +23,10 @@ metrics drained per chunk); ``profile_dir`` (with ``profile_steps``, 5 by
 default), a ``torch.profiler`` Chrome trace of the first epoch's first
 ``profile_steps`` train batches, ``<profile_dir>/train_trace.json``, closed
 early if the epoch is shorter. ``device`` defaults to ``cuda`` and raises
-without a card. Options the port does not have yet raise
-NotImplementedError, naming their item of ROADMAP.md queue 1: a mesh and
-``dp_shard_map`` (item 7, parallelism), a loader other than ``memory``
-(item 4, data).
+without a card. The datasets come from the caller (``train.py`` picks the
+loader, ``data_loader: memory`` or ``streaming``). Options the port does
+not have yet raise NotImplementedError, naming their item of ROADMAP.md
+queue 1: a mesh and ``dp_shard_map`` (item 7, parallelism).
 """
 
 from __future__ import annotations
@@ -79,7 +79,6 @@ PROFILE_FILE = "train_trace.json"
 # ports it
 _NOT_PORTED = {
     "dp_shard_map": (bool, "item 7, parallelism"),
-    "data_loader": (lambda v: str(v) != "memory", "item 4, data"),
 }
 
 
@@ -332,7 +331,8 @@ class CycleGan:
     def predict(self, images: np.ndarray, direction: str = "a2b"
                 ) -> np.ndarray:
         """A generator's forward on ``images`` ([-1, 1] floats or uint8,
-        NHWC) in f32, in the trainer's layout; output [-1, 1] float32."""
+        NHWC) in f32, in the trainer's layout, batch norms on their moving
+        statistics; output [-1, 1] float32."""
         model = self.state.models[{"a2b": "g_AB", "b2a": "g_BA"}[direction]]
         x = torch.as_tensor(np.asarray(images)).to(self.device)
         x = prepare_eval_batch(x).to(torch.float32)

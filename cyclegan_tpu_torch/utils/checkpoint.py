@@ -4,25 +4,29 @@
 A checkpoint holds one array per leaf of the saved tree, under its
 ``/``-joined path, such as ``params/g_AB/down/0/0/conv/w``. A model folder
 is a ``model_config.yaml`` beside a ``checkpoint.npz`` holding at least
-``params/{g_AB,g_BA,d_A,d_B}``; both packages' ``InferenceSession``s read
-it.
+``params/{g_AB,g_BA,d_A,d_B}`` and, for batch norm,
+``model_state/{g_AB,...}``; both packages' ``InferenceSession``s read it.
 
 The trainer's checkpoint is the JAX ``TrainState``'s tree, so either
-package resumes the other's: ``params/<net>/...``; ``opt_state/<net>/...``,
+package resumes the other's: ``params/<net>/...``; ``model_state/<net>/...``,
+a batch norm's moving statistics (``.../norm/moving_mean``,
+``moving_var``; the instance-norm networks' ``model_state`` has no
+leaves, so nothing is written for it); ``opt_state/<net>/...``,
 optax's state of the network's optimizer with exactly its leaves
 (``optimizer_tree``): adam ``0/count``, ``0/mu/...``, ``0/nu/...`` (torch
 Adam's per-parameter ``step``, one count per network, ``exp_avg`` and
 ``exp_avg_sq``), rmsprop ``0/nu/...`` only (``square_avg``; torch's step
 is restored from the train state's ``step``), sgd nothing, adabelief
 ``count``, ``m/...``, ``s/...``; ``rng``, the JAX key, which the port does
-not use and writes through as it was loaded; ``step``. The instance-norm
-networks' ``model_state`` has no leaves. The torch generators that draw
+not use and writes through as it was loaded; ``step``. The torch
+generators that draw
 the augmentation and the dropout masks are kept under ``GENERATOR_KEY``
 and ``DROPOUT_GENERATOR_KEY``, which the JAX loader skips.
 
 Round-1 checkpoints (``model_instances/demo``) stored the ``TrainState``
 fields by position, ``[<flat index N>]/...``; ``load_pytree`` reads them
-as the JAX loader does, through ``LEGACY_TRAIN_STATE_INDEX``.
+as the JAX loader does, through ``LEGACY_TRAIN_STATE_INDEX``
+(``model_state`` at index 1).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from cyclegan_tpu_torch.weights import (
     jax_params_to_torch,
     load_jax_params,
     models_to_jax_params,
+    models_to_jax_state,
     module_to_jax_params,
 )
 
@@ -102,13 +107,14 @@ def save_model_folder(model_dir: Union[str, Path],
                       model_config_path: Union[str, Path],
                       models: Mapping[str, nn.Module]) -> None:
     """A model folder of the four networks (f32 parameters): the model
-    config copied as ``model_config.yaml`` and ``params/<network>/...`` in
-    ``checkpoint.npz``."""
+    config copied as ``model_config.yaml`` and ``params/<network>/...``
+    and ``model_state/<network>/...`` in ``checkpoint.npz``."""
     model_dir = Path(model_dir)
     model_dir.mkdir(parents=True, exist_ok=True)
     shutil.copyfile(model_config_path, model_dir / "model_config.yaml")
     save_pytree(model_dir / "checkpoint.npz",
-                {"params": models_to_jax_params(models)})
+                {"params": models_to_jax_params(models),
+                 "model_state": models_to_jax_state(models)})
 
 
 def load_pytree(path: Union[str, Path], template: Any) -> Any:
@@ -210,6 +216,7 @@ def train_state_tree(state, rng: np.ndarray) -> dict:
     """The JAX ``TrainState`` tree of a port ``steps.TrainState`` (numpy
     leaves), with the JAX key ``rng``."""
     return {"params": models_to_jax_params(state.models),
+            "model_state": models_to_jax_state(state.models),
             "opt_state": {name: optimizer_tree(model, state.optimizers[name])
                           for name, model in state.models.items()},
             "rng": np.asarray(rng, np.uint32),
@@ -229,11 +236,12 @@ def save_train_state(path: Union[str, Path], state, rng: np.ndarray) -> None:
 def load_train_state(path: Union[str, Path], state) -> np.ndarray:
     """Restore a checkpoint of either trainer into ``state`` in place:
     parameters, every optimizer's state, the step and, where the port
-    wrote them, the augmentation and dropout generators. Returns the JAX
-    key ``rng``."""
+    wrote them, the augmentation and dropout generators, and a batch
+    norm's moving statistics. Returns the JAX key ``rng``."""
     restored = load_pytree(path, train_state_tree(
         state, np.zeros(2, np.uint32)))
-    load_jax_params(state.models, restored["params"])
+    load_jax_params(state.models, restored["params"],
+                    restored["model_state"])
     state.step = int(restored["step"])
     for name, model in state.models.items():
         _restore_optimizer(model, state.optimizers[name],

@@ -157,8 +157,7 @@ def test_tpu_layout_auto_resolution(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (dict(dp_shard_map=True), "item 7"),
-    (dict(data_loader="streaming"), "item 4")])
+    (dict(dp_shard_map=True), "item 7")])
 def test_unported_options_raise(tmp_path, extra, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue 1, {item}"):

@@ -124,13 +124,6 @@ def test_random_init_is_seeded_and_distributed():
 
 
 @pytest.mark.parametrize("change,error", [
-    ({"expansion": "transpose", "normalization": "batchnorm"},
-     NotImplementedError),
-    ({"normalization": "batchnorm"}, NotImplementedError),
-    ({"type": "strided_unet", "normalization": "batchnorm"},
-     NotImplementedError),
-    ({"type": "simple_discriminator", "normalization": "batchnorm"},
-     NotImplementedError),
     ({"type": "no_such_model"}, KeyError),
 ])
 def test_unported_configs_raise(change, error):
