@@ -178,11 +178,36 @@ failing the run if it fails:
     loader built (else the compiler's first error line), its decode
     against the Python path's and ms per image of both, and the images
     each path decoded in the run; the 256x256 Average and Paeth PNG
-    decode, the C unfilter against the Python byte loops.
+    decode, the C unfilter against the Python byte loops;
+26. data parallelism (``world1_nccl``, ``data_parallel``): first whether
+    NCCL takes two ranks on the one card (it refuses a duplicate GPU; the
+    error is printed); (a) a process group of one over NCCL, one U-Net
+    step (``configs/cycle.yaml``, bf16, NHCW, batch 8, jitter inside)
+    through ``CycleGan(mesh=create_mesh(1))``, its launches the default
+    plan and its parameters equal bit for bit to a CycleGan's without a
+    mesh; (b) RANKS ranks spawned on the one card over gloo, a data mesh,
+    global batch 8: the f32 gradients after the all-reduce against one
+    batch-8 card step within TRAIN_F32_REL, batch norm (``batchnorm_config``
+    at BN_DP_SIZE²) with ``dp_shard_map`` false against one batch-8 step
+    and true against the mean of one step per half (moving statistics
+    within STATS_REL), each rank's bf16 launches ``train_launches`` at
+    batch 4, three finite steps, img/s of the two ranks on one card (not a
+    scaling number) and the gradient all-reduce's time;
+27. spatial sharding (``spatial``): RANKS ranks, ``create_spatial_mesh(1,
+    RANKS)``, ``dp_shard_map``: the f32 step at SPATIAL_F32_POINT against
+    the unsharded card step within TRAIN_F32_REL; each rank's bf16 step at
+    batch 8 against ``spatial_launches`` (K1 and K5 on the halo-extended
+    strips, K3, K4, K7, K8 on the strips, no K2 or K6), three finite
+    steps, timing; converged256 served at 512² through
+    ``InferenceSession(spatial_devices=RANKS)`` on every rank, within the
+    serving bounds of the unsharded f32 and bf16 card sessions, its launches
+    ``spatial_launches`` of the serving plan each forward.
 
 Phase 2 checks, and phase 3 times, every unique launch shape of every
-plan, the option phases' batch-16 and batch-4 shapes included; phase 21
-does the same for the 512x512 serving forward.
+plan, the option phases' batch-16 and batch-4 shapes and the strips'
+extended shapes of phases 26-27 included; phases 21 and 27 do the same for
+the 512x512 serving forwards. A failed rank, a collective error or a kernel
+error fails the run; no phase catches its own failure.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' numbers as JSON.
@@ -444,6 +469,24 @@ BN_UNLAUNCHED = ("instance_norm_act", "instance_norm_act_bwd",
                  "instance_norm_nhwc")
 BN_F32_POINT = {"size": 32, "batch": 2, "seed": 0, "beta": [3.0, 4.0]}
 STATS_REL = 1e-5
+# Phases 26-27: ranks that share the one card (NCCL refuses two ranks on
+# one device, so they use gloo, which takes CUDA tensors in all_reduce and
+# broadcast), their deadline, steps timed on each; the group of one in
+# phase 26 (a); phase 26's batch-norm check (f32, batch BATCH at
+# BN_DP_SIZE², seeded weights with the betas moved); phase 27's f32 point
+# (converged256 with every beta at +-(3..4), so that the ReLU inputs sit
+# off their kinks, batch 1 at full size; the nearest kink the strips met
+# is reported) and its spatial serving (converged256 at 512², 2 images)
+RANKS = 2
+RANK_PATHS = ("dp_train", "spatial_train")
+RANK_TIMEOUT = 480
+RANK_STEPS_TIMED = 5
+WORLD1_BACKEND = "nccl"
+BN_DP_SIZE = 64
+BN_DP_POINT = {"seed": 24, "beta": [3.0, 4.0]}
+SPATIAL_F32_POINT = {"size": 256, "batch": 1, "seed": 2, "beta": [3.0, 4.0]}
+SPATIAL_SERVE_SIZE = EXPORT_SIZE
+SPATIAL_SERVE_BATCH = 2
 # the native loader's decode against the Python path's, in uint8 steps
 # (the JAX package's own bound for its native loader)
 NATIVE_MAX_STEPS = 2
@@ -841,27 +884,29 @@ def make_case(name, shape, dtype, seed):
     if name == "conv_same" or (name == SIMT_SAME and shape[6] >= 0):
         B, H, cin, cout, k, has_bias, pad = shape[:7]
         grow = shape[7] if len(shape) > 7 else 0
-        ho = H + 2 * grow
-        x = rnd(B, H, cin, H)
+        H, W = _hw(H)
+        ho, wo = H + 2 * grow, W + 2 * grow
+        x = rnd(B, H, cin, W)
         w = rnd(k, k, cin, cout, scale=0.05)
         b = rnd(cout, scale=0.5) if has_bias else None
         before, after = pad + grow, k - 1 - pad + grow
         xp = F.pad(nchw(x), (before, after, before, after))
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
         nbytes = (x.numel() + w.numel() + (cout if has_bias else 0)
-                  + B * ho * cout * ho) * size
+                  + B * ho * cout * wo) * size
         kernel = (cuda_conv.conv_same_cuda if name == "conv_same"
                   else cuda_conv.conv_same_simt_cuda)
         return (lambda: (kernel(x, w, b, pad=pad, grow=grow),),
                 lambda: (cuda_conv.conv_same_plain(x, w, b, pad=pad,
                                                    grow=grow),),
                 lambda: F.conv2d(xp, w_oihw, b),
-                nbytes, 2 * B * ho * ho * k * k * cin * cout,
+                nbytes, 2 * B * ho * wo * k * k * cin * cout,
                 [(name, 1.0)])
     if name == "conv_dw" or (name == SIMT and shape[5] >= 0):
         B, H, cin, cout, k, pad = shape
-        x = rnd(B, H, cin, H)
-        gy = rnd(B, H, cout, H)
+        H, W = _hw(H)
+        x = rnd(B, H, cin, W)
+        gy = rnd(B, H, cout, W)
         xp = F.pad(nchw(x), (pad, k - 1 - pad, pad, k - 1 - pad))
         gy_nchw = nchw(gy)
         scale = cuda_conv.conv_dw_plain(x.abs(), gy.abs(), k, pad)
@@ -872,7 +917,7 @@ def make_case(name, shape, dtype, seed):
                 lambda: torch.nn.grad.conv2d_weight(
                     xp, (cout, cin, k, k), gy_nchw),
                 (x.numel() + gy.numel()) * size + k * k * cin * cout * 4,
-                2 * B * H * H * k * k * cin * cout, [(name, scale)])
+                2 * B * H * W * k * k * cin * cout, [(name, scale)])
     if name in ("conv_reflect", SIMT_SAME):
         B, H, cin, cout, k, has_bias = shape[:6]
         x = rnd(B, H, cin, H)
@@ -974,7 +1019,8 @@ def make_case(name, shape, dtype, seed):
                  (name + ".sums", scales[2])])
     if name == "sum2x2":
         B, H, c = shape[:3]
-        x = rnd(B, H, c, H)
+        H, W = _hw(H)
+        x = rnd(B, H, c, W)
         if len(shape) > 3 and shape[3]:
             x = off_view(x)
         out = x.numel() // 4
@@ -984,10 +1030,11 @@ def make_case(name, shape, dtype, seed):
                 (x.numel() + out) * size, 4 * out, [(name, 1.0)])
     if name == "dup2x2":
         B, h, c = shape[:3]
-        gy = rnd(B, h, c, h)
+        h, w = _hw(h)
+        gy = rnd(B, h, c, w)
         if len(shape) > 3 and shape[3]:
             gy = off_view(gy)
-        x_shape = torch.empty((B, c, 2 * h, 2 * h), dtype=dtype,
+        x_shape = torch.empty((B, c, 2 * h, 2 * w), dtype=dtype,
                               device=DEVICE)
         gy_nchw = nchw(gy)
         return (lambda: (cuda_resize.dup2x2_cuda(gy, 0.25),),
@@ -998,8 +1045,9 @@ def make_case(name, shape, dtype, seed):
                 5 * gy.numel() * size, gy.numel(), [(name, 1.0)])
     if name == "concat_up2":
         B, H, c1, c2 = shape[:4]
-        skip = rnd(B, H, c1, H)
-        x = rnd(B, H // 2, c2, H // 2)
+        H, W = _hw(H)
+        skip = rnd(B, H, c1, W)
+        x = rnd(B, H // 2, c2, W // 2)
         if len(shape) > 4 and shape[4]:
             skip, x = off_view(skip), off_view(x)
         return (lambda: (cuda_concat.concat_up2_cuda(skip, x),),
@@ -1007,33 +1055,36 @@ def make_case(name, shape, dtype, seed):
                 lambda: torch.cat([skip, F.interpolate(
                     nchw(x), scale_factor=2,
                     mode="nearest").permute(0, 2, 1, 3)], dim=2),
-                (skip.numel() + x.numel() + B * H * (c1 + c2) * H) * size,
+                (skip.numel() + x.numel() + B * H * (c1 + c2) * W) * size,
                 0, [(name, 1.0)])
     if name == "split_pool2":
         B, H, c1, c2 = shape[:4]
-        gy = rnd(B, H, c1 + c2, H)
+        H, W = _hw(H)
+        gy = rnd(B, H, c1 + c2, W)
         if len(shape) > 4 and shape[4]:
             gy = off_view(gy)
-        pooled = B * (H // 2) * c2 * (H // 2)
+        pooled = B * (H // 2) * c2 * (W // 2)
         g_nchw = nchw(gy[:, :, c1:])
         return (lambda: cuda_concat.split_pool2_cuda(gy, c1),
                 lambda: cuda_concat.split_pool2_plain(gy, c1),
                 lambda: (gy[:, :, :c1].contiguous(),
                          torch.ops.aten.upsample_nearest2d_backward(
-                             g_nchw, [H, H], [B, c2, H // 2, H // 2])),
-                (gy.numel() + B * H * c1 * H + pooled) * size, 3 * pooled,
+                             g_nchw, [H, W], [B, c2, H // 2, W // 2])),
+                (gy.numel() + B * H * c1 * W + pooled) * size, 3 * pooled,
                 [(name, 1.0), (name, 1.0)])
     if name == "concat2":
         B, H, c1, c2 = shape
-        a = rnd(B, H, c1, H)
-        b = rnd(B, H, c2, H)
+        H, W = _hw(H)
+        a = rnd(B, H, c1, W)
+        b = rnd(B, H, c2, W)
         return (lambda: (cuda_concat.concat2_cuda(a, b),),
                 lambda: (cuda_concat.concat2_plain(a, b),),
                 lambda: torch.cat([a, b], dim=2),
-                2 * B * H * (c1 + c2) * H * size, 0, [(name, 1.0)])
+                2 * B * H * (c1 + c2) * W * size, 0, [(name, 1.0)])
     if name == "split2":
         B, H, c1, c2 = shape
-        gy = rnd(B, H, c1 + c2, H)
+        H, W = _hw(H)
+        gy = rnd(B, H, c1 + c2, W)
         return (lambda: cuda_concat.split2_cuda(gy, c1),
                 lambda: cuda_concat.split2_plain(gy, c1),
                 lambda: (gy[:, :, :c1].contiguous(),
@@ -1105,6 +1156,18 @@ def time_ms(fn, reps=TIMED_REPS, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def shape_order(shape):
+    """A sort key for launch shapes whose side may be an int (square) or a
+    (rows, columns) pair (a strip): each entry as a tuple, so both sides
+    compare and the square plans keep their order."""
+    return tuple(v if isinstance(v, tuple) else (v,) for v in shape)
+
+
+def _hw(side):
+    """(rows, columns) of a launch shape's side: an int is square."""
+    return side if isinstance(side, tuple) else (side, side)
+
+
 def unique_shapes(plan):
     """{kernel: Counter(shape -> launches per step)}."""
     return {name: collections.Counter(shapes) for name, shapes in
@@ -1123,7 +1186,7 @@ def check_kernels(shapes, label=""):
     for dtype in (torch.bfloat16, torch.float32):
         for name, counter in shapes.items():
             worst = 0.0
-            for i, shape in enumerate(sorted(counter)):
+            for i, shape in enumerate(sorted(counter, key=shape_order)):
                 kernel, plain, _, _, _, checks = make_case(name, shape,
                                                            dtype, i)
                 simt = kernels.launches[SIMT]
@@ -1200,14 +1263,16 @@ def expected_path(name, shape, dtype):
     aligned = not (len(shape) > sizes and shape[sizes])
     if name == "dup2x2":
         B, h, c = shape[:3]
-        geo = cuda_resize.dup2x2_geometry(B, h, c, h, esize, aligned)
+        geo = cuda_resize.dup2x2_geometry(B, _hw(h)[0], c, _hw(h)[1], esize,
+                                          aligned)
     elif name == "sum2x2":
         B, H, c = shape[:3]
-        geo = cuda_resize.sum2x2_geometry(B, H, c, H, esize, aligned)
+        geo = cuda_resize.sum2x2_geometry(B, _hw(H)[0], c, _hw(H)[1], esize,
+                                          aligned)
     elif name in ("concat_up2", "split_pool2"):
         B, H, c1, c2 = shape[:4]
-        geo = cuda_concat.concat_up2_geometry(B, H, c1, c2, H, esize,
-                                              aligned)
+        geo = cuda_concat.concat_up2_geometry(B, _hw(H)[0], c1, c2,
+                                              _hw(H)[1], esize, aligned)
     else:
         B, H, c, p = shape[:4]
         geo = cuda_reflect.reflect_fold_geometry(B, H, c, H, p, esize,
@@ -1287,7 +1352,8 @@ def union_shapes(paths):
     for plan in paths.values():
         for name, counter in plan.items():
             out.setdefault(name, set()).update(counter)
-    return {name: sorted(shapes) for name, shapes in out.items()}
+    return {name: sorted(shapes, key=shape_order)
+            for name, shapes in out.items()}
 
 
 def trace_family(name):
@@ -3194,6 +3260,462 @@ def data_layer(workdir):
     return {"trainer_cli_streaming": launches}, metrics
 
 
+def spatial_launches(plan, shards):
+    """A U-Net plan (``train_launches`` or ``serve_launches``) as each of
+    ``shards`` H-strip ranks launches it under ``dp_shard_map``: a shape's
+    side H becomes (rows, W), the strip's H // shards rows, plus K - 1 halo
+    rows for K1 and K5 (their extended strip); no norm kernel (K2 and K6 do
+    not run on a strip, the norms are torch ops with summed statistics)."""
+    out = {}
+    for name, shapes in plan.items():
+        if name in ("instance_norm_act", "instance_norm_act_bwd"):
+            continue
+        rows = []
+        for s in shapes:
+            side = s[1]
+            if name in ("conv_same", "conv_dw"):
+                k = s[4]
+                strip = (side // shards + k - 1, side)
+            else:
+                strip = (side // shards, side)
+            rows.append((s[0], strip) + tuple(s[2:]))
+        out[name] = rows
+    return out
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_settings(prepare=None):
+    """What a spawned rank needs of this process's settings (the module is
+    imported afresh there), and a function it runs first (the CPU
+    rehearsal's stubs)."""
+    return {"globals": {k: globals()[k] for k in (
+        "DEVICE", "BATCH", "SIZE", "GRAD_BATCH", "SPATIAL_SERVE_SIZE",
+        "SPATIAL_SERVE_BATCH", "RANK_STEPS_TIMED", "BN_DP_SIZE",
+        "SPATIAL_F32_POINT")}, "prepare": prepare}
+
+
+def _enter_rank(settings):
+    globals().update(settings["globals"])
+    failures.clear()
+    if settings["prepare"] is not None:
+        settings["prepare"]()
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+
+
+def _noise_batch(batch, size, seed):
+    """Two normalized uint8-noise NHWC batches from ``seed``, on the CPU."""
+    return f32_point_inputs({"batch": batch, "size": size, "seed": seed})
+
+
+def _sync():
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed_steps(step, state, batch, mesh):
+    """RANK_STEPS_TIMED steps on the host clock between two barriers;
+    seconds, and the same steps' gradient all-reduce alone: one f32 buffer
+    of the step's gradients, summed over the mesh."""
+    import torch.distributed as dist
+
+    grads = [p for m in state.models.values() for p in m.parameters()]
+    flat = torch.zeros(sum(p.numel() for p in grads), device=DEVICE)
+    _sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(RANK_STEPS_TIMED):
+        step(state, *batch)
+    _sync()
+    step_s = (time.perf_counter() - t0) / RANK_STEPS_TIMED
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(RANK_STEPS_TIMED):
+        dist.all_reduce(flat, group=mesh.group())
+    _sync()
+    return step_s, (time.perf_counter() - t0) / RANK_STEPS_TIMED, flat.numel()
+
+
+def _planned_rank_step(label, step, state, batch, plan):
+    """The rank's main path: one bf16 step with the launch counts zeroed
+    around it, against ``plan`` ({kernel: shapes}); then two more steps,
+    all with finite metrics. Returns (launches, metrics of the three)."""
+    from cyclegan_tpu_torch import kernels
+
+    kernels.reset_launches()
+    metrics = [step(state, *batch)]
+    _sync()
+    got = _launched()
+    want = {k: len(v) for k, v in plan.items()}
+    if got != want:
+        fail(f"{label} rank step launches {got}, plan {want}")
+    for _ in range(2):
+        metrics.append(step(state, *batch))
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        fail(f"{label}: non-finite loss {metrics}")
+    return got, metrics
+
+
+def _dp_rank(rank, world, settings, plan):
+    """Phase 26 (b) on one of ``world`` ranks sharing the card over gloo,
+    a data mesh of ``world``: the f32 gradients of the global batch's
+    step (this rank's slice, no jitter), batch norm both ways, the bf16
+    main path against ``train_launches`` at the rank's batch, timing."""
+    _enter_rank(settings)
+    from cyclegan_tpu_torch.config import yaml2namespace
+    from cyclegan_tpu_torch.parallel import create_mesh, shard_batch
+    from cyclegan_tpu_torch.steps import make_train_step
+
+    mesh = create_mesh(world)
+    cfg = yaml2namespace(MODEL_DIR / "model_config.yaml")
+    loss, weights = cfg["loss"], cfg["loss_weights"]
+    out = {"backend": mesh.backend, "coords": mesh.coords}
+    x = shard_batch(mesh, _noise_batch(BATCH, SIZE, 26))
+    state = _train_state(cfg, DEVICE, MODEL_DIR)
+    make_train_step(loss, weights, "float32", mesh=mesh)(
+        state, *(t.to(DEVICE) for t in x))
+    out["f32"] = _grads(state)
+    bn = batchnorm_config()
+    xb = shard_batch(mesh, _noise_batch(BATCH, BN_DP_SIZE, 24))
+    for smap in (False, True):
+        s = _train_state(bn, DEVICE, None, BN_DP_POINT["seed"],
+                         BN_DP_POINT["beta"])
+        make_train_step(loss, weights, "float32", mesh=mesh,
+                        shard_map_dp=smap)(s, *(t.to(DEVICE) for t in xb))
+        out[("bn", smap)] = (_grads(s), _stats(s))
+    state = _train_state(cfg, DEVICE, MODEL_DIR)
+    step = make_train_step(loss, weights, "bfloat16", preprocess=_jitter,
+                           mesh=mesh)
+    batch = shard_batch(mesh, _uint8_batch(BATCH))
+    out["launches"], out["metrics"] = _planned_rank_step(
+        "dp_train", step, state, batch, plan)
+    out["step_s"], out["all_reduce_s"], out["all_reduce_floats"] = \
+        _timed_steps(step, state, batch, mesh)
+    # every rank runs the traced steps: their collectives pair up
+    out["trace"] = device_trace(lambda: step(state, *batch), None, 3,
+                                f"dp_rank{rank}_trace.json")
+    out["params"] = float(sum(p.detach().double().sum() for m in
+                              state.models.values()
+                              for p in m.parameters()))
+    out["failures"] = list(failures)
+    return out
+
+
+def _check_grads(label, got, want):
+    """Per network, ``f32_errors`` within TRAIN_F32_REL; returns them."""
+    errors = {}
+    for name in want:
+        rel, bias = f32_errors(got[name], want[name])
+        errors[name] = {"rel": rel, "pre_norm_bias": bias}
+        if not (rel <= TRAIN_F32_REL and bias <= TRAIN_F32_REL):
+            fail(f"{label} {name}: gradient error {rel} (pre-norm biases "
+                 f"{bias}) beyond {TRAIN_F32_REL}")
+    print(f"{label} f32 gradients vs one rank: {json.dumps(errors)}",
+          flush=True)
+    return errors
+
+
+def _check_stats(label, got, want):
+    """The moving statistics per network within STATS_REL (relative to the
+    network's, as phase 24 measures them); returns the worst."""
+    worst = max(_rel(_flat(got[n]), _flat(want[n])) for n in want)
+    if not worst <= STATS_REL:
+        fail(f"{label}: moving statistics {worst} beyond {STATS_REL}")
+    return worst
+
+
+def world1_nccl(cfg, plan, workdir):
+    """Phase 26 (a): one U-Net step through ``CycleGan(mesh=create_mesh(1))``
+    in a process group of one over WORLD1_BACKEND (NCCL on the card), bf16,
+    NHCW, jitter inside: its launches against ``plan``, and every
+    parameter after it equal, bit for bit, to the step of a CycleGan
+    without a mesh. Returns (launches, metrics)."""
+    import torch.distributed as dist
+
+    from cyclegan_tpu_torch import kernels
+    from cyclegan_tpu_torch.config import yaml2namespace
+    from cyclegan_tpu_torch.parallel import create_mesh
+    from cyclegan_tpu_torch.trainer import CycleGan
+
+    dist.init_process_group(
+        WORLD1_BACKEND, init_method=f"tcp://127.0.0.1:{_free_port()}",
+        world_size=1, rank=0)
+    try:
+        backend = str(dist.get_backend())
+        gans = {}
+        for name, mesh in (("mesh", create_mesh(1)), ("none", None)):
+            model_cfg = copy.deepcopy(cfg)
+            model_cfg.location, model_cfg.new = str(workdir / name), True
+            train_cfg = yaml2namespace(TRAIN_CONFIG)
+            for key, value in (("batch_size", BATCH), ("image_size", SIZE),
+                               ("compute_dtype", "bfloat16"),
+                               ("tpu_layout", True)):
+                train_cfg[key] = value
+            gans[name] = CycleGan(model_cfg, train_cfg, mesh=mesh,
+                                  device=DEVICE)
+        a, b = (t.cpu().numpy() for t in _uint8_batch(BATCH, seed=26))
+        kernels.reset_launches()
+        gan = gans["mesh"]
+        gan.train_step_fn(gan.state, *gan._put(a, b))
+        _sync()
+        launches = _launched()
+        gan = gans["none"]
+        gan.train_step_fn(gan.state, *gan._put(a, b))
+        _sync()
+    finally:
+        dist.destroy_process_group()
+    want = {k: len(v) for k, v in plan.items()}
+    if launches != want:
+        fail(f"dp_nccl1_train step launches {launches}, plan {want}")
+    unequal = [f"{name}.{key}" for name, model in
+               gans["mesh"].state.models.items()
+               for (key, p), q in zip(model.named_parameters(),
+                                      gans["none"].state.models[name]
+                                      .parameters())
+               if not torch.equal(p, q)]
+    if unequal:
+        fail(f"dp_nccl1_train: parameters after the mesh-of-one step differ "
+             f"from the no-mesh step's: {unequal[:5]}")
+    print(f"dp_nccl1_train: {backend} group of 1, launches {launches}, "
+          f"parameters bit-equal to the no-mesh step: {not unequal}",
+          flush=True)
+    return launches, {"backend": backend, "bit_equal": not unequal}
+
+
+def data_parallel(cfg, plan, prepare=None):
+    """Phase 26 (b): RANKS ranks sharing the card over gloo (spawned),
+    a data mesh of RANKS, global batch BATCH: the f32 gradients after the
+    all-reduce against one rank's batch-BATCH card step, batch norm with
+    dp_shard_map false (against one batch-BATCH step: global statistics)
+    and true (against the mean of one step per rank's half: per-shard
+    statistics; rank 0's moving statistics), each rank's bf16 launches
+    against ``plan``, three finite steps, and img/s of the two ranks on one
+    card (not a scaling number). Returns (rank 0's launches, metrics)."""
+    from cyclegan_tpu_torch.parallel import run_ranks
+
+    ranks = run_ranks(_dp_rank, RANKS, (_rank_settings(prepare), plan),
+                      backend="gloo", timeout=RANK_TIMEOUT)
+    for r, out in enumerate(ranks):
+        for msg in out["failures"]:
+            fail(f"rank {r}: {msg}")
+    if len({out["params"] for out in ranks}) != 1:
+        fail(f"dp_train: the ranks' parameters differ "
+             f"{[out['params'] for out in ranks]}")
+    if any(out["launches"] != ranks[0]["launches"] for out in ranks):
+        fail("dp_train: the ranks launched differently")
+    want = step_grads(cfg, DEVICE, "float32", _noise_batch(BATCH, SIZE, 26),
+                      MODEL_DIR)
+    errors = {"f32": _check_grads("dp_train", ranks[0]["f32"], want)}
+    bn = batchnorm_config()
+    xb = _noise_batch(BATCH, BN_DP_SIZE, 24)
+    g_all, s_all = _bn_step(bn, DEVICE, "float32", xb, BN_DP_POINT)
+    errors["bn_global"] = _check_grads("dp_train batch norm (global)",
+                                       ranks[0][("bn", False)][0], g_all)
+    errors["bn_global_stats"] = _check_stats(
+        "dp_train batch norm (global)", ranks[0][("bn", False)][1], s_all)
+    half = BATCH // RANKS
+    parts = [_bn_step(bn, DEVICE, "float32",
+                      [t[i * half:(i + 1) * half] for t in xb], BN_DP_POINT)
+             for i in range(RANKS)]
+    mean = {n: {k: sum(p[0][n][k] for p in parts) / RANKS for k in g}
+            for n, g in parts[0][0].items()}
+    errors["bn_per_shard"] = _check_grads("dp_train batch norm (per shard)",
+                                          ranks[0][("bn", True)][0], mean)
+    errors["bn_per_shard_stats"] = _check_stats(
+        "dp_train batch norm (per shard)", ranks[0][("bn", True)][1],
+        parts[0][1])
+    step_s = max(out["step_s"] for out in ranks)
+    result = {"ranks": RANKS, "backend": ranks[0]["backend"],
+              "global_batch": BATCH, "size": SIZE,
+              "gradient_errors": errors, "metrics": ranks[0]["metrics"],
+              "step_ms": step_s * 1e3,
+              "img_per_s_two_ranks_one_card": BATCH / step_s,
+              "all_reduce_ms": max(out["all_reduce_s"] for out in ranks)
+              * 1e3, "all_reduce_floats": ranks[0]["all_reduce_floats"],
+              "traces": [out["trace"] for out in ranks]}
+    print(f"dp_train: {RANKS} ranks sharing one card over "
+          f"{result['backend']}, global batch {BATCH}: {result['step_ms']:.1f}"
+          f" ms a step, {result['img_per_s_two_ranks_one_card']:.2f} img/s "
+          f"(two ranks on one card: not a scaling number), gradient "
+          f"all-reduce {result['all_reduce_ms']:.2f} ms for "
+          f"{result['all_reduce_floats']} floats", flush=True)
+    return ranks[0]["launches"], result
+
+
+def _spatial_rank(rank, world, settings, plan):
+    """Phase 27 on one of ``world`` H-strip ranks sharing the card over
+    gloo (``create_spatial_mesh(1, world)``, ``dp_shard_map``): the f32
+    gradients at SPATIAL_F32_POINT with the nearest ReLU kink the strips
+    met, the bf16 main path at batch BATCH against ``spatial_launches``,
+    timing, and converged256 served at SPATIAL_SERVE_SIZE² through
+    ``InferenceSession(spatial_devices=world)``."""
+    _enter_rank(settings)
+    from cyclegan_tpu_torch.apps.inference import InferenceSession
+    from cyclegan_tpu_torch import kernels
+    from cyclegan_tpu_torch.config import yaml2namespace
+    from cyclegan_tpu_torch.ops import norm as norm_ops
+    from cyclegan_tpu_torch.parallel import create_spatial_mesh, shard_batch
+    from cyclegan_tpu_torch.steps import make_train_step
+
+    mesh = create_spatial_mesh(data=1, spatial=world)
+    cfg = yaml2namespace(MODEL_DIR / "model_config.yaml")
+    loss, weights = cfg["loss"], cfg["loss_weights"]
+    kw = dict(mesh=mesh, spatial_axis="spatial", shard_map_dp=True)
+    out = {"backend": mesh.backend}
+    point = SPATIAL_F32_POINT
+    x = shard_batch(mesh, f32_point_inputs(point), spatial_axis="spatial")
+    state = _train_state(cfg, DEVICE, MODEL_DIR, point["seed"],
+                         point["beta"])
+    activation, nearest = norm_ops.activation, [math.inf]
+
+    def recording(y, act, alpha):
+        if act != "none":
+            nearest[0] = min(nearest[0], float(y.detach().abs().min()))
+        return activation(y, act, alpha)
+
+    norm_ops.activation = recording
+    try:
+        make_train_step(loss, weights, "float32", **kw)(
+            state, *(t.to(DEVICE) for t in x))
+    finally:
+        norm_ops.activation = activation
+    out["f32"], out["nearest_kink"] = _grads(state), nearest[0]
+    state = _train_state(cfg, DEVICE, MODEL_DIR)
+    step = make_train_step(loss, weights, "bfloat16", preprocess=_jitter,
+                           **kw)
+    batch = shard_batch(mesh, _uint8_batch(BATCH), axis_name=None,
+                        spatial_axis="spatial")
+    out["launches"], out["metrics"] = _planned_rank_step(
+        "spatial_train", step, state, batch, plan)
+    out["step_s"], out["all_reduce_s"], out["all_reduce_floats"] = \
+        _timed_steps(step, state, batch, mesh)
+    # every rank runs the traced steps: their collectives pair up
+    out["trace"] = device_trace(lambda: step(state, *batch), None, 3,
+                                f"spatial_rank{rank}_trace.json")
+    out["params"] = float(sum(p.detach().double().sum() for m in
+                              state.models.values()
+                              for p in m.parameters()))
+    del state, step
+    session = InferenceSession(MODEL_DIR, "bfloat16", tpu_layout=True,
+                               spatial_devices=world, device=DEVICE)
+    images = np.random.default_rng(27).integers(
+        0, 256, (SPATIAL_SERVE_BATCH, SPATIAL_SERVE_SIZE,
+                 SPATIAL_SERVE_SIZE, 3), dtype=np.uint8)
+    session.stylize(images, "a2b")
+    kernels.reset_launches()
+    out["served"] = session.stylize(images, "a2b")
+    _sync()
+    out["serve_launches"] = _launched()
+    walls = []
+    for _ in range(3):
+        _sync()
+        t0 = time.perf_counter()
+        session.stylize(images, "a2b")
+        walls.append(time.perf_counter() - t0)
+    out["serve_ms"] = statistics.median(walls) * 1e3
+    out["failures"] = list(failures)
+    return out
+
+
+def spatial(cfg, plan, serve_plan, prepare=None):
+    """Phase 27: RANKS H-strip ranks sharing the card over gloo, U-Net
+    (converged256) with ``dp_shard_map``: (a) the f32 step at
+    SPATIAL_F32_POINT against the unsharded card step within
+    TRAIN_F32_REL (the nearest kink the strips met reported), (b) each
+    rank's bf16 step at batch BATCH against ``plan`` (K1, K3-K5, K7, K8 on
+    strips, no K2 or K6), three finite steps, timing, (c) the spatial
+    session at SPATIAL_SERVE_SIZE² (``serve_plan`` per forward) within the
+    serving bounds of the unsharded sessions on the card (f32 the
+    reference, bf16 the yardstick). Returns (rank 0's step launches, its
+    serving launches, forwards, metrics)."""
+    from cyclegan_tpu_torch.apps.inference import InferenceSession
+    from cyclegan_tpu_torch.parallel import run_ranks
+
+    ranks = run_ranks(_spatial_rank, RANKS, (_rank_settings(prepare), plan),
+                      backend="gloo", timeout=RANK_TIMEOUT)
+    for r, out in enumerate(ranks):
+        for msg in out["failures"]:
+            fail(f"rank {r}: {msg}")
+    if len({out["params"] for out in ranks}) != 1:
+        fail(f"spatial_train: the ranks' parameters differ "
+             f"{[out['params'] for out in ranks]}")
+    point = SPATIAL_F32_POINT
+    want = step_grads(cfg, DEVICE, "float32", f32_point_inputs(point),
+                      MODEL_DIR, point["seed"], point["beta"])
+    errors = _check_grads("spatial_train", ranks[0]["f32"], want)
+    kink = min(out["nearest_kink"] for out in ranks)
+    images = np.random.default_rng(27).integers(
+        0, 256, (SPATIAL_SERVE_BATCH, SPATIAL_SERVE_SIZE,
+                 SPATIAL_SERVE_SIZE, 3), dtype=np.uint8)
+    ref = InferenceSession(MODEL_DIR, "float32", tpu_layout=True,
+                           device=DEVICE).stylize(images, "a2b")
+    whole16 = InferenceSession(MODEL_DIR, "bfloat16", tpu_layout=True,
+                               device=DEVICE).stylize(images, "a2b")
+    for r, out in enumerate(ranks):
+        if not np.array_equal(out["served"], ranks[0]["served"]):
+            fail(f"spatial_serve: rank {r} got another image")
+    quality = serving_quality("spatial_serve_512", ranks[0]["served"], ref,
+                              whole16)
+    forwards = 1
+    per_forward = {k: len(v) for k, v in serve_plan.items()}
+    if ranks[0]["serve_launches"] != per_forward:
+        fail(f"spatial_serve_512 launches {ranks[0]['serve_launches']}, "
+             f"plan {per_forward} a forward")
+    step_s = max(out["step_s"] for out in ranks)
+    result = {"ranks": RANKS, "backend": ranks[0]["backend"],
+              "batch": BATCH, "size": SIZE, "f32_point": point,
+              "nearest_kink": kink, "gradient_errors": errors,
+              "metrics": ranks[0]["metrics"], "step_ms": step_s * 1e3,
+              "img_per_s_two_ranks_one_card": BATCH / step_s,
+              "all_reduce_ms": max(out["all_reduce_s"] for out in ranks)
+              * 1e3, "traces": [out["trace"] for out in ranks],
+              "serve_size": SPATIAL_SERVE_SIZE,
+              "serve_batch": SPATIAL_SERVE_BATCH,
+              "serve_request_ms": max(out["serve_ms"] for out in ranks),
+              "quality": quality}
+    print(f"spatial_train: {RANKS} strips on one card over "
+          f"{result['backend']}, batch {BATCH}: {result['step_ms']:.1f} ms "
+          f"a step, {result['img_per_s_two_ranks_one_card']:.2f} img/s (two "
+          f"ranks on one card), nearest kink {kink}; spatial serving "
+          f"{SPATIAL_SERVE_SIZE}² batch {SPATIAL_SERVE_BATCH}: "
+          f"{result['serve_request_ms']:.1f} ms a request", flush=True)
+    return (ranks[0]["launches"], ranks[0]["serve_launches"], forwards,
+            result)
+
+
+def _nccl_rank(rank, world):
+    torch.cuda.set_device(0)
+    t = torch.ones(1, device="cuda")
+    import torch.distributed as dist
+
+    dist.all_reduce(t)
+    return float(t)
+
+
+def nccl_two_ranks():
+    """Whether NCCL takes two ranks on the one card (it refuses a
+    duplicate GPU): the first line of its error, or None where it took
+    them. The phases with two ranks on the card use gloo."""
+    from cyclegan_tpu_torch.parallel import run_ranks
+
+    try:
+        run_ranks(_nccl_rank, RANKS, backend="nccl", timeout=120)
+    except RuntimeError as exc:
+        lines = [line.strip() for line in str(exc).splitlines()
+                 if "uplicate" in line or "Error" in line]
+        note = lines[0] if lines else str(exc).splitlines()[-1]
+        print(f"nccl with {RANKS} ranks on one card: {note}", flush=True)
+        return note
+    print(f"nccl with {RANKS} ranks on one card: accepted", flush=True)
+    return None
 def kernel_entries(rows, max_err, launches, forwards, serve_plans):
     """The ``kernels`` JSON line: per kernel, its launches in every main
     path's run (``launches`` their sum), and its times summed over the
@@ -3351,9 +3873,21 @@ def main(argv=None) -> int:
     bn_cfg = batchnorm_config()
     plans["unet_bn_train"] = batchnorm_launches(train_launches(bn_cfg, BATCH,
                                                                SIZE))
+    # phases 26-27: a mesh of one over NCCL (the default step's launches),
+    # each of RANKS data ranks at its batch, each of RANKS H strips
+    plans["dp_nccl1_train"] = train_launches(cfgs["unet"], BATCH, SIZE)
+    plans["dp_train"] = train_launches(cfgs["unet"], BATCH // RANKS, SIZE)
+    plans["spatial_train"] = spatial_launches(
+        train_launches(cfgs["unet"], BATCH, SIZE), RANKS)
+    serve_plans["spatial_serve_512"] = spatial_launches(serve_launches(
+        cfgs["unet"].generator, SPATIAL_SERVE_BATCH, SPATIAL_SERVE_SIZE),
+        RANKS)
     serve_plans["unet_bn_serve"] = batchnorm_launches(
         serve_launches(bn_cfg["generator"], BATCH, SIZE))
-    paths = {path: with_simt(unique_shapes(plan))
+    # the ranks' bf16 steps launch no CUDA-core design, and their f32
+    # steps' are phase 2's f32 K1 and K5 at the same shapes
+    paths = {path: unique_shapes(plan) if path in RANK_PATHS
+             else with_simt(unique_shapes(plan))
              for path, plan in plans.items()}
     with no_tf32():
         max_err = check_kernels(union_shapes(paths))
@@ -3450,6 +3984,23 @@ def main(argv=None) -> int:
         data_launches, metrics["data_layer"] = data_layer(Path(tmp))
         launches.update(data_launches)
         stamp("phase 25 (data layer)")
+        nccl_note = nccl_two_ranks()
+        launches["dp_nccl1_train"], metrics["dp_nccl1"] = world1_nccl(
+            cfgs["unet"], plans["dp_nccl1_train"], Path(tmp))
+        launches["dp_train"], metrics["data_parallel"] = data_parallel(
+            cfgs["unet"], plans["dp_train"])
+        metrics["data_parallel"]["nccl_two_ranks_one_card"] = nccl_note
+        stamp("phase 26 (data parallel)")
+        with no_tf32():
+            shapes = unique_shapes(serve_plans["spatial_serve_512"])
+            for key, err in check_kernels(shapes, "spatial 512 ").items():
+                max_err[key] = max(max_err.get(key, 0.0), err)
+            rows += time_kernels({"spatial_serve_512": shapes})
+        (launches["spatial_train"], launches["spatial_serve_512"],
+         forwards["spatial_serve_512"], metrics["spatial"]) = spatial(
+            cfgs["unet"], plans["spatial_train"],
+            serve_plans["spatial_serve_512"])
+        stamp("phase 27 (spatial)")
 
     entries = kernel_entries(rows, max_err, launches, forwards, serve_plans)
     for path, plan in {**plans, **serve_plans}.items():

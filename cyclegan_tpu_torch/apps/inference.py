@@ -17,6 +17,13 @@ writes no statistics. A batch-norm network serves on its moving
 statistics, restored from the checkpoint's ``model_state`` and kept f32
 whatever ``compute_dtype`` casts the parameters to (as the JAX session
 keeps ``model_state`` f32).
+
+``spatial_devices=N`` > 1 shards each image's H axis over the N ranks of
+an initialized process group (JAX ``apps/inference.py:44-60, 141-165``):
+every rank calls ``stylize`` on the same full batch, runs its strip
+through the generator (conv halos and norm sums exchanged,
+``ops/spatialctx.py``; the kernels on the strip in NHCW) and gets the whole
+output back, gathered over the ranks.
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ from cyclegan_tpu_torch.config import yaml2namespace
 from cyclegan_tpu_torch.data.augment import denormalize_to_uint8, normalize
 from cyclegan_tpu_torch.data.codec import resize_rgb
 from cyclegan_tpu_torch.models import create_model
-from cyclegan_tpu_torch.ops import cuda_norm, layout
+from cyclegan_tpu_torch.ops import cuda_norm, layout, spatialctx
+from cyclegan_tpu_torch.parallel import spatial as spatial_mesh
 from cyclegan_tpu_torch.utils.checkpoint import load_pytree
 from cyclegan_tpu_torch.weights import (
     load_jax_params,
@@ -64,7 +72,8 @@ class InferenceSession:
     "auto" (see the module docstring); ``self.tpu_layout`` is the bool it
     resolved to. ``device`` defaults to ``cuda`` and raises where there is
     no card; pass ``device="cpu"`` to run the plain PyTorch versions of the
-    kernels.
+    kernels. ``spatial_devices`` > 1 needs a process group of that many
+    ranks (the module docstring); ``self.spatial_mesh`` is its mesh.
     """
 
     def __init__(self, model_dir: Union[str, Path],
@@ -75,10 +84,21 @@ class InferenceSession:
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype!r} not in "
                              f"{sorted(_DTYPES)}")
+        self.spatial_mesh = None
         if int(spatial_devices) > 1:
-            raise NotImplementedError(
-                "InferenceSession(spatial_devices > 1): H-axis spatial "
-                "sharding is not ported yet (ROADMAP.md queue 1, item 7)")
+            import torch.distributed as dist
+
+            world = (dist.get_world_size() if dist.is_available()
+                     and dist.is_initialized() else 0)
+            if world != int(spatial_devices):
+                raise RuntimeError(
+                    f"InferenceSession(spatial_devices={spatial_devices}) "
+                    f"needs an initialized process group of "
+                    f"{spatial_devices} ranks (have "
+                    f"{world or 'none'}): start one process per device "
+                    f"and call parallel.init_distributed in each")
+            self.spatial_mesh = spatial_mesh.create_spatial_mesh(
+                data=1, spatial=int(spatial_devices))
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -125,12 +145,18 @@ class InferenceSession:
         x = torch.as_tensor(np.asarray(images)).to(self.device)
         x = normalize(x) if x.dtype == torch.uint8 else x.to(torch.float32)
         x = x.to(self.compute_dtype)
-        if self.tpu_layout:
-            with layout.nhcw():
-                y = layout.from_nhcw(model(layout.to_nhcw(x)))
-        else:
-            with layout.nhwc(), cuda_norm.scope(False):
-                y = model(x)
+        mesh = self.spatial_mesh
+        if mesh is not None:
+            x = spatial_mesh.shard_spatial(mesh, x, data_axis=None)
+        with spatial_mesh.scope(mesh):
+            if self.tpu_layout:
+                with layout.nhcw():
+                    y = layout.from_nhcw(model(layout.to_nhcw(x)))
+            else:
+                with layout.nhwc(), cuda_norm.scope(False):
+                    y = model(x)
+            if mesh is not None:
+                y = spatialctx.gather_h(y)
         return denormalize_to_uint8(y.to(torch.float32)).cpu().numpy()
 
     def prediction_triple(self, image_bgr: np.ndarray,

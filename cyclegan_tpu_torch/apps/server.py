@@ -117,6 +117,11 @@ def serve(model_dir: Path, host: str, port: int, size: int,
     request builds no kernel), then serve until interrupted."""
     from cyclegan_tpu_torch.apps.inference import InferenceSession
 
+    if int(spatial_devices) > 1:
+        raise NotImplementedError(
+            "serve(spatial_devices > 1): the HTTP server runs one process; "
+            "spatial serving needs rank 0 to answer requests while the "
+            "other ranks follow each one (ROADMAP.md queue 1, item 7b)")
     session = InferenceSession(model_dir, compute_dtype=dtype,
                                spatial_devices=spatial_devices,
                                device=device)

@@ -12,6 +12,12 @@ The shards are written by ``data/tfrecord.py`` ``tfrecord_writer``. The
 native C++ loader (``data/native.py``) decodes them where it builds, the
 Python path otherwise; ``data/streaming.py`` is the loader that decodes
 per batch.
+
+Several processes feeding one global batch (``process_index`` of
+``process_count``, the data ranks of a mesh) walk the same permutation and
+each take their disjoint ``batch_size`` slice of every global
+``batch_size * process_count`` batch; tails that do not fill a global batch
+are dropped on every process.
 """
 
 from __future__ import annotations
@@ -60,30 +66,45 @@ def _load_domain(records: Sequence[str], width: int) -> np.ndarray:
     return np.stack(images).astype(np.uint8)
 
 
+def _check_host_shard(process_index: int, process_count: int) -> None:
+    if process_count < 1:
+        raise ValueError(f"process_count must be >= 1, got {process_count}")
+    if not 0 <= process_index < process_count:
+        raise ValueError(f"process_index {process_index} out of range for "
+                         f"process_count {process_count}")
+
+
 class ArrayDataset:
     """A paired two-domain dataset yielding per-epoch uint8 batches.
 
     An epoch has min(len_a, len_b) pairs. Training epochs reshuffle both
     domains independently with a (seed, epoch)-keyed permutation; batches
-    that would be partial are dropped, so every batch has one shape.
+    that would be partial are dropped, so every batch has one shape. With
+    ``process_count`` > 1, ``batch_size`` is this process's slice of each
+    global batch (the module docstring).
     """
 
     def __init__(self, images_a: np.ndarray, images_b: np.ndarray,
-                 shuffle: bool = True, seed: int = 0):
+                 shuffle: bool = True, seed: int = 0,
+                 process_index: int = 0, process_count: int = 1):
+        _check_host_shard(process_index, process_count)
         self.images_a = images_a
         self.images_b = images_b
         self.shuffle = shuffle
         self.seed = seed
+        self.process_index = process_index
+        self.process_count = process_count
 
     def __len__(self) -> int:
         return min(len(self.images_a), len(self.images_b))
 
     def num_batches(self, batch_size: int) -> int:
-        return len(self) // batch_size
+        return len(self) // (batch_size * self.process_count)
 
     def batches(self, batch_size: int, epoch: int = 0
                 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        """Yield (a, b) uint8 batch pairs for one epoch."""
+        """Yield (a, b) uint8 batch pairs for one epoch: this process's
+        slice of each global batch."""
         n = len(self)
         if self.shuffle:
             rng = np.random.default_rng((self.seed, epoch))
@@ -92,7 +113,9 @@ class ArrayDataset:
         else:
             idx_a = np.arange(n)
             idx_b = np.arange(n)
-        for start in range(0, n - n % batch_size, batch_size):
+        stride = batch_size * self.process_count
+        off = self.process_index * batch_size
+        for start in range(off, n - n % stride, stride):
             yield (self.images_a[idx_a[start:start + batch_size]],
                    self.images_b[idx_b[start:start + batch_size]])
 
@@ -104,10 +127,15 @@ class ArrayDataset:
 
 def create_dataset(records_a: Sequence[str], records_b: Sequence[str],
                    validation_split: float = 0.2, width: int = 128,
-                   seed: int = 0) -> Tuple[ArrayDataset, ArrayDataset]:
+                   seed: int = 0, process_index: int = 0,
+                   process_count: int = 1
+                   ) -> Tuple[ArrayDataset, ArrayDataset]:
     """(train, validation) datasets from two domains' TFRecord shards. The
     validation size is ``int(validation_split * len(domain_a))`` for both
-    domains; membership is a seeded permutation per domain."""
+    domains; membership is a seeded permutation per domain. Each of
+    ``process_count`` processes feeds its slice of every global batch
+    (``ArrayDataset``); every process decodes the whole corpus (the
+    streaming loader reads only what a process feeds)."""
     images_a = _load_domain(records_a, width)
     images_b = _load_domain(records_b, width)
 
@@ -120,5 +148,7 @@ def create_dataset(records_a: Sequence[str], records_b: Sequence[str],
     train_a = images_a[perm_a[num_validation:]]
     val_b = images_b[perm_b[:num_validation]]
     train_b = images_b[perm_b[num_validation:]]
-    return (ArrayDataset(train_a, train_b, shuffle=True, seed=seed),
-            ArrayDataset(val_a, val_b, shuffle=False, seed=seed))
+    shard = dict(seed=seed, process_index=process_index,
+                 process_count=process_count)
+    return (ArrayDataset(train_a, train_b, shuffle=True, **shard),
+            ArrayDataset(val_a, val_b, shuffle=False, **shard))

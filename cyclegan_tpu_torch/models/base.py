@@ -57,7 +57,10 @@ def apply_norm_act(params: nn.ParameterDict, x: torch.Tensor,
     """Norm then activation. Instance norm: in NHCW one fused op (K2 on
     the card), in NHWC the norm (K13 with ``pallas_norm``, else torch ops)
     and then the activation. Batch norm: torch ops in both layouts, in the
-    mode ``ops/norm.py`` ``batch_stats`` scopes."""
+    mode ``ops/norm.py`` ``batch_stats`` scopes. Under an H-sharded scope
+    the fused K2 (and K13) is off, since its statistics would be one
+    strip's: ``instance_norm`` sums them over the strips in torch ops
+    (JAX ``base.py:133-140``)."""
     gamma = params["gamma"] if "gamma" in params else None
     beta = params["beta"] if "beta" in params else None
     if hasattr(params, "moving_mean"):

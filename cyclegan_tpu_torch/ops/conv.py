@@ -24,6 +24,21 @@ matrix product outside a kernel stays ``torch.matmul``; they are not kernels
 of the port. Both pad explicitly, since TF's padding is asymmetric where
 PyTorch's is not, and run f32 with TF32 off in forward and backward, as the
 JAX f32 path runs ``Precision.HIGHEST``.
+
+Under an H-sharded scope (``ops/spatialctx.py``, JAX ``conv.py:99-125,
+207-220, 240-320``) each conv takes the rows it needs from the
+neighbouring strips first. A stride-1 SAME conv in NHCW runs K1 unchanged
+on the halo-extended strip and keeps the interior rows (its own zero
+padding touches only the rows it drops); K1 takes the odd heights an even
+kernel's halo gives, so no zero row is added for parity as the Pallas
+kernel's row pairs needed. Autograd through the slice gives K1's dX and
+K5's dW on the extended strip, and the exchange's backward returns the
+halo rows' gradients to their strips. The stride-2 conv is the library
+convolution, VALID in H on the extended strip; the reflect conv is the
+reflect halo plus a VALID library conv (K9, K9-dW and K10 do not run
+under a spatial scope, as the JAX package's Pallas reflect conv does not);
+the transposed conv takes the halo widths JAX's dilated-coordinate
+algebra gives (``spatial_transpose_supported``).
 """
 
 from __future__ import annotations
@@ -36,10 +51,14 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from cyclegan_tpu_torch.ops import layout
+from cyclegan_tpu_torch.ops import layout, spatialctx
 from cyclegan_tpu_torch.ops.cuda_conv import conv_same
 from cyclegan_tpu_torch.ops.cuda_reflect import conv_reflect
 from cyclegan_tpu_torch.ops.pad import reflection_pad2d
+
+
+def _pair(v) -> list:
+    return list(v) if isinstance(v, (tuple, list)) else [v] * 2
 
 
 def _same_pad(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -94,16 +113,16 @@ class LibraryConv(torch.autograd.Function):
                 groups):
         with _full_f32(x.dtype):
             return torch.ops.aten.convolution(
-                x, w, bias, [stride] * 2, [padding] * 2, [1, 1], transposed,
-                [output_padding] * 2, groups)
+                x, w, bias, [stride] * 2, _pair(padding), [1, 1], transposed,
+                _pair(output_padding), groups)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         x, w, bias, stride, padding, transposed, output_padding, groups = \
             inputs
         ctx.save_for_backward(x, w)
-        ctx.conf = ([stride] * 2, [padding] * 2, transposed,
-                    [output_padding] * 2, groups)
+        ctx.conf = ([stride] * 2, _pair(padding), transposed,
+                    _pair(output_padding), groups)
         ctx.has_bias = bias is not None
 
     @staticmethod
@@ -167,13 +186,15 @@ def _from_nchw(y: torch.Tensor) -> torch.Tensor:
 
 def _library_conv(x: torch.Tensor, kernel: torch.Tensor,
                   bias: Optional[torch.Tensor], stride: int,
-                  same: bool = True) -> torch.Tensor:
+                  same: bool = True, valid_h: bool = False) -> torch.Tensor:
     """TF-'SAME' (or, without ``same``, 'VALID') conv as the library's, on
-    the explicitly padded input: in NHWC the pad is on dims 1-2, so the
-    NCHW view stays channels_last."""
+    the explicitly padded input (with ``valid_h``, not padded in H: a
+    halo-extended strip); in NHWC the pad is on dims 1-2, so the NCHW view
+    stays channels_last."""
     k = int(kernel.shape[0])
     h_axis, w_axis = layout.spatial_axes()
-    ph = _same_pad(int(x.shape[h_axis]), k, stride) if same else (0, 0)
+    ph = (_same_pad(int(x.shape[h_axis]), k, stride)
+          if same and not valid_h else (0, 0))
     pw = _same_pad(int(x.shape[w_axis]), k, stride) if same else (0, 0)
     if layout.is_nhcw():
         xp = F.pad(_nchw(x), (*pw, *ph))
@@ -193,9 +214,29 @@ def conv2d(x: torch.Tensor, kernel: torch.Tensor,
     library convolution on the explicitly padded input."""
     if padding not in ("SAME", "VALID"):
         raise ValueError(f"conv2d(padding={padding!r}): 'SAME' or 'VALID'")
+    if padding == "SAME" and spatialctx.is_active():
+        return _spatial_conv(x, kernel, bias, stride)
     if padding == "SAME" and stride == 1 and layout.is_nhcw():
         return conv_same(x, kernel, bias)
     return _library_conv(x, kernel, bias, stride, padding == "SAME")
+
+
+def _tf_same_pad(kernel: int, stride: int) -> Tuple[int, int]:
+    """TF 'SAME' (before, after) for an input divisible by the stride."""
+    total = max(kernel - stride, 0)
+    return total // 2, total - total // 2
+
+
+def _spatial_conv(x, kernel, bias, stride):
+    """A TF-'SAME' conv of this rank's strip: the halo rows exchanged,
+    then K1 on the extended strip keeping its interior (stride 1, NHCW) or
+    the library conv, VALID in H."""
+    pa, pb = _tf_same_pad(int(kernel.shape[0]), stride)
+    x_ext = spatialctx.halo_exchange_h(x, pa, pb)
+    if stride == 1 and layout.is_nhcw():
+        y = conv_same(x_ext, kernel, bias)
+        return y[:, pa:pa + x.shape[1]].contiguous()
+    return _library_conv(x_ext, kernel, bias, stride, valid_h=True)
 
 
 def conv2d_reflect(x: torch.Tensor, kernel: torch.Tensor,
@@ -203,10 +244,16 @@ def conv2d_reflect(x: torch.Tensor, kernel: torch.Tensor,
     """Reflect-pad(K//2) + VALID convolution, odd K: output H, W == input
     H, W (the reference's ReflectionPadding2D + Conv2D(padding='valid')).
     In NHCW it is K9; in NHWC ``reflection_pad2d`` and the library
-    convolution, as the JAX package's XLA path composes them."""
+    convolution, as the JAX package's XLA path composes them. Under a
+    spatial scope, the reflect halo and a VALID library conv in either
+    layout."""
+    p = int(kernel.shape[0]) // 2
+    if spatialctx.is_active():
+        x_ext = spatialctx.halo_exchange_h_reflect(x, p)
+        return _library_conv(reflection_pad2d(x_ext, (p, 0)), kernel, bias,
+                             1, same=False)
     if layout.is_nhcw():
         return conv_reflect(x, kernel, bias)
-    p = int(kernel.shape[0]) // 2
     y = LibraryConv.apply(_nchw(reflection_pad2d(x, (p, p))),
                           kernel.permute(3, 2, 0, 1), bias, 1, 0, False, 0,
                           1)
@@ -224,12 +271,43 @@ def conv2d_transpose(x: torch.Tensor, kernel: torch.Tensor,
     stride-s conv. ``conv_transpose2d`` with padding pb pads K-1-pb on both
     sides, plus ``output_padding`` after: s-K+2pb, which is -1 for k3 at
     stride 2. There the output is computed one row and column longer and the
-    last ones are dropped."""
+    last ones are dropped.
+
+    Under a spatial scope the strip takes a rows from above and b from
+    below (JAX's algebra: a = (K-1-pb)/s, b the real rows the last outputs
+    reach past the strip) and the dilated conv runs with no padding before
+    in H and hi after: ``conv_transpose2d`` at H padding K-1 and output
+    padding hi, which is 0 or 1 for the kernels that
+    ``spatial_transpose_supported`` passes."""
     k = int(kernel.shape[0])
     before = max(k - stride, 0) // 2
     extra = stride - k + 2 * before
+    pad, out_pad = before, max(extra, 0)
+    if spatialctx.is_active():
+        if not spatial_transpose_supported(k, stride):
+            raise NotImplementedError(
+                f"spatial conv_transpose needs pad_before' % stride == 0 "
+                f"(got kernel {k}, stride {stride})")
+        top = k - 1 - before
+        a = top // stride
+        b = max(0, (k - 2 - top) // stride + 1)
+        hi = k + stride - 2 - stride * (a + b)
+        x = spatialctx.halo_exchange_h(x, a, b)
+        pad, out_pad = (k - 1, before), (hi, max(extra, 0))
     y = LibraryConv.apply(_nchw(x), kernel.permute(3, 2, 0, 1), bias, stride,
-                          before, True, max(extra, 0), 1)
-    if extra < 0:
-        y = y[:, :, :y.shape[2] + extra, :y.shape[3] + extra]
+                          pad, True, out_pad, 1)
+    if extra < 0:  # not in H under a spatial scope: hi gave it exactly
+        rows = y.shape[2] + (0 if spatialctx.is_active() else extra)
+        y = y[:, :, :rows, :y.shape[3] + extra]
     return _from_nchw(y)
+
+
+def spatial_transpose_supported(kernel: int, stride: int = 2) -> bool:
+    """Whether ``conv2d_transpose`` runs under a spatial scope for this
+    (kernel, stride): the halo algebra needs pad_before' % stride == 0,
+    pad_before' = K - 1 - pb, so that the rows borrowed from the
+    neighbouring strip land on real, not dilation-zero, positions. At
+    stride 2 it passes k3, k4, k7 and k8 and refuses k5 and k6. Checked
+    at config load (``models.spatial_unsupported_transposes``)."""
+    pad_before = _tf_same_pad(kernel, stride)[0]
+    return (kernel - 1 - pad_before) % stride == 0

@@ -10,18 +10,30 @@ as tensorflow_addons' InstanceNormalization and Keras' BatchNormalization.
   f32 takes the two-pass variance, bf16 the single sweep E[x^2] - mean^2,
   both with f32 statistics; then the activation. Autograd differentiates
   them.
+
+Under an H-sharded scope (``ops/spatialctx.py``; JAX ``norm.py:32-60``)
+an instance norm is the torch-op norm in either layout, its local sums
+summed over the spatial group with count = local x strips
+(``spatialctx.all_reduce_sum``, differentiable), and never K2 or K13,
+whose statistics are one strip's. A train-mode batch norm sums its
+statistics, in the forward and in its closed-form backward, over the group
+that ``batch_group`` scopes: the train step gives it the whole mesh where
+the JAX package computes global batch statistics (data parallelism
+without ``dp_shard_map``), the spatial group where it computes them per
+data shard (``dp_shard_map``, JAX ``norm.py:108-130``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from cyclegan_tpu_torch.ops import cuda_norm, layout
+from cyclegan_tpu_torch.ops import cuda_norm, layout, spatialctx
 from cyclegan_tpu_torch.ops.cuda_norm_act import (
     TFA_EPSILON,
     instance_norm_act,
@@ -37,6 +49,33 @@ def _xla_instance_norm(x, gamma, beta, eps):
                           - mean * mean, min=0.0)
     else:
         var = ((xf - mean) ** 2).mean(dim=axes, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if gamma is not None:
+        y = y * layout.channel_param(gamma)
+    if beta is not None:
+        y = y + layout.channel_param(beta)
+    return y.to(x.dtype)
+
+
+def _spatial_instance_norm(x, gamma, beta, eps):
+    """``_xla_instance_norm`` of an H-sharded image: the local sums are
+    summed over the spatial group (one all-reduce of both sums in bf16,
+    the two passes' in f32)."""
+    axes = layout.spatial_axes()
+    group = spatialctx.group()
+    count = x.shape[axes[0]] * x.shape[axes[1]] * spatialctx.n_shards()
+    xf = x.float()
+    if x.dtype == torch.bfloat16:
+        sums = spatialctx.all_reduce_sum(torch.stack([
+            xf.sum(dim=axes, keepdim=True),
+            (xf * xf).sum(dim=axes, keepdim=True)]), group) / count
+        mean = sums[0]
+        var = torch.clamp(sums[1] - mean * mean, min=0.0)
+    else:
+        mean = spatialctx.all_reduce_sum(
+            xf.sum(dim=axes, keepdim=True), group) / count
+        var = spatialctx.all_reduce_sum(
+            ((xf - mean) ** 2).sum(dim=axes, keepdim=True), group) / count
     y = (xf - mean) * torch.rsqrt(var + eps)
     if gamma is not None:
         y = y * layout.channel_param(gamma)
@@ -61,6 +100,9 @@ def instance_norm(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
                   beta: Optional[torch.Tensor] = None,
                   eps: float = TFA_EPSILON, act: str = "none",
                   alpha: float = 0.2) -> torch.Tensor:
+    if spatialctx.is_active():
+        return activation(_spatial_instance_norm(x, gamma, beta, eps), act,
+                          alpha)
     if layout.is_nhcw():
         return instance_norm_act(x, gamma, beta, eps, act, alpha)
     if cuda_norm.is_enabled():
@@ -77,6 +119,8 @@ BN_MOMENTUM = 0.99  # Keras: new = old * momentum + batch * (1 - momentum)
 class _BatchStats(threading.local):
     train = False
     sink: Optional[Dict[Any, Tuple[torch.Tensor, torch.Tensor]]] = None
+    group = None  # the ranks whose batches the statistics span
+    ranks = 1
 
 
 _BN = _BatchStats()
@@ -99,6 +143,31 @@ def batch_stats(train: bool = True, sink: Optional[dict] = None):
 def batch_mode() -> Tuple[bool, Optional[dict]]:
     """The scope's (train, sink)."""
     return _BN.train, _BN.sink
+
+
+@contextlib.contextmanager
+def batch_group(group, ranks: int):
+    """Scope the process group over whose ``ranks`` equal batches a
+    train-mode batch norm computes its statistics (None: this rank's
+    batch alone)."""
+    prev = _BN.group, _BN.ranks
+    _BN.group, _BN.ranks = (group, int(ranks)) if ranks > 1 else (None, 1)
+    try:
+        yield
+    finally:
+        _BN.group, _BN.ranks = prev
+
+
+def current_batch_group() -> Tuple[Any, int]:
+    return _BN.group, _BN.ranks
+
+
+def _summed(t: torch.Tensor, group) -> torch.Tensor:
+    """t summed over ``group`` in place (not differentiated: inside a
+    Function)."""
+    if group is not None:
+        torch.distributed.all_reduce(t, group=group)
+    return t
 
 
 def commit_batch_stats(sink: dict) -> None:
@@ -156,16 +225,28 @@ class BatchNormAct(torch.autograd.Function):
 
     (x_hat never materialized), each line a few passes over x. The
     activation's gradient is read off y (relu: y > 0; leaky_relu: y >= 0,
-    else alpha), so the pre-activation is not kept either."""
+    else alpha), so the pre-activation is not kept either.
+
+    With a ``group`` of ``ranks`` (``batch_group``), the statistics span
+    every rank's equal batch: the forward sums Σx and Σxc² over the group,
+    the backward sums dbeta and dgamma over it for dx (n counts every
+    rank's elements) and keeps this rank's own for the parameters' grads,
+    which the train step then averages."""
 
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(x, gamma, beta, axes, act, alpha, eps):
+    def forward(x, gamma, beta, axes, act, alpha, eps, group=None, ranks=1):
         xf = x.float()
-        mean = xf.mean(dim=axes, keepdim=True)
-        xc = xf - mean
-        var = (xc * xc).mean(dim=axes, keepdim=True)
+        if group is None:
+            mean = xf.mean(dim=axes, keepdim=True)
+            xc = xf - mean
+            var = (xc * xc).mean(dim=axes, keepdim=True)
+        else:
+            n = math.prod(xf.shape[a] for a in axes) * ranks
+            mean = _summed(xf.sum(dim=axes, keepdim=True), group) / n
+            xc = xf - mean
+            var = _summed((xc * xc).sum(dim=axes, keepdim=True), group) / n
         scale = torch.rsqrt(var + eps)
         if gamma is not None:
             scale = scale * gamma.reshape(mean.shape)
@@ -175,11 +256,12 @@ class BatchNormAct(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, gamma, beta, axes, act, alpha, eps = inputs
+        x, gamma, beta, axes, act, alpha, eps, group, ranks = inputs
         y, mean, var = output
         ctx.mark_non_differentiable(mean, var)
         ctx.save_for_backward(x, gamma, y, mean, var)
         ctx.axes, ctx.act, ctx.alpha, ctx.eps = axes, act, alpha, eps
+        ctx.group, ctx.ranks = group, ranks
         ctx.beta_dtype = None if beta is None else beta.dtype
 
     @staticmethod
@@ -192,19 +274,24 @@ class BatchNormAct(torch.autograd.Function):
         elif ctx.act == "leaky_relu":
             g = torch.where(y >= 0, g, g * ctx.alpha)
         xc = x.float() - mean
-        n = xc.numel() // mean.numel()
+        n = xc.numel() // mean.numel() * ctx.ranks
         rstd = torch.rsqrt(var + ctx.eps)
         sum_g = g.sum(dim=axes, keepdim=True)
         dgamma_c = rstd * (g * xc).sum(dim=axes, keepdim=True)
         k1 = rstd if gamma is None else rstd * gamma.reshape(mean.shape)
-        dx = torch.addcmul(torch.addcmul(-k1 * sum_g / n, g, k1), xc,
-                           -k1 * rstd * dgamma_c / n)
+        all_g, all_gamma = sum_g, dgamma_c
+        if ctx.group is not None:  # dx reads the sums over every rank
+            all_g, all_gamma = _summed(torch.stack([sum_g, dgamma_c]),
+                                       ctx.group)
+        dx = torch.addcmul(torch.addcmul(-k1 * all_g / n, g, k1), xc,
+                           -k1 * rstd * all_gamma / n)
         dgamma = dbeta = None
         if gamma is not None and ctx.needs_input_grad[1]:
             dgamma = dgamma_c.reshape(gamma.shape).to(gamma.dtype)
         if ctx.beta_dtype is not None and ctx.needs_input_grad[2]:
             dbeta = sum_g.reshape(-1).to(ctx.beta_dtype)
-        return dx.to(x.dtype), dgamma, dbeta, None, None, None, None
+        return (dx.to(x.dtype), dgamma, dbeta, None, None, None, None, None,
+                None)
 
 
 def batch_norm(x: torch.Tensor, gamma: Optional[torch.Tensor],
@@ -222,7 +309,8 @@ def batch_norm(x: torch.Tensor, gamma: Optional[torch.Tensor],
         return activation(y, act, alpha)
     y, mean, var = BatchNormAct.apply(x, gamma, beta,
                                       (0,) + layout.spatial_axes(), act,
-                                      alpha, BN_EPSILON)
+                                      alpha, BN_EPSILON, _BN.group,
+                                      _BN.ranks)
     if _BN.sink is not None:
         m = BN_MOMENTUM
         _BN.sink[owner] = (moving_mean * m + mean.reshape(-1) * (1.0 - m),

@@ -71,15 +71,43 @@ application to the fake batch (the parameter view of ``disc_views``);
 identity and real-batch passes, the recompute of ``remat`` and the
 ``paired`` step (which keeps the old statistics, as JAX's does) commit
 nothing. The validate step normalizes with the moving statistics.
+
+Parallelism (JAX ``steps.py`` ``mesh``, ``mesh_axis``, ``spatial_axis``,
+``shard_map_dp``): with a ``parallel.Mesh`` each rank runs the step on its
+block of the batch, its data slice and, with a spatial axis of more than
+one rank, its H strip (``ops/spatialctx.py``: conv halos and norm sums
+exchanged explicitly, the kernels on local blocks). After the one backward,
+every gradient, flattened into one buffer, is summed over the mesh with
+one ``all_reduce`` and divided by its size, and so are the metrics: JAX's
+``pmean`` over the data and spatial axes. There is no DDP wrapper: the step
+applies each network several times before its one backward. Random draws,
+as JAX draws them: without ``shard_map_dp`` each data rank draws the whole
+global batch's jitter (and dropout masks, over the whole image) from the
+state's generators and keeps its own rows, which is the single-device
+draw; with it, each rank's per-step generators are derived from one draw
+of the state's and its data index (its data and spatial index for the
+dropout masks, so strips differ). The spatial ranks of one sample gather
+its H axis, jitter the whole images identically and keep their strips
+(a strip of a resized image is not the resize of a strip). A train-mode
+batch norm's statistics span the whole mesh without ``shard_map_dp`` (the
+global batch's, as JAX's sharded mean gives) and one data shard's strips
+with it (JAX's per-shard statistics); with it and more than one data
+rank, rank 0's new moving statistics are broadcast, so the replicas stay
+equal (JAX's shard_map returns one shard's). Spatial sharding with
+``tpu_layout`` needs ``shard_map_dp``, as in JAX
+(``_check_spatial_kernel_exclusion``); ``paired`` runs without a spatial
+axis.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+import math
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call, vmap
 from torch.utils.checkpoint import checkpoint
@@ -92,10 +120,12 @@ from cyclegan_tpu_torch.losses import (
     get_loss_obj,
     identity_loss,
 )
+from cyclegan_tpu_torch.data.augment import global_draw
 from cyclegan_tpu_torch.models import create_model
-from cyclegan_tpu_torch.ops import cuda_norm, layout
+from cyclegan_tpu_torch.ops import cuda_norm, layout, spatialctx
 from cyclegan_tpu_torch.ops import norm as norm_ops
 from cyclegan_tpu_torch.optimizers import get_optimizer
+from cyclegan_tpu_torch.parallel import spatial as spatial_mesh
 
 NETWORKS = ("g_AB", "g_BA", "d_A", "d_B")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -176,13 +206,15 @@ def _dropout_kw(masks) -> Dict[str, Any]:
     return {} if masks is None else {"masks": masks}
 
 
-def _draw_masks(model: nn.Module, shape, generator: Optional[torch.Generator],
-                lead: tuple = ()):
+def _draw_masks(model: nn.Module, shape, generator, lead: tuple = ()):
     """A generator application's dropout masks (``dropout_masks``), None
-    without a generator or without dropout."""
+    without a generator or without dropout. ``generator`` may instead be
+    a function of (model, shape, lead) that draws them (a mesh's)."""
     draw = getattr(model, "dropout_masks", None)
     if generator is None or draw is None:
         return None
+    if not isinstance(generator, torch.Generator):
+        return generator(model, shape, lead)
     return draw(tuple(shape), generator, lead)
 
 
@@ -194,10 +226,12 @@ def _rematerialized(fn: Callable, *args):
     statistics."""
     name, norm = layout.current(), cuda_norm.is_enabled()
     train, sink = norm_ops.batch_mode()
+    strips, batch = spatialctx.current(), norm_ops.current_batch_group()
     sinks = [sink]
 
     def run(*inputs):
         with layout.scope(name), cuda_norm.scope(norm), \
+                spatialctx.scope(strips), norm_ops.batch_group(*batch), \
                 norm_ops.batch_stats(train, sinks.pop() if sinks else None):
             return fn(*inputs)
 
@@ -414,13 +448,168 @@ def _weights(loss_weights: Mapping[str, float]) -> Dict[str, float]:
     return {k: float(v) for k, v in dict(loss_weights).items()}
 
 
+def _check_spatial_kernel_exclusion(spatial_axis: Optional[str],
+                                    tpu_layout: bool) -> None:
+    """The JAX package's one structural constraint of its step builders:
+    its partitioner cannot split the kernels, so spatial sharding with
+    ``tpu_layout`` needs the explicit path, ``shard_map_dp``."""
+    if spatial_axis is not None and tpu_layout:
+        raise ValueError(
+            "spatial_axis and tpu_layout are mutually exclusive without "
+            "shard_map_dp, as in the JAX package (Pallas custom calls are "
+            "opaque to the SPMD partitioner); pass shard_map_dp=True to "
+            "run the kernels on H-sharded strips")
+
+
+_SEED_MIX = 0x9E3779B97F4A7C15  # odd 64-bit constant (golden ratio)
+
+
+def _derived_seed(seed: int, index: int, stream: int) -> int:
+    return (seed + _SEED_MIX * (2 * index + stream + 1)) % (1 << 63)
+
+
+class _Parallel:
+    """A step's mesh: its data axis (or axes, the first outermost), its
+    spatial axis where that has more than one rank, and ``shard_map_dp``.
+    Averages go over the data and spatial axes (``group``, ``size``)."""
+
+    def __init__(self, mesh, mesh_axis, spatial_axis, shard_map_dp):
+        self.mesh = mesh
+        data_axes = ((mesh_axis,) if isinstance(mesh_axis, str)
+                     else tuple(mesh_axis))
+        self.spatial_axis = (spatial_axis if mesh.axis_size(spatial_axis)
+                             > 1 else None)
+        self.shard_map_dp = bool(shard_map_dp)
+        self.data_size = math.prod(mesh.axis_size(a) for a in data_axes)
+        self.data_index = 0
+        for a in data_axes:
+            self.data_index = self.data_index * mesh.axis_size(a) \
+                + mesh.index(a)
+        self.n_sp = mesh.axis_size(self.spatial_axis)
+        self.sp_index = mesh.index(self.spatial_axis)
+        axes = data_axes + ((self.spatial_axis,) if self.spatial_axis
+                            else ())
+        self.group = mesh.group(axes)
+        self.size = self.data_size * self.n_sp
+
+    @contextlib.contextmanager
+    def scope(self):
+        """The strip's spatial scope, and the batch norms' group: the
+        spatial ranks of this data shard with ``shard_map_dp``, the whole
+        mesh without."""
+        if self.shard_map_dp:
+            bn = (self.mesh.group(self.spatial_axis), self.n_sp)
+        else:
+            bn = (self.group, self.size)
+        with spatial_mesh.scope(self.mesh, self.spatial_axis), \
+                norm_ops.batch_group(*bn):
+            yield
+
+    def mean(self, tensors: Sequence[torch.Tensor]) -> list:
+        """Each tensor's mean over the mesh: one all-reduce of them all,
+        flattened into one f32 buffer."""
+        flat = torch.cat([t.reshape(-1).float() for t in tensors])
+        dist.all_reduce(flat, group=self.group)
+        flat /= self.size
+        return [v.view(t.shape).to(t.dtype) for v, t in
+                zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+    def average_grads(self, models: Mapping[str, nn.Module]) -> None:
+        grads = [p.grad for name in NETWORKS
+                 for p in models[name].parameters() if p.grad is not None]
+        for g, mean in zip(grads, self.mean(grads)):
+            g.copy_(mean)
+
+    def broadcast_stats(self, stats: Mapping[str, dict]) -> None:
+        """Rank 0's committed moving statistics to every rank."""
+        owners = [o for kept in stats.values() for o in kept]
+        if not owners:
+            return
+        flat = torch.cat([torch.cat([o.moving_mean, o.moving_var])
+                          for o in owners])
+        dist.broadcast(flat, src=0, group=self.group)
+        for o, part in zip(owners, flat.split([2 * o.moving_mean.numel()
+                                               for o in owners])):
+            mean, var = part.chunk(2)
+            o.moving_mean.copy_(mean)
+            o.moving_var.copy_(var)
+
+    def generators(self, state):
+        """(jitter generator, dropout draw, jitter scope) of one step: the
+        state's, drawing the global batch and keeping this rank's block,
+        without ``shard_map_dp``; with it, generators derived from one draw
+        of the state's and this rank's index."""
+        if self.shard_map_dp:
+            seed = int(torch.randint(0, 1 << 62, (), generator=state.generator))
+            jitter = torch.Generator().manual_seed(
+                _derived_seed(seed, self.data_index, 0))
+            dropout = torch.Generator(
+                device=state.dropout_generator.device).manual_seed(
+                _derived_seed(seed, self.data_index * self.n_sp
+                              + self.sp_index, 1))
+            return jitter, dropout, contextlib.nullcontext
+
+        def draw(model, shape, lead):
+            whole = list(shape)
+            h_axis = layout.spatial_axes()[0]
+            whole[0] *= self.data_size
+            whole[h_axis] *= self.n_sp
+            masks = _draw_masks(model, whole, state.dropout_generator, lead)
+            if masks is None:
+                return None
+            out = []
+            for m in masks:
+                b, h = m.shape[len(lead)] // self.data_size, \
+                    m.shape[len(lead) + h_axis] // self.n_sp
+                m = m.narrow(len(lead), self.data_index * b, b)
+                out.append(m.narrow(len(lead) + h_axis, self.sp_index * h,
+                                    h))
+            return out
+
+        def scope(batch):
+            return global_draw(batch * self.data_size,
+                               batch * self.data_index)
+
+        return state.generator, draw, scope
+
+
+def _parallel(mesh, mesh_axis, spatial_axis, shard_map_dp, tpu_layout,
+              paired=False) -> Optional[_Parallel]:
+    """The step builders' checks, as JAX's, and the mesh of the step."""
+    if shard_map_dp and mesh is None:
+        raise ValueError("shard_map_dp requires a mesh")
+    if not shard_map_dp:
+        _check_spatial_kernel_exclusion(spatial_axis, tpu_layout)
+    if mesh is None:
+        return None
+    par = _Parallel(mesh, mesh_axis, spatial_axis, shard_map_dp)
+    if paired and par.spatial_axis is not None:
+        raise ValueError("paired runs without a spatial axis: its vmapped "
+                         "networks take whole images")
+    return par
+
+
+def _preprocessed(preprocess, par, generator, scope, real_a, real_b):
+    """The preprocess of a step on a mesh: under a spatial axis on the
+    whole images (gathered, then each strip kept), its draws in ``scope``
+    of the local batch."""
+    with scope(real_a.shape[0]):
+        if par.spatial_axis is None:
+            return preprocess(generator, real_a, real_b)
+        a, b = preprocess(generator, spatialctx.gather_h(real_a),
+                          spatialctx.gather_h(real_b))
+        return spatialctx.slice_local_h(a), spatialctx.slice_local_h(b)
+
+
 def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
                     compute_dtype: str = "float32",
                     preprocess: Optional[Callable] = None,
                     tpu_layout: bool = True,
                     pallas_norm: bool = False, remat: bool = False,
                     paired: bool = False,
-                    fuse_apps: bool = False) -> Callable:
+                    fuse_apps: bool = False, mesh=None,
+                    mesh_axis="data", spatial_axis: Optional[str] = None,
+                    shard_map_dp: bool = False) -> Callable:
     """The train step ``(state, real_a, real_b) -> metrics``: preprocess
     (``preprocess(generator, a, b) -> (a, b)``, e.g. the jitter), one
     forward set in the layout ``tpu_layout`` picks (with the options of
@@ -428,30 +617,50 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
     on ``state``. After it each parameter's ``.grad`` holds the step's
     gradient, and each batch norm's kept moving statistics are committed
     after the updates (the module docstring). Metrics are detached f32
-    scalars on the batch's device; the step never waits for the card."""
+    scalars on the batch's device; the step never waits for the card.
+
+    With ``mesh`` (``parallel.Mesh``), the batch is this rank's block
+    (batch over ``mesh_axis``, H over ``spatial_axis``) and the gradients
+    and metrics are averaged over the mesh (the module docstring)."""
     loss_obj = get_loss_obj(loss_name)
     weights = _weights(loss_weights)
     cdtype = DTYPES[compute_dtype]
+    par = _parallel(mesh, mesh_axis, spatial_axis, shard_map_dp, tpu_layout,
+                    paired)
 
     def train_step(state: TrainState, real_a: torch.Tensor,
                    real_b: torch.Tensor) -> Dict[str, torch.Tensor]:
-        if preprocess is not None:
-            real_a, real_b = preprocess(state.generator, real_a, real_b)
-        for opt in state.optimizers.values():
-            opt.zero_grad(set_to_none=True)
-        stats = {}
-        surrogate, metrics = _forward_losses(
-            state.models, loss_obj, weights, real_a, real_b, cdtype,
-            stop_grads=True, tpu_layout=tpu_layout, pallas_norm=pallas_norm,
-            fuse_apps=fuse_apps, remat=remat, paired=paired,
-            dropout=state.dropout_generator, stats=stats)
-        surrogate.backward()
+        generator, dropout = state.generator, state.dropout_generator
+        scope = contextlib.nullcontext() if par is None else par.scope()
+        with scope:
+            if par is not None:
+                generator, dropout, draws = par.generators(state)
+            if preprocess is not None:
+                real_a, real_b = (
+                    preprocess(generator, real_a, real_b) if par is None
+                    else _preprocessed(preprocess, par, generator, draws,
+                                       real_a, real_b))
+            for opt in state.optimizers.values():
+                opt.zero_grad(set_to_none=True)
+            stats = {}
+            surrogate, metrics = _forward_losses(
+                state.models, loss_obj, weights, real_a, real_b, cdtype,
+                stop_grads=True, tpu_layout=tpu_layout,
+                pallas_norm=pallas_norm, fuse_apps=fuse_apps, remat=remat,
+                paired=paired, dropout=dropout, stats=stats)
+            surrogate.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if par is not None:
+            par.average_grads(state.models)
+            metrics = dict(zip(metrics, par.mean(list(metrics.values()))))
         for name in NETWORKS:
             state.optimizers[name].step()
         for kept in stats.values():
             norm_ops.commit_batch_stats(kept)
+        if par is not None and par.shard_map_dp and par.data_size > 1:
+            par.broadcast_stats(stats)
         state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     return train_step
 
@@ -465,7 +674,9 @@ def make_train_multi_step(loss_name: str, loss_weights: Mapping[str, float],
     with (K, B, H, W, C) batches runs ``make_train_step``'s step (same
     ``options``) on each of the K batch pairs in turn and returns each
     metric stacked along a leading K axis. The per-step math, generator
-    draws included, is that of K single steps."""
+    draws included, is that of K single steps (on a mesh too: the options
+    include ``mesh``, ``mesh_axis``, ``spatial_axis`` and
+    ``shard_map_dp``, and the batches are this rank's blocks)."""
     single = make_train_step(loss_name, loss_weights, compute_dtype,
                              preprocess, **options)
 
@@ -486,27 +697,33 @@ def make_validate_step(loss_name: str, loss_weights: Mapping[str, float],
                        preprocess: Optional[Callable] = None,
                        tpu_layout: bool = True,
                        pallas_norm: bool = False,
-                       fuse_apps: bool = False) -> Callable:
+                       fuse_apps: bool = False, mesh=None,
+                       mesh_axis="data", spatial_axis: Optional[str] = None,
+                       shard_map_dp: bool = False) -> Callable:
     """The eval step ``(state, real_a, real_b) -> metrics``: the forward
     set without stop-gradients, dropout or a backward (4 discriminator
     applications), batch norms on their moving statistics, in the layout
     ``tpu_layout`` picks, ``fuse_apps`` as the train step's;
-    ``preprocess(images)`` (e.g. ``prepare_eval_batch``) runs first on
-    each batch."""
+    ``preprocess(images)`` (e.g. ``prepare_eval_batch``, elementwise, so
+    right on a strip) runs first on each batch. With ``mesh`` the batches
+    are this rank's blocks and the metrics are averaged over the mesh."""
     loss_obj = get_loss_obj(loss_name)
     weights = _weights(loss_weights)
     cdtype = DTYPES[compute_dtype]
+    par = _parallel(mesh, mesh_axis, spatial_axis, shard_map_dp, tpu_layout)
 
     @torch.no_grad()
     def validate_step(state: TrainState, real_a: torch.Tensor,
                       real_b: torch.Tensor) -> Dict[str, torch.Tensor]:
         if preprocess is not None:
             real_a, real_b = preprocess(real_a), preprocess(real_b)
-        _, metrics = _forward_losses(state.models, loss_obj, weights,
-                                     real_a, real_b, cdtype,
-                                     stop_grads=False, tpu_layout=tpu_layout,
-                                     pallas_norm=pallas_norm,
-                                     fuse_apps=fuse_apps, train=False)
+        with contextlib.nullcontext() if par is None else par.scope():
+            _, metrics = _forward_losses(
+                state.models, loss_obj, weights, real_a, real_b, cdtype,
+                stop_grads=False, tpu_layout=tpu_layout,
+                pallas_norm=pallas_norm, fuse_apps=fuse_apps, train=False)
+        if par is not None:
+            metrics = dict(zip(metrics, par.mean(list(metrics.values()))))
         return metrics
 
     return validate_step

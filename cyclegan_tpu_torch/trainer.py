@@ -24,9 +24,21 @@ default), a ``torch.profiler`` Chrome trace of the first epoch's first
 ``profile_steps`` train batches, ``<profile_dir>/train_trace.json``, closed
 early if the epoch is shorter. ``device`` defaults to ``cuda`` and raises
 without a card. The datasets come from the caller (``train.py`` picks the
-loader, ``data_loader: memory`` or ``streaming``). Options the port does
-not have yet raise NotImplementedError, naming their item of ROADMAP.md
-queue 1: a mesh and ``dp_shard_map`` (item 7, parallelism).
+loader, ``data_loader: memory`` or ``streaming``).
+
+Parallelism (JAX ``trainer.py:62-150, 270-290``): with a ``parallel.Mesh``
+every process runs this loop on its own device. ``batch_size`` is what each
+process is fed, its data rank's slice of the global batch (the datasets
+take ``process_index`` = data rank and ``process_count`` = data size; the
+spatial ranks of one data rank load the same images), as in the JAX
+trainer on a multi-host pod. Under a spatial axis each process keeps its H
+strip of the batch. The steps average over the mesh (``steps.py``);
+``dp_shard_map`` picks JAX's explicit per-shard path (per-shard batch-norm
+statistics and random streams). Only the lead (rank 0) writes
+checkpoints, summaries, sample images and the profile trace, and the other
+ranks create no folder; a resume loads the same checkpoint on every rank.
+A spatial mesh refuses, at config load, conv-transposes the halo algebra
+cannot take (k5, k6), and ``tpu_layout: true`` without ``dp_shard_map``.
 """
 
 from __future__ import annotations
@@ -48,6 +60,8 @@ from cyclegan_tpu_torch.data.augment import (
 )
 from cyclegan_tpu_torch.data.pipeline import ArrayDataset
 from cyclegan_tpu_torch.ops import cuda_norm, layout
+from cyclegan_tpu_torch.parallel import replicate, shard_batch
+from cyclegan_tpu_torch.parallel.spatial import check_spatial_divisibility
 from cyclegan_tpu_torch.steps import (
     build_models,
     init_train_state,
@@ -73,13 +87,6 @@ METRIC_NAMES = ["dA_loss", "dB_loss", "gAB_loss", "gBA_loss", "dA_acc",
                 "dB_acc"]
 CHECKPOINT_FILE = "checkpoint.npz"
 PROFILE_FILE = "train_trace.json"
-
-# train config options of the JAX trainer that are not ported: the test of
-# whether a config asks for one, and the item of ROADMAP.md queue 1 that
-# ports it
-_NOT_PORTED = {
-    "dp_shard_map": (bool, "item 7, parallelism"),
-}
 
 
 class _Progress:
@@ -110,25 +117,32 @@ class CycleGan:
 
     def __init__(self, model_config: Namespace, train_config: Namespace,
                  mesh=None, device: Union[str, torch.device] = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (data or spatial parallelism) is not ported "
-                "yet (ROADMAP.md queue 1, item 7)")
-        for key, (asks, item) in _NOT_PORTED.items():
-            if key in train_config and asks(train_config[key]):
-                raise NotImplementedError(
-                    f"train config {key}: {train_config[key]!r} is not "
-                    f"ported yet (ROADMAP.md queue 1, {item})")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CycleGan: no CUDA device; pass device='cpu' "
                                "to train on the CPU")
         self.model_config = model_config
         self.train_config = train_config
-        self.model_folder = join(model_config.location, model_config.name)
-        self.train_summaries = SummaryWriter(join(self.model_folder, "train"))
-        self.val_summaries = SummaryWriter(join(self.model_folder,
-                                                "validation"))
+        self.mesh = mesh
+        self.spatial_axis = ("spatial" if mesh is not None
+                             and mesh.axis_size("spatial") > 1 else None)
+        if self.spatial_axis is not None:
+            from cyclegan_tpu_torch.models import (
+                spatial_unsupported_transposes,
+            )
+
+            bad = spatial_unsupported_transposes(model_config)
+            if bad:
+                raise ValueError(
+                    "spatial (H-sharded) training does not support these "
+                    "conv-transpose kernels (halo algebra needs "
+                    "pad_before' % stride == 0; k3/k4/k7/k8 work at "
+                    "stride 2): "
+                    + ", ".join(f"{net} k{k}" for net, k in bad)
+                    + ". Change the offending 'kernels:' entries (e.g. "
+                    "5 -> 4), use expansion: upsample, or drop "
+                    "--spatial_devices.")
+        self.dp_shard_map = bool(train_config.get("dp_shard_map", False))
 
         self.compute_dtype = str(train_config.get("compute_dtype", "float32"))
         self.display_every = int(train_config.get("display_every", 1))
@@ -142,12 +156,33 @@ class CycleGan:
         tpu_layout = train_config.get("tpu_layout", "auto")
         if isinstance(tpu_layout, str) and tpu_layout.lower() == "auto":
             tpu_layout = (self.device.type == "cuda"
-                          and self.compute_dtype == "bfloat16")
+                          and self.compute_dtype == "bfloat16"
+                          and (self.spatial_axis is None
+                               or self.dp_shard_map))
+        if (self.spatial_axis is not None and tpu_layout
+                and not self.dp_shard_map):
+            raise ValueError(
+                "tpu_layout: true cannot combine with a spatial mesh "
+                "without dp_shard_map (the JAX package's partitioner "
+                "cannot split its kernels); set dp_shard_map: true to run "
+                "the kernels on H-sharded strips, or leave tpu_layout at "
+                "auto/false")
         self.tpu_layout = bool(tpu_layout)
+
+        self.model_folder = join(model_config.location, model_config.name)
+        # one writer per artifact: the lead process
+        self.is_lead = mesh is None or mesh.rank == 0
+        self.train_summaries = SummaryWriter(join(self.model_folder, "train"),
+                                             enabled=self.is_lead)
+        self.val_summaries = SummaryWriter(join(self.model_folder,
+                                                "validation"),
+                                           enabled=self.is_lead)
 
         seed = int(model_config.get("seed", 0))
         self.state = init_train_state(build_models(model_config, seed),
                                       train_config, seed, self.device)
+        if mesh is not None:
+            replicate(mesh, self.state)
         # The JAX TrainState's key: unused here, carried through checkpoints
         # (jax.random.PRNGKey(seed) until a JAX checkpoint replaces it).
         self.rng = np.array([0, seed], np.uint32)
@@ -159,7 +194,9 @@ class CycleGan:
 
         loss, weights = model_config.loss, dict(model_config.loss_weights)
         options = dict(tpu_layout=self.tpu_layout,
-                       pallas_norm=self.pallas_norm, fuse_apps=self.fuse_apps)
+                       pallas_norm=self.pallas_norm, fuse_apps=self.fuse_apps,
+                       mesh=mesh, spatial_axis=self.spatial_axis,
+                       shard_map_dp=self.dp_shard_map and mesh is not None)
         self.train_step_fn = make_train_step(
             loss, weights, self.compute_dtype, train_preprocess,
             remat=self.remat, **options)
@@ -195,6 +232,9 @@ class CycleGan:
         save_images_every = int(summary["images"])
         tensorboard_samples = int(summary["samples"])
         save_model_every = int(summary["model"])
+        if self.spatial_axis is not None:
+            check_spatial_divisibility(int(self.train_config.image_size),
+                                       self.mesh, self.spatial_axis)
 
         train_metrics = make_metric_dict(METRIC_NAMES)
         val_metrics = make_metric_dict(METRIC_NAMES)
@@ -221,7 +261,7 @@ class CycleGan:
             record["train_seconds"] = time.perf_counter() - start
             record["train"] = self._write_summaries(self.train_summaries, e,
                                                     train_metrics)
-            if e % save_images_every == 0:
+            if e % save_images_every == 0 and self.is_lead:
                 self.write_images(e, self.a_samples, self.b_samples,
                                   tensorboard_samples)
 
@@ -253,7 +293,8 @@ class CycleGan:
         batches are traced. Metrics are fetched every ``display_every``
         batches (a chunk's once it has run) and at the end."""
         bar = _progress(batches, desc, total)
-        profiler = self._start_profile() if profile else None
+        profiler = self._start_profile() if profile and self.is_lead \
+            else None
         pending, chunk = [], []
         steps = 0
         for images_a, images_b in bar:
@@ -399,8 +440,15 @@ class CycleGan:
         progress_bar.refresh()
 
     def _put(self, images_a: np.ndarray, images_b: np.ndarray):
-        return (torch.from_numpy(images_a).to(self.device),
-                torch.from_numpy(images_b).to(self.device))
+        """A fed batch pair on the device; under a spatial axis this
+        rank's H strip of it ((K, B, H, ...) chunks: of dim 2)."""
+        out = (torch.from_numpy(images_a).to(self.device),
+               torch.from_numpy(images_b).to(self.device))
+        if self.spatial_axis is None:
+            return out
+        return shard_batch(self.mesh, out, axis_name=None,
+                           batch_dim=out[0].dim() - 4,
+                           spatial_axis=self.spatial_axis)
 
     # ------------------------------------------------------------------
     # checkpointing
@@ -408,7 +456,9 @@ class CycleGan:
 
     def save_model(self) -> None:
         """The full train state, the fixed sample images and both configs
-        into the model folder."""
+        into the model folder, by the lead process alone."""
+        if not self.is_lead:
+            return
         folder = Path(self.model_folder)
         folder.mkdir(parents=True, exist_ok=True)
         save_train_state(folder / CHECKPOINT_FILE, self.state, self.rng)

@@ -21,12 +21,14 @@ except Exception:  # pragma: no cover
 
 class SummaryWriter:
     """Scalar and image event writer bound to one logdir (one for train/,
-    one for validation/)."""
+    one for validation/). ``enabled=False`` (a process that is not the
+    lead of a multi-process run) writes nothing and creates no folder."""
 
-    def __init__(self, logdir: str):
+    def __init__(self, logdir: str, enabled: bool = True):
         self.logdir = logdir
         self._writer: Optional[object] = (
-            None if _TBXWriter is None else _TBXWriter(logdir))
+            None if _TBXWriter is None or not enabled
+            else _TBXWriter(logdir))
 
     def scalar(self, tag: str, value: float, step: int) -> None:
         if self._writer is not None:

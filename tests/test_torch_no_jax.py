@@ -42,6 +42,18 @@ def test_serving_and_evaluation_modules_are_checked(path):
     assert path in PORT_FILES
 
 
+@pytest.mark.parametrize("path", [
+    "cyclegan_tpu_torch/parallel/__init__.py",
+    "cyclegan_tpu_torch/parallel/mesh.py",
+    "cyclegan_tpu_torch/parallel/spatial.py",
+    "cyclegan_tpu_torch/parallel/launch.py",
+    "cyclegan_tpu_torch/ops/spatialctx.py"])
+def test_parallel_modules_are_checked(path):
+    """The parallelism modules are among the files whose imports are read
+    and which one process imports below."""
+    assert path in PORT_FILES
+
+
 @pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py"])
 def test_no_forbidden_import(path):
     for name in _imported_modules(path):

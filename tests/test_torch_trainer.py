@@ -159,17 +159,20 @@ def test_tpu_layout_auto_resolution(tmp_path):
 @pytest.mark.parametrize("extra,item", [
     (dict(dp_shard_map=True), "item 7")])
 def test_unported_options_raise(tmp_path, extra, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue 1, {item}"):
-        CycleGan(tiny_model_config(tmp_path), tiny_train_config(**extra),
-                 device="cpu")
+    """The last option that raised, dp_shard_map (ROADMAP.md queue 1,
+    item 7), is ported: it builds, and without a mesh the step is the
+    single-device one, as the JAX trainer's."""
+    gan = CycleGan(tiny_model_config(tmp_path), tiny_train_config(**extra),
+                   device="cpu")
+    assert gan.dp_shard_map and gan.mesh is None and gan.is_lead
 
 
 def test_mesh_and_default_device(tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 7"):
+    from cyclegan_tpu_torch.parallel import create_mesh
+
+    with pytest.raises(RuntimeError, match="initialized torch.distributed"):
         CycleGan(tiny_model_config(tmp_path), tiny_train_config(),
-                 mesh=object(), device="cpu")
+                 mesh=create_mesh(2), device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -353,6 +356,17 @@ def test_cli_trains_and_resumes_on_tiny_records(tmp_path):
                                    ["--spatial_devices", "2"],
                                    ["--dp_shard_map"], ["--distributed"],
                                    ["--coordinator", "localhost:1"]])
-def test_cli_rejects_parallel_flags(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+def test_cli_rejects_parallel_flags(flags, monkeypatch):
+    """Parallel flags need one process per device in a process group:
+    without one, a mesh of more than one device stops the CLI, and
+    --distributed or --coordinator without the group's description
+    raise (``tests/test_torch_multiprocess.py`` runs them)."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    if flags == ["--dp_shard_map"]:
+        flags = flags + ["--spatial_devices", "2"]
+    want = ((ValueError, "MASTER_ADDR|--num_processes")
+            if "--distributed" in flags or "--coordinator" in flags
+            else (SystemExit, "one process per device"))
+    with pytest.raises(want[0], match=want[1]):
         train_main(["--device", "cpu", *flags])
