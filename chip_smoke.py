@@ -194,8 +194,10 @@ failing the run if it fails:
     batch 4, three finite steps, img/s of the two ranks on one card (not a
     scaling number) and the gradient all-reduce's time;
 27. spatial sharding (``spatial``): RANKS ranks, ``create_spatial_mesh(1,
-    RANKS)``, ``dp_shard_map``: the f32 step at SPATIAL_F32_POINT against
-    the unsharded card step within TRAIN_F32_REL; each rank's bf16 step at
+    RANKS)``, ``dp_shard_map``: the f32 step at SPATIAL_F32_POINT (full
+    size, the nearest kink reported) and at SPATIAL_KINK_FREE_POINT (no
+    ReLU input within KINK_MARGIN, asserted) against the unsharded card
+    step within TRAIN_F32_REL; each rank's bf16 step at
     batch 8 against ``spatial_launches`` (K1 and K5 on the halo-extended
     strips, K3, K4, K7, K8 on the strips, no K2 or K6), three finite
     steps, timing; converged256 served at 512² through
@@ -473,10 +475,14 @@ STATS_REL = 1e-5
 # one device, so they use gloo, which takes CUDA tensors in all_reduce and
 # broadcast), their deadline, steps timed on each; the group of one in
 # phase 26 (a); phase 26's batch-norm check (f32, batch BATCH at
-# BN_DP_SIZE², seeded weights with the betas moved); phase 27's f32 point
-# (converged256 with every beta at +-(3..4), so that the ReLU inputs sit
-# off their kinks, batch 1 at full size; the nearest kink the strips met
-# is reported) and its spatial serving (converged256 at 512², 2 images)
+# BN_DP_SIZE², seeded weights with the betas moved); phase 27's f32 points
+# (converged256 with every beta at +-(3..4), batch 1) and its spatial
+# serving (converged256 at 512², 2 images). At full size the nearest kink
+# the strips met is reported, not asserted: an instance norm over 256²
+# pixels a channel puts some normalized input within an f32 ulp of -beta
+# (on the card it met 0.0; at 64² seeds 0-29 on the CPU came 4.8e-7 to
+# 6.7e-5 from theirs). So the comparison is repeated at 64², seed 29, where
+# no ReLU input lies within KINK_MARGIN (asserted on the strips).
 RANKS = 2
 RANK_PATHS = ("dp_train", "spatial_train")
 RANK_TIMEOUT = 480
@@ -485,6 +491,8 @@ WORLD1_BACKEND = "nccl"
 BN_DP_SIZE = 64
 BN_DP_POINT = {"seed": 24, "beta": [3.0, 4.0]}
 SPATIAL_F32_POINT = {"size": 256, "batch": 1, "seed": 2, "beta": [3.0, 4.0]}
+SPATIAL_KINK_FREE_POINT = {"size": 64, "batch": 1, "seed": 29,
+                           "beta": [3.0, 4.0]}
 SPATIAL_SERVE_SIZE = EXPORT_SIZE
 SPATIAL_SERVE_BATCH = 2
 # the native loader's decode against the Python path's, in uint8 steps
@@ -1721,9 +1729,9 @@ def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None,
                                                  random_jitter_batch)
     from cyclegan_tpu_torch.steps import make_train_step
 
-    def jitter(generator, a, b):
-        return (random_jitter_batch(generator, a, SIZE),
-                random_jitter_batch(generator, b, SIZE))
+    def jitter(generator, a, b, rows=None):
+        return (random_jitter_batch(generator, a, SIZE, rows),
+                random_jitter_batch(generator, b, SIZE, rows))
 
     plan = {k: len(v) for k, v in plan.items()}
     noise = torch.Generator(device=DEVICE).manual_seed(0)
@@ -2019,11 +2027,11 @@ def _uint8_batch(batch_size, seed=0):
             for _ in range(2)]
 
 
-def _jitter(generator, a, b):
+def _jitter(generator, a, b, rows=None):
     from cyclegan_tpu_torch.data.augment import random_jitter_batch
 
-    return (random_jitter_batch(generator, a, SIZE),
-            random_jitter_batch(generator, b, SIZE))
+    return (random_jitter_batch(generator, a, SIZE, rows),
+            random_jitter_batch(generator, b, SIZE, rows))
 
 
 def planned_step(label, model_cfg, plan, model_dir, batch, **step_kw):
@@ -3298,7 +3306,8 @@ def _rank_settings(prepare=None):
     return {"globals": {k: globals()[k] for k in (
         "DEVICE", "BATCH", "SIZE", "GRAD_BATCH", "SPATIAL_SERVE_SIZE",
         "SPATIAL_SERVE_BATCH", "RANK_STEPS_TIMED", "BN_DP_SIZE",
-        "SPATIAL_F32_POINT")}, "prepare": prepare}
+        "SPATIAL_F32_POINT", "SPATIAL_KINK_FREE_POINT")},
+        "prepare": prepare}
 
 
 def _enter_rank(settings):
@@ -3550,11 +3559,16 @@ def data_parallel(cfg, plan, prepare=None):
     return ranks[0]["launches"], result
 
 
+def _spatial_f32_points():
+    return (("full", SPATIAL_F32_POINT),
+            ("kink_free", SPATIAL_KINK_FREE_POINT))
+
+
 def _spatial_rank(rank, world, settings, plan):
     """Phase 27 on one of ``world`` H-strip ranks sharing the card over
     gloo (``create_spatial_mesh(1, world)``, ``dp_shard_map``): the f32
-    gradients at SPATIAL_F32_POINT with the nearest ReLU kink the strips
-    met, the bf16 main path at batch BATCH against ``spatial_launches``,
+    gradients at each of ``_spatial_f32_points`` with the nearest ReLU
+    kink the strips met, the bf16 main path at batch BATCH against ``spatial_launches``,
     timing, and converged256 served at SPATIAL_SERVE_SIZE² through
     ``InferenceSession(spatial_devices=world)``."""
     _enter_rank(settings)
@@ -3569,25 +3583,28 @@ def _spatial_rank(rank, world, settings, plan):
     cfg = yaml2namespace(MODEL_DIR / "model_config.yaml")
     loss, weights = cfg["loss"], cfg["loss_weights"]
     kw = dict(mesh=mesh, spatial_axis="spatial", shard_map_dp=True)
-    out = {"backend": mesh.backend}
-    point = SPATIAL_F32_POINT
-    x = shard_batch(mesh, f32_point_inputs(point), spatial_axis="spatial")
-    state = _train_state(cfg, DEVICE, MODEL_DIR, point["seed"],
-                         point["beta"])
-    activation, nearest = norm_ops.activation, [math.inf]
+    out = {"backend": mesh.backend, "f32": {}, "nearest_kink": {}}
+    activation = norm_ops.activation
+    for label, point in _spatial_f32_points():
+        x = shard_batch(mesh, f32_point_inputs(point),
+                        spatial_axis="spatial")
+        state = _train_state(cfg, DEVICE, MODEL_DIR, point["seed"],
+                             point["beta"])
+        nearest = [math.inf]
 
-    def recording(y, act, alpha):
-        if act != "none":
-            nearest[0] = min(nearest[0], float(y.detach().abs().min()))
-        return activation(y, act, alpha)
+        def recording(y, act, alpha):
+            if act != "none":
+                nearest[0] = min(nearest[0], float(y.detach().abs().min()))
+            return activation(y, act, alpha)
 
-    norm_ops.activation = recording
-    try:
-        make_train_step(loss, weights, "float32", **kw)(
-            state, *(t.to(DEVICE) for t in x))
-    finally:
-        norm_ops.activation = activation
-    out["f32"], out["nearest_kink"] = _grads(state), nearest[0]
+        norm_ops.activation = recording
+        try:
+            make_train_step(loss, weights, "float32", **kw)(
+                state, *(t.to(DEVICE) for t in x))
+        finally:
+            norm_ops.activation = activation
+        out["f32"][label], out["nearest_kink"][label] = (_grads(state),
+                                                         nearest[0])
     state = _train_state(cfg, DEVICE, MODEL_DIR)
     step = make_train_step(loss, weights, "bfloat16", preprocess=_jitter,
                            **kw)
@@ -3628,8 +3645,9 @@ def _spatial_rank(rank, world, settings, plan):
 def spatial(cfg, plan, serve_plan, prepare=None):
     """Phase 27: RANKS H-strip ranks sharing the card over gloo, U-Net
     (converged256) with ``dp_shard_map``: (a) the f32 step at
-    SPATIAL_F32_POINT against the unsharded card step within
-    TRAIN_F32_REL (the nearest kink the strips met reported), (b) each
+    ``_spatial_f32_points`` against the unsharded card step within
+    TRAIN_F32_REL (the nearest kink the strips met reported at full size,
+    beyond KINK_MARGIN asserted at the kink-free point), (b) each
     rank's bf16 step at batch BATCH against ``plan`` (K1, K3-K5, K7, K8 on
     strips, no K2 or K6), three finite steps, timing, (c) the spatial
     session at SPATIAL_SERVE_SIZE² (``serve_plan`` per forward) within the
@@ -3647,11 +3665,16 @@ def spatial(cfg, plan, serve_plan, prepare=None):
     if len({out["params"] for out in ranks}) != 1:
         fail(f"spatial_train: the ranks' parameters differ "
              f"{[out['params'] for out in ranks]}")
-    point = SPATIAL_F32_POINT
-    want = step_grads(cfg, DEVICE, "float32", f32_point_inputs(point),
-                      MODEL_DIR, point["seed"], point["beta"])
-    errors = _check_grads("spatial_train", ranks[0]["f32"], want)
-    kink = min(out["nearest_kink"] for out in ranks)
+    errors, kinks = {}, {}
+    for label, point in _spatial_f32_points():
+        want = step_grads(cfg, DEVICE, "float32", f32_point_inputs(point),
+                          MODEL_DIR, point["seed"], point["beta"])
+        errors[label] = _check_grads(f"spatial_train {label}",
+                                     ranks[0]["f32"][label], want)
+        kinks[label] = min(out["nearest_kink"][label] for out in ranks)
+    if not kinks["kink_free"] > KINK_MARGIN:
+        fail(f"spatial_train: a ReLU input {kinks['kink_free']} from its "
+             f"kink at SPATIAL_KINK_FREE_POINT, within {KINK_MARGIN}")
     images = np.random.default_rng(27).integers(
         0, 256, (SPATIAL_SERVE_BATCH, SPATIAL_SERVE_SIZE,
                  SPATIAL_SERVE_SIZE, 3), dtype=np.uint8)
@@ -3671,8 +3694,9 @@ def spatial(cfg, plan, serve_plan, prepare=None):
              f"plan {per_forward} a forward")
     step_s = max(out["step_s"] for out in ranks)
     result = {"ranks": RANKS, "backend": ranks[0]["backend"],
-              "batch": BATCH, "size": SIZE, "f32_point": point,
-              "nearest_kink": kink, "gradient_errors": errors,
+              "batch": BATCH, "size": SIZE,
+              "f32_points": dict(_spatial_f32_points()),
+              "nearest_kink": kinks, "gradient_errors": errors,
               "metrics": ranks[0]["metrics"], "step_ms": step_s * 1e3,
               "img_per_s_two_ranks_one_card": BATCH / step_s,
               "all_reduce_ms": max(out["all_reduce_s"] for out in ranks)
@@ -3684,7 +3708,7 @@ def spatial(cfg, plan, serve_plan, prepare=None):
     print(f"spatial_train: {RANKS} strips on one card over "
           f"{result['backend']}, batch {BATCH}: {result['step_ms']:.1f} ms "
           f"a step, {result['img_per_s_two_ranks_one_card']:.2f} img/s (two "
-          f"ranks on one card), nearest kink {kink}; spatial serving "
+          f"ranks on one card), nearest kinks {kinks}; spatial serving "
           f"{SPATIAL_SERVE_SIZE}² batch {SPATIAL_SERVE_BATCH}: "
           f"{result['serve_request_ms']:.1f} ms a request", flush=True)
     return (ranks[0]["launches"], ranks[0]["serve_launches"], forwards,

@@ -4,15 +4,13 @@ The train-time jitter runs on the batch's device: bilinear resize to
 size + 50, then a per-sample random crop back to size and a random
 horizontal flip. The crop offsets and flips are drawn on the host from an
 explicit ``torch.Generator``, so drawing them never waits for the card.
-Under ``global_draw(total, start)`` (data parallelism, ``steps.py``) each
-rank draws the whole global batch's offsets and flips and keeps its rows,
-so the ranks together draw what one device would.
+With ``rows=(total, start)`` (data parallelism, ``steps.py``) each rank
+draws the whole global batch's offsets and flips and keeps its rows, so
+the ranks together draw what one device would.
 """
 
 from __future__ import annotations
 
-import contextlib
-import threading
 from typing import Optional, Tuple
 
 import torch
@@ -34,36 +32,17 @@ def denormalize_to_uint8(images: torch.Tensor) -> torch.Tensor:
     return torch.clamp(scaled, 0, 255).to(torch.uint8)
 
 
-class _Draw(threading.local):
-    total: Optional[int] = None  # the global batch a draw spans
-    start = 0                    # this rank's first row of it
-
-
-_DRAW = _Draw()
-
-
-@contextlib.contextmanager
-def global_draw(total: int, start: int):
-    """Scope the draws on this thread to span a global batch of ``total``
-    samples of which the caller holds rows ``start`` onwards."""
-    prev = _DRAW.total, _DRAW.start
-    _DRAW.total, _DRAW.start = int(total), int(start)
-    try:
-        yield
-    finally:
-        _DRAW.total, _DRAW.start = prev
-
-
-def draw_jitter(generator: Optional[torch.Generator],
-                batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def draw_jitter(generator: Optional[torch.Generator], batch: int,
+                rows: Optional[Tuple[int, int]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-sample crop offsets (row, column), int64 [B, 2] in
-    [0, JITTER_PAD], and horizontal flips, bool [B], on the CPU (under
-    ``global_draw``, the scope's rows of the global batch's)."""
-    total = batch if _DRAW.total is None else _DRAW.total
+    [0, JITTER_PAD], and horizontal flips, bool [B], on the CPU. With
+    ``rows=(total, start)`` they are drawn for a global batch of ``total``
+    samples, and rows ``start`` to ``start + batch`` are returned."""
+    total, start = rows or (batch, 0)
     offsets = torch.randint(0, JITTER_PAD + 1, (total, 2),
                             generator=generator)
     flips = torch.rand(total, generator=generator) < 0.5
-    start = 0 if _DRAW.total is None else _DRAW.start
     return offsets[start:start + batch], flips[start:start + batch]
 
 
@@ -85,11 +64,12 @@ def jitter_batch(images: torch.Tensor, image_size: int,
 
 
 def random_jitter_batch(generator: Optional[torch.Generator],
-                        images: torch.Tensor,
-                        image_size: int) -> torch.Tensor:
+                        images: torch.Tensor, image_size: int,
+                        rows: Optional[Tuple[int, int]] = None
+                        ) -> torch.Tensor:
     """Train-time augmentation: ``jitter_batch`` at offsets and flips
-    drawn from ``generator``."""
-    offsets, flips = draw_jitter(generator, images.shape[0])
+    drawn from ``generator`` (``rows`` as ``draw_jitter``'s)."""
+    offsets, flips = draw_jitter(generator, images.shape[0], rows)
     return jitter_batch(images, image_size, offsets, flips)
 
 

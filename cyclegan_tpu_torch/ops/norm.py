@@ -41,26 +41,10 @@ from cyclegan_tpu_torch.ops.cuda_norm_act import (
 
 
 def _xla_instance_norm(x, gamma, beta, eps):
-    axes = layout.spatial_axes()
-    xf = x.float()
-    mean = xf.mean(dim=axes, keepdim=True)
-    if x.dtype == torch.bfloat16:
-        var = torch.clamp((xf * xf).mean(dim=axes, keepdim=True)
-                          - mean * mean, min=0.0)
-    else:
-        var = ((xf - mean) ** 2).mean(dim=axes, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    if gamma is not None:
-        y = y * layout.channel_param(gamma)
-    if beta is not None:
-        y = y + layout.channel_param(beta)
-    return y.to(x.dtype)
-
-
-def _spatial_instance_norm(x, gamma, beta, eps):
-    """``_xla_instance_norm`` of an H-sharded image: the local sums are
-    summed over the spatial group (one all-reduce of both sums in bf16,
-    the two passes' in f32)."""
+    """The torch-op instance norm. Under an H-sharded scope its local sums
+    are summed over the spatial group (one all-reduce of both sums in bf16,
+    one a pass in f32) with count = local x strips; outside one
+    ``all_reduce_sum`` returns its input and the count is the image's."""
     axes = layout.spatial_axes()
     group = spatialctx.group()
     count = x.shape[axes[0]] * x.shape[axes[1]] * spatialctx.n_shards()
@@ -100,12 +84,10 @@ def instance_norm(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
                   beta: Optional[torch.Tensor] = None,
                   eps: float = TFA_EPSILON, act: str = "none",
                   alpha: float = 0.2) -> torch.Tensor:
-    if spatialctx.is_active():
-        return activation(_spatial_instance_norm(x, gamma, beta, eps), act,
-                          alpha)
-    if layout.is_nhcw():
+    sharded = spatialctx.is_active()  # K2 and K13 see one strip's statistics
+    if layout.is_nhcw() and not sharded:
         return instance_norm_act(x, gamma, beta, eps, act, alpha)
-    if cuda_norm.is_enabled():
+    if cuda_norm.is_enabled() and not sharded:
         y = cuda_norm.instance_norm_nhwc(x, gamma, beta, eps)
     else:
         y = _xla_instance_norm(x, gamma, beta, eps)
@@ -238,15 +220,10 @@ class BatchNormAct(torch.autograd.Function):
     @staticmethod
     def forward(x, gamma, beta, axes, act, alpha, eps, group=None, ranks=1):
         xf = x.float()
-        if group is None:
-            mean = xf.mean(dim=axes, keepdim=True)
-            xc = xf - mean
-            var = (xc * xc).mean(dim=axes, keepdim=True)
-        else:
-            n = math.prod(xf.shape[a] for a in axes) * ranks
-            mean = _summed(xf.sum(dim=axes, keepdim=True), group) / n
-            xc = xf - mean
-            var = _summed((xc * xc).sum(dim=axes, keepdim=True), group) / n
+        n = math.prod(xf.shape[a] for a in axes) * ranks
+        mean = _summed(xf.sum(dim=axes, keepdim=True), group) / n
+        xc = xf - mean
+        var = _summed((xc * xc).sum(dim=axes, keepdim=True), group) / n
         scale = torch.rsqrt(var + eps)
         if gamma is not None:
             scale = scale * gamma.reshape(mean.shape)
@@ -279,10 +256,8 @@ class BatchNormAct(torch.autograd.Function):
         sum_g = g.sum(dim=axes, keepdim=True)
         dgamma_c = rstd * (g * xc).sum(dim=axes, keepdim=True)
         k1 = rstd if gamma is None else rstd * gamma.reshape(mean.shape)
-        all_g, all_gamma = sum_g, dgamma_c
-        if ctx.group is not None:  # dx reads the sums over every rank
-            all_g, all_gamma = _summed(torch.stack([sum_g, dgamma_c]),
-                                       ctx.group)
+        # dx reads the sums over every rank
+        all_g, all_gamma = _summed(torch.stack([sum_g, dgamma_c]), ctx.group)
         dx = torch.addcmul(torch.addcmul(-k1 * all_g / n, g, k1), xc,
                            -k1 * rstd * all_gamma / n)
         dgamma = dbeta = None

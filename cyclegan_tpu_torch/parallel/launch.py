@@ -65,8 +65,8 @@ def init_distributed(device: str = "cuda", coordinator: Optional[str] = None,
     return bound
 
 
-def _rank_main(fn, rank, world_size, store, backend, threads, args, out):
-    torch.set_num_threads(threads)
+def _rank_main(fn, rank, world_size, store, backend, args, out):
+    torch.set_num_threads(1)
     try:
         dist.init_process_group(backend, init_method=f"file://{store}",
                                 world_size=world_size, rank=rank)
@@ -81,19 +81,19 @@ def _rank_main(fn, rank, world_size, store, backend, threads, args, out):
 
 
 def run_ranks(fn: Callable, world_size: int, args: Sequence[Any] = (),
-              backend: str = "gloo", timeout: float = 300.0,
-              threads: int = 1, workdir: Optional[str] = None) -> List[Any]:
+              backend: str = "gloo", timeout: float = 300.0) -> List[Any]:
     """``fn(rank, world_size, *args)`` in ``world_size`` spawned processes
-    joined in one ``backend`` group; their return values, in rank order.
+    joined in one ``backend`` group, one torch thread each; their return
+    values, in rank order.
     ``fn`` and ``args`` must pickle (a module-level function). Raises
     RuntimeError with the failed ranks' tracebacks, after ending every
     rank, if one fails or the run outlasts ``timeout`` seconds."""
     ctx = multiprocessing.get_context("spawn")
-    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+    with tempfile.TemporaryDirectory() as tmp:
         store = os.path.join(tmp, "store")
         outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(world_size)]
         procs = [ctx.Process(target=_rank_main, args=(
-            fn, r, world_size, store, backend, threads, tuple(args),
+            fn, r, world_size, store, backend, tuple(args),
             outs[r]), daemon=True) for r in range(world_size)]
         for p in procs:
             p.start()

@@ -120,7 +120,6 @@ from cyclegan_tpu_torch.losses import (
     get_loss_obj,
     identity_loss,
 )
-from cyclegan_tpu_torch.data.augment import global_draw
 from cyclegan_tpu_torch.models import create_model
 from cyclegan_tpu_torch.ops import cuda_norm, layout, spatialctx
 from cyclegan_tpu_torch.ops import norm as norm_ops
@@ -206,16 +205,30 @@ def _dropout_kw(masks) -> Dict[str, Any]:
     return {} if masks is None else {"masks": masks}
 
 
-def _draw_masks(model: nn.Module, shape, generator, lead: tuple = ()):
+def _draw_masks(model: nn.Module, shape, generator: Optional[torch.Generator],
+                lead: tuple = (), block=None):
     """A generator application's dropout masks (``dropout_masks``), None
-    without a generator or without dropout. ``generator`` may instead be
-    a function of (model, shape, lead) that draws them (a mesh's)."""
+    without a generator or without dropout. With ``block``, ((data ranks,
+    data index), (strips, strip index)), they are drawn for the global
+    batch of whole images and this rank's block of each is kept."""
     draw = getattr(model, "dropout_masks", None)
     if generator is None or draw is None:
         return None
-    if not isinstance(generator, torch.Generator):
-        return generator(model, shape, lead)
-    return draw(tuple(shape), generator, lead)
+    if block is None:
+        return draw(tuple(shape), generator, lead)
+    (n_data, i_data), (n_sp, i_sp) = block
+    h_axis = layout.spatial_axes()[0]
+    whole = list(shape)
+    whole[0] *= n_data
+    whole[h_axis] *= n_sp
+    masks = draw(tuple(whole), generator, lead)
+    if masks is None:
+        return None
+    b_axis, h_axis = len(lead), len(lead) + h_axis
+    return [m.narrow(b_axis, i_data * (m.shape[b_axis] // n_data),
+                     m.shape[b_axis] // n_data)
+            .narrow(h_axis, i_sp * (m.shape[h_axis] // n_sp),
+                    m.shape[h_axis] // n_sp) for m in masks]
 
 
 def _rematerialized(fn: Callable, *args):
@@ -246,14 +259,16 @@ def _forward_losses(models: Mapping[str, nn.Module], loss_obj: Callable,
                     pallas_norm: bool = False, *, fuse_apps: bool = False,
                     remat: bool = False, paired: bool = False,
                     dropout: Optional[torch.Generator] = None,
-                    train: bool = True, stats: Optional[dict] = None
+                    dropout_block=None, train: bool = True,
+                    stats: Optional[dict] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The shared forward set and the losses (cyclegan_tpu/steps.py
     ``_forward_losses``, or ``_forward_losses_paired`` with ``paired``), in
     the NHCW layout with ``tpu_layout`` and in NHWC (K13 for the norms with
     ``pallas_norm``) without. ``real_a``, ``real_b``: NHWC f32 in [-1, 1];
     ``dropout``: the generator of the generators' dropout masks (None: no
-    dropout). Returns (surrogate, metrics); with ``stop_grads`` the
+    dropout), ``dropout_block`` this rank's block of them on a mesh
+    (``_draw_masks``). Returns (surrogate, metrics); with ``stop_grads`` the
     surrogate's gradient per network equals the reference's per-network
     gradient. Without, the two views of each fake batch are one
     application (validation and the reference gradients).
@@ -268,7 +283,7 @@ def _forward_losses(models: Mapping[str, nn.Module], loss_obj: Callable,
                 norm_ops.batch_stats(train):
             return _forward_losses_paired(models, loss_obj, weights, real_a,
                                           real_b, compute_dtype, stop_grads,
-                                          remat, dropout)
+                                          remat, dropout, dropout_block)
     scope = layout.nhcw() if tpu_layout else layout.nhwc()
     with scope, cuda_norm.scope(pallas_norm), norm_ops.batch_stats(train):
         if tpu_layout:
@@ -276,7 +291,8 @@ def _forward_losses(models: Mapping[str, nn.Module], loss_obj: Callable,
             real_b = layout.to_nhcw(real_b)
         return _forward_losses_scoped(models, loss_obj, weights, real_a,
                                       real_b, compute_dtype, stop_grads,
-                                      fuse_apps, remat, dropout, stats)
+                                      fuse_apps, remat, dropout,
+                                      dropout_block, stats)
 
 
 def _cast_params(models, compute_dtype):
@@ -290,7 +306,8 @@ def _cast_params(models, compute_dtype):
 
 def _forward_losses_scoped(models, loss_obj, weights, real_a, real_b,
                            compute_dtype, stop_grads, fuse_apps=False,
-                           remat=False, dropout=None, stats=None):
+                           remat=False, dropout=None, dropout_block=None,
+                           stats=None):
     a_net = real_a.to(compute_dtype)
     b_net = real_b.to(compute_dtype)
     params = _cast_params(models, compute_dtype)
@@ -306,7 +323,7 @@ def _forward_losses_scoped(models, loss_obj, weights, real_a, real_b,
 
     def gen(name, x, keep=False):
         model = models[name]
-        masks = _draw_masks(model, x.shape, dropout)
+        masks = _draw_masks(model, x.shape, dropout, block=dropout_block)
 
         def apply(x, *masks):
             return functional_call(model, params[name], (x,),
@@ -352,7 +369,7 @@ def _forward_losses_scoped(models, loss_obj, weights, real_a, real_b,
 
 def _forward_losses_paired(models, loss_obj, weights, real_a, real_b,
                            compute_dtype, stop_grads, remat=False,
-                           dropout=None):
+                           dropout=None, dropout_block=None):
     """The paired twin step (cyclegan_tpu/steps.py
     ``_forward_losses_paired``), in the NHWC scope its caller opens: g_AB
     and g_BA (d_A and d_B) share an architecture, so each pair of
@@ -381,7 +398,8 @@ def _forward_losses_paired(models, loss_obj, weights, real_a, real_b,
 
     def round_(first, second):
         x = torch.stack([first, second])
-        masks = _draw_masks(g_model, first.shape, dropout, lead=(2,))
+        masks = _draw_masks(g_model, first.shape, dropout, (2,),
+                            dropout_block)
         vg = vmap(g_apply, in_dims=(0, 0, None if masks is None else 0))
         if remat:
             return _rematerialized(lambda x, *m: vg(pg, x, list(m) or None),
@@ -534,11 +552,14 @@ class _Parallel:
             o.moving_mean.copy_(mean)
             o.moving_var.copy_(var)
 
-    def generators(self, state):
-        """(jitter generator, dropout draw, jitter scope) of one step: the
-        state's, drawing the global batch and keeping this rank's block,
-        without ``shard_map_dp``; with it, generators derived from one draw
-        of the state's and this rank's index."""
+    def draws(self, state, batch: int):
+        """One step's random draws for a local batch of ``batch``: (jitter
+        generator, jitter rows, dropout generator, dropout block), the rows
+        for ``preprocess`` (``augment.draw_jitter``'s) and the block for
+        ``_draw_masks``. Without ``shard_map_dp`` the state's generators,
+        drawing for the global batch, of which this rank keeps its block;
+        with it, generators derived from one draw of the state's and this
+        rank's index, drawing its own."""
         if self.shard_map_dp:
             seed = int(torch.randint(0, 1 << 62, (), generator=state.generator))
             jitter = torch.Generator().manual_seed(
@@ -547,30 +568,12 @@ class _Parallel:
                 device=state.dropout_generator.device).manual_seed(
                 _derived_seed(seed, self.data_index * self.n_sp
                               + self.sp_index, 1))
-            return jitter, dropout, contextlib.nullcontext
-
-        def draw(model, shape, lead):
-            whole = list(shape)
-            h_axis = layout.spatial_axes()[0]
-            whole[0] *= self.data_size
-            whole[h_axis] *= self.n_sp
-            masks = _draw_masks(model, whole, state.dropout_generator, lead)
-            if masks is None:
-                return None
-            out = []
-            for m in masks:
-                b, h = m.shape[len(lead)] // self.data_size, \
-                    m.shape[len(lead) + h_axis] // self.n_sp
-                m = m.narrow(len(lead), self.data_index * b, b)
-                out.append(m.narrow(len(lead) + h_axis, self.sp_index * h,
-                                    h))
-            return out
-
-        def scope(batch):
-            return global_draw(batch * self.data_size,
-                               batch * self.data_index)
-
-        return state.generator, draw, scope
+            return jitter, None, dropout, None
+        return (state.generator,
+                (batch * self.data_size, batch * self.data_index),
+                state.dropout_generator,
+                ((self.data_size, self.data_index),
+                 (self.n_sp, self.sp_index)))
 
 
 def _parallel(mesh, mesh_axis, spatial_axis, shard_map_dp, tpu_layout,
@@ -589,16 +592,14 @@ def _parallel(mesh, mesh_axis, spatial_axis, shard_map_dp, tpu_layout,
     return par
 
 
-def _preprocessed(preprocess, par, generator, scope, real_a, real_b):
-    """The preprocess of a step on a mesh: under a spatial axis on the
-    whole images (gathered, then each strip kept), its draws in ``scope``
-    of the local batch."""
-    with scope(real_a.shape[0]):
-        if par.spatial_axis is None:
-            return preprocess(generator, real_a, real_b)
-        a, b = preprocess(generator, spatialctx.gather_h(real_a),
-                          spatialctx.gather_h(real_b))
-        return spatialctx.slice_local_h(a), spatialctx.slice_local_h(b)
+def _preprocessed(preprocess, par, generator, rows, real_a, real_b):
+    """The preprocess of a step on a mesh, its draws for ``rows``: under a
+    spatial axis on the whole images (gathered, then each strip kept)."""
+    if par.spatial_axis is None:
+        return preprocess(generator, real_a, real_b, rows=rows)
+    a, b = preprocess(generator, spatialctx.gather_h(real_a),
+                      spatialctx.gather_h(real_b), rows=rows)
+    return spatialctx.slice_local_h(a), spatialctx.slice_local_h(b)
 
 
 def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
@@ -621,7 +622,10 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
 
     With ``mesh`` (``parallel.Mesh``), the batch is this rank's block
     (batch over ``mesh_axis``, H over ``spatial_axis``) and the gradients
-    and metrics are averaged over the mesh (the module docstring)."""
+    and metrics are averaged over the mesh (the module docstring). There
+    the preprocess is called as ``preprocess(generator, a, b, rows=rows)``
+    and draws for ``rows`` (``augment.random_jitter_batch``'s: the global
+    batch's draw and this rank's rows of it, or None)."""
     loss_obj = get_loss_obj(loss_name)
     weights = _weights(loss_weights)
     cdtype = DTYPES[compute_dtype]
@@ -631,14 +635,16 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
     def train_step(state: TrainState, real_a: torch.Tensor,
                    real_b: torch.Tensor) -> Dict[str, torch.Tensor]:
         generator, dropout = state.generator, state.dropout_generator
+        rows = block = None
         scope = contextlib.nullcontext() if par is None else par.scope()
         with scope:
             if par is not None:
-                generator, dropout, draws = par.generators(state)
+                generator, rows, dropout, block = par.draws(
+                    state, real_a.shape[0])
             if preprocess is not None:
                 real_a, real_b = (
                     preprocess(generator, real_a, real_b) if par is None
-                    else _preprocessed(preprocess, par, generator, draws,
+                    else _preprocessed(preprocess, par, generator, rows,
                                        real_a, real_b))
             for opt in state.optimizers.values():
                 opt.zero_grad(set_to_none=True)
@@ -647,7 +653,8 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
                 state.models, loss_obj, weights, real_a, real_b, cdtype,
                 stop_grads=True, tpu_layout=tpu_layout,
                 pallas_norm=pallas_norm, fuse_apps=fuse_apps, remat=remat,
-                paired=paired, dropout=dropout, stats=stats)
+                paired=paired, dropout=dropout, dropout_block=block,
+                stats=stats)
             surrogate.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         if par is not None:

@@ -188,9 +188,9 @@ class CycleGan:
         self.rng = np.array([0, seed], np.uint32)
         image_size = int(train_config.image_size)
 
-        def train_preprocess(generator, a, b):
-            return (random_jitter_batch(generator, a, image_size),
-                    random_jitter_batch(generator, b, image_size))
+        def train_preprocess(generator, a, b, rows=None):
+            return (random_jitter_batch(generator, a, image_size, rows),
+                    random_jitter_batch(generator, b, image_size, rows))
 
         loss, weights = model_config.loss, dict(model_config.loss_weights)
         options = dict(tpu_layout=self.tpu_layout,

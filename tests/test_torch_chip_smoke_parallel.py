@@ -36,6 +36,8 @@ SETTINGS = (("DEVICE", "cpu"), ("SIZE", 32), ("BATCH", 2),
             ("TIMED_REPS", 1), ("RANK_STEPS_TIMED", 1), ("BN_DP_SIZE", 16),
             ("SPATIAL_F32_POINT", {"size": 32, "batch": 1, "seed": 2,
                                    "beta": [3.0, 4.0]}),
+            ("SPATIAL_KINK_FREE_POINT", {"size": 32, "batch": 1, "seed": 2,
+                                         "beta": [3.0, 4.0]}),
             ("SPATIAL_SERVE_SIZE", 64), ("SPATIAL_SERVE_BATCH", 1),
             ("WORLD1_BACKEND", "gloo"))
 
@@ -189,3 +191,5 @@ def test_parallel_phases_on_the_cpu(tmp_path, monkeypatch):
     assert step == {k: len(v) for k, v in plans["spatial_train"].items()}
     assert served == {k: len(v) for k, v in serve.items()}
     assert forwards == 1 and metrics["quality"]
+    assert set(metrics["gradient_errors"]) == {"full", "kink_free"}
+    assert metrics["nearest_kink"]["kink_free"] > chip_smoke.KINK_MARGIN

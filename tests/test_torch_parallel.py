@@ -6,7 +6,8 @@ process sharding.
 
 The step runs on the recipe and point of ``tests/test_torch_spatial_step.py``
 (batch 4 at 32x32, 2 per rank, f32, NHCW on the kernels' plain versions),
-with the same bounds: metrics and parameters within 1e-5 of JAX's. Without
+with the same bounds: metrics, parameters and gradients within 1e-5 of
+JAX's. Without
 ``dp_shard_map`` a batch norm's statistics span both ranks, which is the
 JAX single-device step's (its GSPMD path computes global statistics); with
 it, each rank's own, which is JAX's ``shard_map`` step on a 2-device mesh.
@@ -32,10 +33,12 @@ from cyclegan_tpu_torch.parallel import (
 )
 from cyclegan_tpu_torch.parallel.spatial import check_spatial_divisibility
 from tests.test_torch_spatial_step import (
+    BATCH,
     NETWORKS,
     SIZE,
     WEIGHTS,
     assert_close_to_jax,
+    jax_grads,
     jax_params,
     jax_state,
     make_point,
@@ -57,9 +60,9 @@ def _moving(state):
                 state.models[n].named_buffers()} for n in NETWORKS}
 
 
-def _jitter(generator, a, b):
-    return (random_jitter_batch(generator, a, SIZE),
-            random_jitter_batch(generator, b, SIZE))
+def _jitter(generator, a, b, rows=None):
+    return (random_jitter_batch(generator, a, SIZE, rows),
+            random_jitter_batch(generator, b, SIZE, rows))
 
 
 def _dp_worker(rank, world, point, bn_point, images):
@@ -80,9 +83,17 @@ def _dp_worker(rank, world, point, bn_point, images):
     steps.make_train_step("mse", WEIGHTS, preprocess=_jitter, mesh=mesh)(
         state, *shard_batch(mesh, (torch.from_numpy(images),) * 2))
     out["jitter"] = snapshot(state)
+    # and the generators' dropout masks likewise
+    params, model_state, a, b = point
+    state = port_state(params, model_state, dropout=True)
+    steps.make_train_step("mse", WEIGHTS, mesh=mesh)(
+        state, *shard_batch(mesh, (torch.from_numpy(a),
+                                   torch.from_numpy(b))))
+    out["dropout"] = snapshot(state)
     # with it, per-rank generators from one draw of the state's
     par = steps._parallel(mesh, "data", None, True, True)
-    jitter, _, _ = par.generators(port_state(params, model_state))
+    jitter, _, _, _ = par.draws(port_state(params, model_state),
+                                BATCH // 2)
     out["draw"] = torch.rand(4, generator=jitter).numpy()
     out["errors"] = _errors(mesh)
     out["replicated"] = _replicated(mesh, rank)
@@ -166,7 +177,7 @@ def _jax_step(point, norm, mesh=False):
     state, metrics = jax_steps.make_train_step(
         models, optimizers, "mse", WEIGHTS, donate=False, **kw)(state, a, b)
     return ({k: np.asarray(v) for k, v in metrics.items()},
-            jax_params(state), state)
+            jax_params(state), jax_grads(state), state)
 
 
 @pytest.fixture(scope="module")
@@ -182,10 +193,8 @@ def jax_bn(bn_point):
 @pytest.mark.parametrize("shard_map_dp", [False, True])
 def test_data_parallel_step_matches_jax_single_device(jax_in, ranks,
                                                       shard_map_dp):
-    metrics, params, _ = jax_in
     for r in ranks:
-        got = r[("in", shard_map_dp)]
-        assert_close_to_jax(got[:3], metrics, params, 1e-5, grads=got[2])
+        assert_close_to_jax(r[("in", shard_map_dp)][:3], *jax_in[:3])
 
 
 def _assert_moving_close(got, jax_state_):
@@ -205,11 +214,10 @@ def _assert_moving_close(got, jax_state_):
 def test_batch_norm_global_statistics_match_jax_single_device(jax_bn,
                                                               ranks):
     """Without dp_shard_map the statistics span the global batch."""
-    metrics, params, state = jax_bn
     for r in ranks:
         got = r[("bn", False)]
-        assert_close_to_jax(got[:3], metrics, params, 1e-5, grads=got[2])
-        _assert_moving_close(got[3], state)
+        assert_close_to_jax(got[:3], *jax_bn[:3])
+        _assert_moving_close(got[3], jax_bn[3])
 
 
 def test_batch_norm_per_shard_statistics_match_jax_shard_map(bn_point,
@@ -217,14 +225,14 @@ def test_batch_norm_per_shard_statistics_match_jax_shard_map(bn_point,
     """With dp_shard_map each rank's batch has its own statistics, as in
     JAX's shard_map step; rank 0's moving statistics are every rank's (the
     shard JAX's replicated output returns)."""
-    metrics, params, state = _jax_step(bn_point, "batchnorm", mesh=True)
+    want = _jax_step(bn_point, "batchnorm", mesh=True)
     single = jax_bn[0]
     assert any(abs(float(single[k]) - float(v)) > 1e-4
-               for k, v in metrics.items()), "per-shard = global statistics"
+               for k, v in want[0].items()), "per-shard = global statistics"
     for r in ranks:
         got = r[("bn", True)]
-        assert_close_to_jax(got[:3], metrics, params, 1e-5, grads=got[2])
-        _assert_moving_close(got[3], state)
+        assert_close_to_jax(got[:3], *want[:3])
+        _assert_moving_close(got[3], want[3])
 
 
 def test_jitter_draw_is_the_single_device_draw(point, images, ranks):
@@ -240,6 +248,30 @@ def test_jitter_draw_is_the_single_device_draw(point, images, ranks):
             for k, v in want[n].items():
                 np.testing.assert_allclose(r["jitter"][1][n][k], v, rtol=0,
                                            atol=1e-5, err_msg=f"{n} {k}")
+
+
+def test_dropout_draw_is_the_single_device_draw(point, ranks):
+    """Without dp_shard_map the ranks' dropout masks are blocks of the
+    single device's: the step equals the unsharded port step."""
+    params, model_state, a, b = point
+    state = port_state(params, model_state, dropout=True)
+    steps.make_train_step("mse", WEIGHTS)(state, torch.from_numpy(a),
+                                          torch.from_numpy(b))
+    _, want, grads = snapshot(state)
+    plain = port_state(params, model_state)
+    steps.make_train_step("mse", WEIGHTS)(plain, torch.from_numpy(a),
+                                          torch.from_numpy(b))
+    assert any(not np.allclose(g, snapshot(plain)[2]["g_AB"][k])
+               for k, g in grads["g_AB"].items()), "no dropout"
+    for r in ranks:
+        for n in NETWORKS:
+            for k, v in want[n].items():
+                np.testing.assert_allclose(r["dropout"][1][n][k], v, rtol=0,
+                                           atol=1e-5, err_msg=f"{n} {k}")
+                np.testing.assert_allclose(
+                    r["dropout"][2][n][k], grads[n][k], rtol=1e-5,
+                    atol=1e-5 * np.abs(grads[n][k]).max(),
+                    err_msg=f"{n} {k} gradient")
 
 
 def test_shard_map_generators_differ_per_data_rank(ranks):

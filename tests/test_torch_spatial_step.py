@@ -12,13 +12,20 @@ Metrics and parameters after the step must be within 1e-5 of JAX's in
 f32 (a parameter whose gradient fell below 1e-6 within 2 lr more, as
 ``tests/test_torch_multi_step.py`` allows: Adam's first update turns on
 rounding there) and within 2e-2 in bf16, JAX's own bounds
-(``tests/test_spatial_shard_map.py:228``); the averaged gradients within
-1e-5 of the port's unsharded step's. The JAX spatial multi step fails in
+(``tests/test_spatial_shard_map.py:228``). Adam's first update is close
+to lr * sign(g), blind to the gradients' scale, so the averaged gradients
+themselves are held against JAX's step's, read exactly through an optax
+transformation that keeps them as its state: in f32 each within 1e-5,
+relatively or relative to its network's largest gradient; in bf16 each
+network's gradient has JAX's norm within 5% and points its way (cosine at
+least 0.9), since bf16 rounding at this point leaves about 30% of relative
+L2 error between either package's bf16 gradients and the f32 ones. The
+averaged f32 gradients are also within 1e-5 of the port's unsharded
+step's. The JAX spatial multi step fails in
 JAX itself, so the port's spatial multi step is held against its own
 sequential unsharded steps and against two JAX single-device steps.
 """
 
-import contextlib
 
 import numpy as np
 import pytest
@@ -102,8 +109,8 @@ def make_point(norm="instancenorm", k=None):
     return params, models_to_jax_state(models), a, b
 
 
-def port_state(params, model_state, norm="instancenorm"):
-    models = steps.build_models(model_config(norm), seed=0)
+def port_state(params, model_state, norm="instancenorm", **gen):
+    models = steps.build_models(model_config(norm, **gen), seed=0)
     load_jax_params(models, params, model_state)
     return steps.init_train_state(models, train_config(), seed=7,
                                   device="cpu")
@@ -197,9 +204,24 @@ def ranks(point, point_k):
     return run_ranks(_mesh_worker, 4, (point, point_k), timeout=300)
 
 
-def jax_state(params, model_state, norm="instancenorm"):
+def _kept_grads():
+    """An optax transformation that passes the updates on unchanged and
+    keeps them as its state: chained first, the step's gradients."""
     import jax
     import jax.numpy as jnp
+    import optax
+
+    return optax.GradientTransformation(
+        lambda params: jax.tree.map(jnp.zeros_like, params),
+        lambda updates, state, params=None: (updates, updates))
+
+
+def jax_state(params, model_state, norm="instancenorm"):
+    """The JAX models, optimizers (Adam behind ``_kept_grads``) and train
+    state at the point."""
+    import jax
+    import jax.numpy as jnp
+    import optax
 
     from cyclegan_tpu import steps as jax_steps
     from cyclegan_tpu.models import create_model
@@ -208,8 +230,8 @@ def jax_state(params, model_state, norm="instancenorm"):
     cfg = model_config(norm)
     models = {n: create_model(cfg.generator if n.startswith("g")
                               else cfg.discriminator) for n in NETWORKS}
-    optimizers = {n: get_optimizer(dict(name="adam", learning_rate=LR,
-                                        beta_1=0.5)) for n in NETWORKS}
+    optimizers = {n: optax.chain(_kept_grads(), get_optimizer(dict(
+        name="adam", learning_rate=LR, beta_1=0.5))) for n in NETWORKS}
     jparams = jax.tree.map(jnp.asarray, params)
     state = jax_steps.TrainState(
         params=jparams,
@@ -219,26 +241,53 @@ def jax_state(params, model_state, norm="instancenorm"):
     return models, optimizers, state
 
 
-def jax_params(state):
+def _by_port_name(trees):
     import jax
 
     return {n: {k: v.numpy() for k, v in jax_params_to_torch(
-        jax.tree.map(np.asarray, state.params[n])).items()}
-        for n in NETWORKS}
+        jax.tree.map(np.asarray, trees[n])).items()} for n in NETWORKS}
 
 
-def assert_close_to_jax(got, want_metrics, want_params, tol, grads=None):
-    metrics, params, _ = got
+def jax_params(state):
+    return _by_port_name(state.params)
+
+
+def jax_grads(state):
+    """The gradients of the step that made ``state`` (``_kept_grads``)."""
+    return _by_port_name({n: state.opt_state[n][0] for n in NETWORKS})
+
+
+def assert_close_to_jax(got, want_metrics, want_params, want_grads,
+                        dtype="float32"):
+    """Metrics and parameters within ``TOL[dtype]`` of JAX's (in f32 a
+    parameter whose gradient is below 1e-6 within 2 lr more), and the
+    gradients as the module docstring says."""
+    tol = TOL[dtype]
+    metrics, params, grads = got
     assert metrics.keys() == want_metrics.keys()
     for k, v in want_metrics.items():
         assert abs(float(metrics[k]) - float(v)) <= tol * max(
             1.0, abs(float(v))), (k, float(metrics[k]), float(v))
     for n in NETWORKS:
+        assert grads[n].keys() == want_grads[n].keys(), n
         for k, want in want_params[n].items():
-            small = 0 if grads is None else (np.abs(grads[n][k]) < 1e-6)
+            small = np.abs(grads[n][k]) < 1e-6 if dtype == "float32" else 0
             diff = np.abs(params[n][k] - want)
             assert (diff <= tol + 2 * LR * small).all(), (
                 n, k, float(diff.max()))
+        if dtype == "float32":
+            top = max(np.abs(g).max() for g in want_grads[n].values())
+            for k, g in want_grads[n].items():
+                np.testing.assert_allclose(grads[n][k], g, rtol=tol,
+                                           atol=tol * top,
+                                           err_msg=f"{n} {k} gradient")
+        else:
+            u, v = (np.concatenate([t[k].ravel() for k in sorted(t)])
+                    for t in (grads[n], want_grads[n]))
+            ratio = np.linalg.norm(u) / np.linalg.norm(v)
+            cosine = u @ v / (np.linalg.norm(u) * np.linalg.norm(v))
+            assert abs(ratio - 1) <= 0.05 and cosine >= 0.9, (
+                n, float(ratio), float(cosine))
 
 
 @pytest.fixture(scope="module")
@@ -256,7 +305,7 @@ def jax_single(point):
             models, optimizers, "mse", WEIGHTS, donate=False,
             compute_dtype=dtype)(state, jnp.asarray(a), jnp.asarray(b))
         out[dtype] = ({k: np.asarray(v) for k, v in metrics.items()},
-                      jax_params(state))
+                      jax_params(state), jax_grads(state))
     return out
 
 
@@ -264,8 +313,7 @@ def jax_single(point):
 def test_spatial_train_step_matches_jax_single_device(ranks, jax_single,
                                                       dtype):
     got = ranks[0][("train", dtype)]
-    assert_close_to_jax(got, *jax_single[dtype], TOL[dtype],
-                        grads=got[2] if dtype == "float32" else None)
+    assert_close_to_jax(got, *jax_single[dtype], dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -386,9 +434,9 @@ def _jitter_worker(rank, world, images):
     gen = torch.Generator().manual_seed(3)
     with step_par.scope():
         a, _ = steps._preprocessed(
-            lambda g, a, b: (random_jitter_batch(g, a, SIZE),
-                             random_jitter_batch(g, b, SIZE)),
-            step_par, gen, lambda n: contextlib.nullcontext(), x, x)
+            lambda g, a, b, rows: (random_jitter_batch(g, a, SIZE, rows),
+                                   random_jitter_batch(g, b, SIZE, rows)),
+            step_par, gen, None, x, x)
     return a.numpy()
 
 
