@@ -192,7 +192,14 @@ failing the run if it fails:
     and true against the mean of one step per half (moving statistics
     within STATS_REL), each rank's bf16 launches ``train_launches`` at
     batch 4, three finite steps, img/s of the two ranks on one card (not a
-    scaling number) and the gradient all-reduce's time;
+    scaling number) and the gradient all-reduce's time; (c)
+    (``resnet_data_parallel``) the ResNet recipe from seeded weights on the
+    same two ranks: its f32 gradients against one batch-8 card step at
+    RESNET_DP_F32_POINT within TRAIN_F32_REL and, at 256², against the mean
+    of one step on each rank's half within RESNET_DP_HALVES_REL (cuDNN's
+    deterministic algorithms), each rank's bf16 launches
+    ``resnet_train_launches`` at batch 4 (K9, K9-dW, K10, K1, K5, K2, K6),
+    the device busy time of a rank step and the all-reduce's time;
 27. spatial sharding (``spatial``): RANKS ranks, ``create_spatial_mesh(1,
     RANKS)``, ``dp_shard_map``: the f32 step at SPATIAL_F32_POINT (full
     size, the nearest kink reported) and at SPATIAL_KINK_FREE_POINT (no
@@ -203,12 +210,28 @@ failing the run if it fails:
     steps, timing; converged256 served at 512² through
     ``InferenceSession(spatial_devices=RANKS)`` on every rank, within the
     serving bounds of the unsharded f32 and bf16 card sessions, its launches
-    ``spatial_launches`` of the serving plan each forward.
+    ``spatial_launches`` of the serving plan each forward; (c)
+    (``spatial_server_paired``) one 512² PNG through
+    ``apps.server.serve(spatial_devices=RANKS)`` on both ranks (rank 0
+    answers HTTP and broadcasts the request), the reply bit-equal to the
+    ranks' spatial ``stylize`` and within the serving bounds, its forward
+    ``spatial_launches`` of the batch-1 serving plan, the follower done
+    after the warm-ups and the request; (d) the paired f32 step (NHWC)
+    on the strips at SPATIAL_KINK_FREE_POINT against one rank's paired
+    step within PAIRED_SPATIAL_REL, no hand kernel launched;
+28. the reference import (``import_reference``): converged256 written in
+    the reference's layout (``write_reference_folder``: four TensorFlow
+    tensor bundles written by ``write_bundle``, Adam ``.npy`` slots of
+    IMPORT_ITERATIONS iterations), imported on the card without
+    TensorFlow; a bf16 NHCW batch-8 forward of the import bit-equal to
+    converged256's, with the serving plan's launches; one f32 step resumed
+    from it bit-equal, in every parameter and Adam slot, to a step from a
+    state built straight from the same parameters and slots.
 
 Phase 2 checks, and phase 3 times, every unique launch shape of every
 plan, the option phases' batch-16 and batch-4 shapes and the strips'
 extended shapes of phases 26-27 included; phases 21 and 27 do the same for
-the 512x512 serving forwards. A failed rank, a collective error or a kernel
+the 512x512 serving forwards, and phase 28 checks its f32 step's shapes. A failed rank, a collective error or a kernel
 error fails the run; no phase catches its own failure.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -484,7 +507,7 @@ STATS_REL = 1e-5
 # 6.7e-5 from theirs). So the comparison is repeated at 64², seed 29, where
 # no ReLU input lies within KINK_MARGIN (asserted on the strips).
 RANKS = 2
-RANK_PATHS = ("dp_train", "spatial_train")
+RANK_PATHS = ("dp_train", "spatial_train", "resnet_dp_train")
 RANK_TIMEOUT = 480
 RANK_STEPS_TIMED = 5
 WORLD1_BACKEND = "nccl"
@@ -495,6 +518,26 @@ SPATIAL_KINK_FREE_POINT = {"size": 64, "batch": 1, "seed": 29,
                            "beta": [3.0, 4.0]}
 SPATIAL_SERVE_SIZE = EXPORT_SIZE
 SPATIAL_SERVE_BATCH = 2
+# Phase 27 (d): the paired step on the strips against one rank's paired
+# step, f32 at SPATIAL_KINK_FREE_POINT: the same convolutions (cuDNN on the
+# halo-extended strips, TF32 off) and norm sums in another order
+PAIRED_SPATIAL_REL = 1e-5
+# Phase 26 (c): the ResNet's f32 gradients on the data ranks. At 256², batch
+# 8, they moved by 6.4e-4 to 9.8e-4 of the generators' gradients from one
+# card step to the next on an H100 (cuDNN's stride-2 and transposed convs
+# sum in an order that changes from run to run, and this recipe's
+# generators, nine residual blocks of non-affine norms at random init,
+# amplify it), too close to TRAIN_F32_REL for a bound. So the step of one
+# rank at batch 8 is compared at RESNET_DP_F32_POINT (phase 6's f32 point,
+# batch 8), and at 256² each rank's step against one card step on its
+# half, both with cuDNN's deterministic algorithms, within
+# RESNET_DP_HALVES_REL: the same shapes, so only the all-reduce differs.
+RESNET_DP_F32_POINT = dict(RESNET_F32_POINT, batch=BATCH)
+RESNET_DP_HALVES_REL = 1e-6
+# Phase 28: the reference's Adam iterations in the written folder, and the
+# seed of its Adam slots and of the step's inputs
+IMPORT_ITERATIONS = 1234
+IMPORT_SEED = 28
 # the native loader's decode against the Python path's, in uint8 steps
 # (the JAX package's own bound for its native loader)
 NATIVE_MAX_STEPS = 2
@@ -1140,6 +1183,18 @@ def no_tf32():
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms, and PyTorch's default again
+    after."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
 
 
 def time_ms(fn, reps=TIMED_REPS, warmup=3):
@@ -3715,6 +3770,515 @@ def spatial(cfg, plan, serve_plan, prepare=None):
             result)
 
 
+def _resnet_dp_rank(rank, world, settings, plan):
+    """Phase 26 (c) on one of ``world`` ranks sharing the card over gloo, a
+    data mesh of ``world``: the ResNet recipe's f32 gradients of the
+    global batch's step (seeded weights, no jitter), then its bf16 main
+    path against ``resnet_train_launches`` at the rank's batch, timing and
+    a trace."""
+    _enter_rank(settings)
+    from cyclegan_tpu_torch.config import yaml2namespace
+    from cyclegan_tpu_torch.parallel import create_mesh, shard_batch
+    from cyclegan_tpu_torch.steps import make_train_step
+
+    mesh = create_mesh(world)
+    cfg = yaml2namespace(RESNET_CONFIG)
+    loss, weights = cfg["loss"], cfg["loss_weights"]
+    out = {"backend": mesh.backend}
+    point = RESNET_DP_F32_POINT
+    for label, x, seed in (
+            ("point", f32_point_inputs(point), point["seed"]),
+            ("full", _noise_batch(BATCH, SIZE, 26), 0)):
+        state = _train_state(cfg, DEVICE, None, seed)
+        with deterministic_cudnn():
+            make_train_step(loss, weights, "float32", mesh=mesh)(
+                state, *(t.to(DEVICE) for t in shard_batch(mesh, x)))
+        out[label] = _grads(state)
+    state = _train_state(cfg, DEVICE)
+    step = make_train_step(loss, weights, "bfloat16", preprocess=_jitter,
+                           mesh=mesh)
+    batch = shard_batch(mesh, _uint8_batch(BATCH))
+    out["launches"], out["metrics"] = _planned_rank_step(
+        "resnet_dp_train", step, state, batch, plan)
+    out["step_s"], out["all_reduce_s"], out["all_reduce_floats"] = \
+        _timed_steps(step, state, batch, mesh)
+    out["trace"] = device_trace(lambda: step(state, *batch), None, 3,
+                                f"resnet_dp_rank{rank}_trace.json")
+    out["params"] = float(sum(p.detach().double().sum() for m in
+                              state.models.values()
+                              for p in m.parameters()))
+    out["failures"] = list(failures)
+    return out
+
+
+def resnet_data_parallel(cfg, plan, prepare=None):
+    """Phase 26 (c): the ResNet recipe on RANKS data ranks sharing the
+    card over gloo, global batch BATCH: the f32 gradients after the
+    all-reduce against one rank's batch-BATCH card step at
+    RESNET_DP_F32_POINT within TRAIN_F32_REL and, at SIZE², against the
+    mean of one card step on each rank's half within RESNET_DP_HALVES_REL
+    (cuDNN deterministic), each rank's bf16 launches against ``plan``
+    (``resnet_train_launches`` at the rank's batch: K9, K9-dW, K10, K1, K5,
+    K2, K6), three finite steps, the step's and the gradient all-reduce's
+    time and the device busy time of a rank step. Returns (rank 0's
+    launches, metrics)."""
+    from cyclegan_tpu_torch.parallel import run_ranks
+
+    ranks = run_ranks(_resnet_dp_rank, RANKS, (_rank_settings(prepare),
+                                               plan),
+                      backend="gloo", timeout=RANK_TIMEOUT)
+    for r, out in enumerate(ranks):
+        for msg in out["failures"]:
+            fail(f"rank {r}: {msg}")
+    if len({out["params"] for out in ranks}) != 1:
+        fail(f"resnet_dp_train: the ranks' parameters differ "
+             f"{[out['params'] for out in ranks]}")
+    if any(out["launches"] != ranks[0]["launches"] for out in ranks):
+        fail("resnet_dp_train: the ranks launched differently")
+    point = RESNET_DP_F32_POINT
+    with deterministic_cudnn():
+        errors = {"point": _check_grads(
+            "resnet_dp_train", ranks[0]["point"],
+            step_grads(cfg, DEVICE, "float32", f32_point_inputs(point),
+                       None, point["seed"]))}
+        x = _noise_batch(BATCH, SIZE, 26)
+        half = BATCH // RANKS
+        parts = [step_grads(cfg, DEVICE, "float32",
+                            [t[i * half:(i + 1) * half] for t in x])
+                 for i in range(RANKS)]
+    errors["rank_halves"] = {}
+    for name, grads in ranks[0]["full"].items():
+        mean = {k: sum(p[name][k] for p in parts) / RANKS for k in grads}
+        rel, bias = f32_errors(grads, mean)
+        errors["rank_halves"][name] = {"rel": rel, "pre_norm_bias": bias}
+        if not (rel <= RESNET_DP_HALVES_REL
+                and bias <= RESNET_DP_HALVES_REL):
+            fail(f"resnet_dp_train {name}: gradient error {rel} (pre-norm "
+                 f"biases {bias}) against the mean of the halves' steps "
+                 f"beyond {RESNET_DP_HALVES_REL}")
+    print(f"resnet_dp_train f32 gradients vs the mean of the halves' steps: "
+          f"{json.dumps(errors['rank_halves'])}", flush=True)
+    step_s = max(out["step_s"] for out in ranks)
+    traces = [out["trace"] for out in ranks]
+    result = {"ranks": RANKS, "backend": ranks[0]["backend"],
+              "global_batch": BATCH, "size": SIZE, "f32_point": point,
+              "gradient_errors": errors, "metrics": ranks[0]["metrics"],
+              "step_ms": step_s * 1e3,
+              "img_per_s_two_ranks_one_card": BATCH / step_s,
+              "all_reduce_ms": max(out["all_reduce_s"] for out in ranks)
+              * 1e3, "all_reduce_floats": ranks[0]["all_reduce_floats"],
+              "traces": traces}
+    busy = [t["device_busy_ms_per_call"] for t in traces if t]
+    print(f"resnet_dp_train: {RANKS} ranks sharing one card over "
+          f"{result['backend']}, global batch {BATCH}: "
+          f"{result['step_ms']:.1f} ms a step, device busy "
+          f"{busy or 'not measured'} ms a rank step, gradient all-reduce "
+          f"{result['all_reduce_ms']:.2f} ms for "
+          f"{result['all_reduce_floats']} floats", flush=True)
+    return ranks[0]["launches"], result
+
+
+def _http_client(httpd, body, replies):
+    """One request to the spatial server, then its shutdown."""
+    try:
+        port = httpd.server_address[1]
+        replies.append(_post(
+            f"http://127.0.0.1:{port}/stylize?direction=a2b", body))
+    finally:
+        httpd.shutdown()
+
+
+def _spatial_more_rank(rank, world, settings, http_plan):
+    """Phases 27 (c) and (d) on one of ``world`` H-strip ranks sharing the
+    card over gloo: (c) ``apps.server.serve(spatial_devices=world)`` on
+    every rank, rank 0 posting one SPATIAL_SERVE_SIZE² PNG (the counts
+    zeroed once the server is up, read after it stopped: the request's
+    forward against ``http_plan``), then the same ranks' spatial session
+    on the image; (d) the paired f32 step (NHWC) at
+    SPATIAL_KINK_FREE_POINT on the strips, with the counts zeroed around
+    it."""
+    import threading
+
+    _enter_rank(settings)
+    from cyclegan_tpu_torch import kernels
+    from cyclegan_tpu_torch.apps import server as server_app
+    from cyclegan_tpu_torch.apps.inference import InferenceSession
+    from cyclegan_tpu_torch.config import yaml2namespace
+    from cyclegan_tpu_torch.data import png
+    from cyclegan_tpu_torch.parallel import create_spatial_mesh, shard_batch
+    from cyclegan_tpu_torch.steps import make_train_step
+
+    image = np.random.default_rng(27).integers(
+        0, 256, (SPATIAL_SERVE_SIZE, SPATIAL_SERVE_SIZE, 3), dtype=np.uint8)
+    replies, clients = [], []
+
+    def on_ready(httpd):
+        kernels.reset_launches()
+        clients.append(threading.Thread(target=_http_client, args=(
+            httpd, png.encode_png(image), replies)))
+        clients[0].start()
+
+    t0 = time.perf_counter()
+    followed = server_app.serve(MODEL_DIR, "127.0.0.1", 0,
+                                SPATIAL_SERVE_SIZE, dtype="bfloat16",
+                                spatial_devices=world, device=DEVICE,
+                                on_ready=on_ready)
+    for t in clients:
+        t.join()
+    _sync()
+    out = {"followed": followed, "serve_s": time.perf_counter() - t0,
+           "http_launches": _launched() if rank == 0 else None}
+    if rank == 0:
+        code, headers, body = replies[0]
+        if code != 200:
+            fail(f"spatial_http_512: status {code} {body[:200]!r}")
+            body = None
+        out["reply"] = None if body is None else png.decode_png(body)
+        out["timing"] = _server_timing(headers)
+    session = InferenceSession(MODEL_DIR, "bfloat16", tpu_layout=True,
+                               spatial_devices=world, device=DEVICE)
+    out["stylized"] = session.stylize(image[None], "a2b")[0]
+    del session
+
+    mesh = create_spatial_mesh(data=1, spatial=world)
+    cfg = yaml2namespace(MODEL_DIR / "model_config.yaml")
+    point = SPATIAL_KINK_FREE_POINT
+    x = shard_batch(mesh, f32_point_inputs(point), spatial_axis="spatial")
+    state = _train_state(cfg, DEVICE, MODEL_DIR, point["seed"],
+                         point["beta"])
+    step = make_train_step(cfg["loss"], cfg["loss_weights"], "float32",
+                           tpu_layout=False, paired=True, mesh=mesh,
+                           spatial_axis="spatial", shard_map_dp=True)
+    kernels.reset_launches()
+    metrics = step(state, *(t.to(DEVICE) for t in x))
+    _sync()
+    out["paired_launches"] = _launched()
+    out["paired_metrics"] = {k: float(v) for k, v in metrics.items()}
+    out["paired_f32"] = _grads(state)
+    out["failures"] = list(failures)
+    return out
+
+
+def spatial_server_paired(cfg, http_plan, prepare=None):
+    """Phase 27 (c) and (d), RANKS H-strip ranks sharing the card over
+    gloo: (c) the HTTP server with ``spatial_devices=RANKS`` at
+    SPATIAL_SERVE_SIZE², its reply equal bit for bit to the same ranks'
+    spatial ``stylize`` of the image and within the serving bounds of the
+    unsharded f32 and bf16 card sessions, the follower's ``serve``
+    returned after the warm-ups and the request, the request's launches
+    ``http_plan``; (d) the paired f32 step on the strips against one
+    rank's paired step within PAIRED_SPATIAL_REL (``f32_errors``), no
+    hand kernel launched (cuDNN through ``LibraryConv``'s vmap rule, the
+    norms in torch ops with summed statistics). Returns (rank 0's request
+    launches, the paired step's launches, metrics)."""
+    from cyclegan_tpu_torch.apps import server as server_app
+    from cyclegan_tpu_torch.apps.inference import InferenceSession
+    from cyclegan_tpu_torch.parallel import run_ranks
+
+    ranks = run_ranks(_spatial_more_rank, RANKS,
+                      (_rank_settings(prepare), http_plan),
+                      backend="gloo", timeout=RANK_TIMEOUT)
+    for r, out in enumerate(ranks):
+        for msg in out["failures"]:
+            fail(f"rank {r}: {msg}")
+    lead = ranks[0]
+    image = np.random.default_rng(27).integers(
+        0, 256, (SPATIAL_SERVE_SIZE, SPATIAL_SERVE_SIZE, 3), dtype=np.uint8)
+    result = {"serve_s": max(out["serve_s"] for out in ranks),
+              "server_timing_ms": lead.get("timing")}
+    if lead["followed"] is not None or ranks[1]["followed"] != len(
+            server_app.DIRECTIONS) + 1:
+        fail(f"spatial_http_512: the ranks followed "
+             f"{[out['followed'] for out in ranks]} requests, want "
+             f"[None, {len(server_app.DIRECTIONS) + 1}]")
+    for r, out in enumerate(ranks):
+        if not np.array_equal(out["stylized"], lead["stylized"]):
+            fail(f"spatial_http_512: rank {r}'s stylize differs")
+    reply = lead.get("reply")
+    if reply is not None:
+        if not np.array_equal(reply, lead["stylized"]):
+            fail("spatial_http_512: the reply is not the ranks' stylize")
+        ref = InferenceSession(MODEL_DIR, "float32", tpu_layout=True,
+                               device=DEVICE).stylize(image[None], "a2b")
+        whole16 = InferenceSession(MODEL_DIR, "bfloat16", tpu_layout=True,
+                                   device=DEVICE).stylize(image[None],
+                                                          "a2b")
+        result["quality"] = serving_quality("spatial_http_512",
+                                            reply[None], ref, whole16)
+    want = {k: len(v) for k, v in http_plan.items()}
+    if lead["http_launches"] != want:
+        fail(f"spatial_http_512 launches {lead['http_launches']}, plan "
+             f"{want}")
+    point = SPATIAL_KINK_FREE_POINT
+    single = step_grads(cfg, DEVICE, "float32", f32_point_inputs(point),
+                        MODEL_DIR, point["seed"], point["beta"],
+                        tpu_layout=False, paired=True)
+    errors = {}
+    for name in single:
+        rel, bias = f32_errors(lead["paired_f32"][name], single[name])
+        errors[name] = {"rel": rel, "pre_norm_bias": bias}
+        if not (rel <= PAIRED_SPATIAL_REL and bias <= PAIRED_SPATIAL_REL):
+            fail(f"spatial_paired {name}: gradient error {rel} (pre-norm "
+                 f"biases {bias}) beyond {PAIRED_SPATIAL_REL}")
+    for r, out in enumerate(ranks):
+        if out["paired_launches"]:
+            fail(f"spatial_paired: rank {r} launched {out['paired_launches']}"
+                 f", want no hand kernel")
+    result["paired"] = {"gradient_errors": errors,
+                        "metrics": lead["paired_metrics"]}
+    print(f"spatial_http_512: reply bit-equal to the ranks' stylize, "
+          f"{result['serve_s']:.1f} s from session to shutdown, server "
+          f"timing {json.dumps(result['server_timing_ms'])}; "
+          f"spatial_paired f32 vs one rank: {json.dumps(errors)}",
+          flush=True)
+    return lead["http_launches"], lead["paired_launches"], result
+
+
+BUNDLE_DTYPES = {np.dtype("<f4"): 1, np.dtype("<f8"): 2, np.dtype("<f2"): 19}
+TABLE_MAGIC = 0xDB4775248B80FB57
+
+
+def _table_block(entries):
+    """A LevelDB table block of (key, value) bytes pairs in key order, no
+    prefix compression, one restart point, and its trailer (type 0, none,
+    and the masked crc32c of the contents and the type)."""
+    import struct
+
+    from cyclegan_tpu_torch.data.example_proto import _encode_varint
+    from cyclegan_tpu_torch.data.tfrecord import _masked_crc32c
+
+    body = bytearray()
+    for key, value in entries:
+        body += (_encode_varint(0) + _encode_varint(len(key))
+                 + _encode_varint(len(value)) + key + value)
+    body += struct.pack("<II", 0, 1)
+    return bytes(body), b"\x00" + struct.pack(
+        "<I", _masked_crc32c(bytes(body) + b"\x00"))
+
+
+def write_bundle(prefix, tensors):
+    """A TensorFlow tensor bundle (``<prefix>.index`` and
+    ``<prefix>.data-00000-of-00001``) of float arrays by name, as
+    ``tf.raw_ops.SaveV2`` writes one: the data file the arrays' bytes in
+    key order, the index a table of one data block (the header under the
+    empty key, then each ``BundleEntryProto``), an empty metaindex block,
+    an index block and the 48-byte footer."""
+    import struct
+
+    from cyclegan_tpu_torch.data.example_proto import (
+        _encode_varint,
+        _len_delimited,
+        _tag,
+    )
+    from cyclegan_tpu_torch.data.tfrecord import _masked_crc32c
+
+    def varint_field(field, value):
+        return _tag(field, 0) + _encode_varint(value)
+
+    prefix = Path(prefix)
+    prefix.parent.mkdir(parents=True, exist_ok=True)
+    header = varint_field(1, 1) + _len_delimited(3, varint_field(1, 1))
+    entries, data = [(b"", header)], bytearray()
+    for name in sorted(tensors):
+        arr = np.asarray(tensors[name])
+        arr = arr.astype(arr.dtype.newbyteorder("<"))
+        raw = arr.tobytes()
+        shape = b"".join(_len_delimited(2, varint_field(1, d))
+                         for d in arr.shape)
+        entry = (varint_field(1, BUNDLE_DTYPES[arr.dtype])
+                 + _len_delimited(2, shape)
+                 + (varint_field(4, len(data)) if data else b"")
+                 + varint_field(5, len(raw))
+                 + _tag(6, 5) + struct.pack("<I", _masked_crc32c(raw)))
+        entries.append((name.encode(), entry))
+        data += raw
+    Path(f"{prefix}.data-00000-of-00001").write_bytes(bytes(data))
+    out, handles = bytearray(), []
+    for block in (entries, [], None):
+        if block is None:  # the index: the data block's last key
+            block = [(entries[-1][0], handles[0])]
+        body, trailer = _table_block(block)
+        handles.append(_encode_varint(len(out)) + _encode_varint(len(body)))
+        out += body + trailer
+    footer = handles[1] + handles[2]
+    out += footer + bytes(40 - len(footer)) + struct.pack("<Q", TABLE_MAGIC)
+    Path(f"{prefix}.index").write_bytes(bytes(out))
+
+
+def write_reference_folder(folder, model_dir, seed=IMPORT_SEED):
+    """``model_dir``'s four networks in the reference's layout: each a
+    SavedModel folder whose ``variables`` bundle holds its weights under
+    the Keras layer keys (``import_reference.enumerate_slots``' order), a
+    ``<network>_optimizer.npy`` of Adam slots drawn from ``seed`` with
+    IMPORT_ITERATIONS iterations, and the two configs. Returns (the
+    parameter trees, {network: (m slots, v slots)})."""
+    import shutil
+
+    from cyclegan_tpu_torch.apps.import_reference import (
+        NETWORKS,
+        enumerate_slots,
+        network_arch,
+        trainable_leaves,
+    )
+    from cyclegan_tpu_torch.config import yaml2namespace
+    from cyclegan_tpu_torch.steps import build_models
+    from cyclegan_tpu_torch.utils.checkpoint import load_pytree
+    from cyclegan_tpu_torch.weights import models_to_jax_params
+
+    folder = Path(folder)
+    cfg = yaml2namespace(model_dir / "model_config.yaml")
+    params = load_pytree(model_dir / "checkpoint.npz", {
+        "params": models_to_jax_params(build_models(cfg))})["params"]
+    rng = np.random.default_rng(seed)
+    slots = {}
+    for name in NETWORKS:
+        arch = network_arch(cfg, name)
+        tensors = {
+            f"layer_with_weights-{i}/{tf_attr}/.ATTRIBUTES/VARIABLE_VALUE":
+                target[key]
+            for i, (attrs, target) in enumerate(enumerate_slots(
+                arch, params[name])) for tf_attr, key in attrs}
+        write_bundle(folder / name / "variables" / "variables", tensors)
+        (folder / name / "saved_model.pb").write_bytes(b"")
+        leaves = [d[k] for d, k in trainable_leaves(arch, params[name])]
+        ms = [(0.01 * rng.normal(size=v.shape)).astype(np.float32)
+              for v in leaves]
+        vs = [(1e-4 * np.abs(rng.normal(size=v.shape))).astype(np.float32)
+              for v in leaves]
+        blob = np.empty(1 + 2 * len(leaves), dtype=object)
+        blob[0] = np.int64(IMPORT_ITERATIONS)
+        for i, arr in enumerate(ms + vs):
+            blob[1 + i] = arr
+        np.save(folder / f"{name}_optimizer.npy", blob, allow_pickle=True)
+        slots[name] = (ms, vs)
+    for config in ("model_config.yaml", "train_config.yaml"):
+        shutil.copyfile(model_dir / config, folder / config)
+    return params, slots
+
+
+def _direct_state(cfg, params, slots):
+    """A train state built straight from ``params`` and the Adam
+    ``slots`` (IMPORT_ITERATIONS steps), on the card."""
+    from cyclegan_tpu_torch.apps.import_reference import (
+        network_arch,
+        trainable_leaves,
+    )
+    from cyclegan_tpu_torch.utils.checkpoint import restore_optimizer
+    from cyclegan_tpu_torch.weights import load_jax_params, \
+        module_to_jax_params
+
+    state = _train_state(cfg, DEVICE)
+    load_jax_params(state.models, params)
+    for name, model in state.models.items():
+        arch = network_arch(cfg, name)
+        trees = []
+        for arrays in slots[name]:
+            tree = module_to_jax_params(model)
+            for (d, k), arr in zip(trainable_leaves(arch, tree), arrays):
+                d[k] = arr
+            trees.append(tree)
+        restore_optimizer(model, state.optimizers[name], [
+            {"count": np.int32(IMPORT_ITERATIONS), "mu": trees[0],
+             "nu": trees[1]}, {}], IMPORT_ITERATIONS)
+    state.step = IMPORT_ITERATIONS
+    return state
+
+
+def import_reference(cfg, serve_plan, train_plan, workdir):
+    """Phase 28: converged256 written in the reference's layout
+    (``write_reference_folder``: four tensor bundles, Adam ``.npy`` slots),
+    imported by ``import_reference_model`` on the card (TensorFlow is not
+    imported); (a) a bf16 NHCW batch-BATCH forward of the import equal bit
+    for bit to converged256's own, its launches ``serve_plan``; (b) one
+    f32 step (batch GRAD_BATCH, no jitter) resumed from the import equal
+    bit for bit, in every parameter and Adam slot, to a step from a state
+    built straight from the same parameters and slots, its launches
+    ``train_plan`` with each K1 and K5 launch also counted under its
+    CUDA-core design. Returns ({path: launches}, metrics)."""
+    from cyclegan_tpu_torch import kernels
+    from cyclegan_tpu_torch.apps.import_reference import (
+        import_reference_model,
+    )
+    from cyclegan_tpu_torch.apps.inference import InferenceSession
+    from cyclegan_tpu_torch.steps import make_train_step
+    from cyclegan_tpu_torch.utils.checkpoint import load_train_state
+
+    reference, imported = workdir / "reference", workdir / "imported"
+    t0 = time.perf_counter()
+    params, slots = write_reference_folder(reference, MODEL_DIR)
+    t1 = time.perf_counter()
+    before = "tensorflow" in sys.modules
+    import_reference_model(reference, imported, device=DEVICE)
+    t2 = time.perf_counter()
+    result = {"write_s": t1 - t0, "import_s": t2 - t1,
+              "tensorflow_imported": not before
+              and "tensorflow" in sys.modules}
+    if result["tensorflow_imported"]:
+        fail("import_reference: the import imported TensorFlow")
+    images = np.random.default_rng(IMPORT_SEED).integers(
+        0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+    own = InferenceSession(MODEL_DIR, "bfloat16", tpu_layout=True,
+                           device=DEVICE).stylize(images, "a2b")
+    session = InferenceSession(imported, "bfloat16", tpu_layout=True,
+                               device=DEVICE)
+    kernels.reset_launches()
+    got = session.stylize(images, "a2b")
+    _sync()
+    launches = {"import_serve": _launched()}
+    del session
+    served_equal = bool(np.array_equal(got, own))
+    if not served_equal:
+        fail(f"import_serve: the imported forward differs from "
+             f"converged256's at {int((got != own).sum())} values")
+    if launches["import_serve"] != {k: len(v) for k, v in
+                                    serve_plan.items()}:
+        fail(f"import_serve launches {launches['import_serve']}, plan "
+             f"{ {k: len(v) for k, v in serve_plan.items()} }")
+
+    x = [t.to(DEVICE) for t in f32_point_inputs(
+        {"batch": GRAD_BATCH, "size": SIZE, "seed": IMPORT_SEED})]
+    resumed = _train_state(cfg, DEVICE)
+    load_train_state(imported / "checkpoint.npz", resumed)
+    direct = _direct_state(cfg, params, slots)
+    if resumed.step != IMPORT_ITERATIONS:
+        fail(f"import_resume_train: step {resumed.step}, want "
+             f"{IMPORT_ITERATIONS}")
+    step = make_train_step(cfg["loss"], cfg["loss_weights"], "float32")
+    kernels.reset_launches()
+    metrics = step(resumed, *x)
+    _sync()
+    launches["import_resume_train"] = _launched()
+    step(direct, *x)
+    _sync()
+    unequal = []
+    for name, model in resumed.models.items():
+        other = direct.models[name]
+        opt, other_opt = resumed.optimizers[name], direct.optimizers[name]
+        for (key, p), q in zip(model.named_parameters(), other.parameters()):
+            same = torch.equal(p, q) and all(
+                torch.equal(opt.state[p][k], other_opt.state[q][k])
+                for k in ("exp_avg", "exp_avg_sq", "step"))
+            if not same:
+                unequal.append(f"{name}.{key}")
+    if unequal:
+        fail(f"import_resume_train: the resumed step differs from the "
+             f"direct one at {unequal[:5]}")
+    want = {k: len(v) for k, v in train_plan.items()}
+    want[SIMT] = want["conv_dw"]
+    want[SIMT_SAME] = want["conv_same"]
+    if launches["import_resume_train"] != want:
+        fail(f"import_resume_train launches "
+             f"{launches['import_resume_train']}, plan {want}")
+    result.update(serve_bit_equal=served_equal,
+                  resume_bit_equal=not unequal,
+                  resume_metrics={k: float(v) for k, v in metrics.items()})
+    print(f"import_reference: wrote the reference folder in "
+          f"{result['write_s']:.1f} s, imported it in "
+          f"{result['import_s']:.1f} s without TensorFlow; forward and "
+          f"resumed step bit-equal: {not unequal}", flush=True)
+    return launches, result
+
+
 def _nccl_rank(rank, world):
     torch.cuda.set_device(0)
     t = torch.ones(1, device="cuda")
@@ -3906,6 +4470,16 @@ def main(argv=None) -> int:
     serve_plans["spatial_serve_512"] = spatial_launches(serve_launches(
         cfgs["unet"].generator, SPATIAL_SERVE_BATCH, SPATIAL_SERVE_SIZE),
         RANKS)
+    # phase 26 (c): the ResNet recipe on RANKS data ranks at its batch;
+    # phase 27 (c): one request to the spatial HTTP server, batch 1;
+    # phase 28: the imported converged256 served as phase 4, and one f32
+    # step resumed from it at GRAD_BATCH
+    plans["resnet_dp_train"] = resnet_train_launches(cfgs["resnet"],
+                                                     BATCH // RANKS, SIZE)
+    serve_plans["spatial_http_512"] = spatial_launches(serve_launches(
+        cfgs["unet"].generator, 1, SPATIAL_SERVE_SIZE), RANKS)
+    serve_plans["import_serve"] = serve_plans["unet_serve"]
+    import_train_plan = train_launches(cfgs["unet"], GRAD_BATCH, SIZE)
     serve_plans["unet_bn_serve"] = batchnorm_launches(
         serve_launches(bn_cfg["generator"], BATCH, SIZE))
     # the ranks' bf16 steps launch no CUDA-core design, and their f32
@@ -4014,17 +4588,35 @@ def main(argv=None) -> int:
         launches["dp_train"], metrics["data_parallel"] = data_parallel(
             cfgs["unet"], plans["dp_train"])
         metrics["data_parallel"]["nccl_two_ranks_one_card"] = nccl_note
+        launches["resnet_dp_train"], metrics["resnet_data_parallel"] = \
+            resnet_data_parallel(cfgs["resnet"], plans["resnet_dp_train"])
         stamp("phase 26 (data parallel)")
         with no_tf32():
-            shapes = unique_shapes(serve_plans["spatial_serve_512"])
-            for key, err in check_kernels(shapes, "spatial 512 ").items():
-                max_err[key] = max(max_err.get(key, 0.0), err)
-            rows += time_kernels({"spatial_serve_512": shapes})
+            for path in ("spatial_serve_512", "spatial_http_512"):
+                shapes = unique_shapes(serve_plans[path])
+                for key, err in check_kernels(shapes,
+                                              "spatial 512 ").items():
+                    max_err[key] = max(max_err.get(key, 0.0), err)
+                rows += time_kernels({path: shapes})
         (launches["spatial_train"], launches["spatial_serve_512"],
          forwards["spatial_serve_512"], metrics["spatial"]) = spatial(
             cfgs["unet"], plans["spatial_train"],
             serve_plans["spatial_serve_512"])
+        (launches["spatial_http_512"], launches["spatial_paired"],
+         metrics["spatial_server_paired"]) = spatial_server_paired(
+            cfgs["unet"], serve_plans["spatial_http_512"])
+        forwards["spatial_http_512"] = 1
         stamp("phase 27 (spatial)")
+        with no_tf32():
+            shapes = with_simt(unique_shapes(import_train_plan))
+            for key, err in check_kernels(shapes, "import ").items():
+                max_err[key] = max(max_err.get(key, 0.0), err)
+        import_launches, metrics["import_reference"] = import_reference(
+            cfgs["unet"], serve_plans["import_serve"], import_train_plan,
+            Path(tmp))
+        launches.update(import_launches)
+        forwards["import_serve"] = 1
+        stamp("phase 28 (reference import)")
 
     entries = kernel_entries(rows, max_err, launches, forwards, serve_plans)
     for path, plan in {**plans, **serve_plans}.items():

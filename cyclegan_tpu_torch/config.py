@@ -1,6 +1,7 @@
 """Config I/O: YAML files to and from attribute namespaces
 (cyclegan_tpu/config.py ``Namespace``, ``yaml2namespace`` and
-``namespace2yaml``).
+``namespace2yaml``), and JSON files to and from dicts (``json2dict``,
+``dict2json``, ``json2namespace``).
 
 PyYAML is not a dependency of the port, so this module reads the subset
 of YAML the repo's configs use: nested block mappings, block lists (at or
@@ -13,6 +14,7 @@ same values.
 
 from __future__ import annotations
 
+import json
 import re
 from typing import Any, Dict, List, Tuple
 
@@ -283,3 +285,20 @@ def namespace2yaml(yaml_path, namespace: Namespace) -> None:
         Namespace(namespace).to_dict()
     with open(yaml_path, "w") as f:
         f.write(dump_yaml(data))
+
+
+def json2dict(json_path) -> Dict:
+    """Read a JSON file into a dict."""
+    with open(json_path, "r") as f:
+        return json.loads(f.read())
+
+
+def dict2json(dictionary: Dict, json_path) -> None:
+    """Save a dict as JSON."""
+    with open(json_path, "w") as f:
+        f.write(json.dumps(dictionary))
+
+
+def json2namespace(json_path) -> Namespace:
+    """Read a JSON file into a Namespace."""
+    return Namespace(json2dict(json_path))

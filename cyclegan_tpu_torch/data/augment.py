@@ -25,6 +25,12 @@ def normalize(images: torch.Tensor) -> torch.Tensor:
     return images.to(torch.float32) / 127.5 - 1.0
 
 
+def denormalize_to_unit(images):
+    """[-1, 1] -> [0, 1], the summaries' image convention; a tensor or a
+    numpy array, returned as the same kind."""
+    return (images + 1.0) / 2.0
+
+
 def denormalize_to_uint8(images: torch.Tensor) -> torch.Tensor:
     """[-1, 1] -> uint8 [0, 255], rounded to nearest (half to even, as
     ``jnp.round``), then clipped."""

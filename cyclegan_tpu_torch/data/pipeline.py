@@ -17,7 +17,8 @@ Several processes feeding one global batch (``process_index`` of
 ``process_count``, the data ranks of a mesh) walk the same permutation and
 each take their disjoint ``batch_size`` slice of every global
 ``batch_size * process_count`` batch; tails that do not fill a global batch
-are dropped on every process.
+are dropped on every process. One process keeps its partial last batch
+where ``drop_remainder=False`` (``epoch_limit``).
 """
 
 from __future__ import annotations
@@ -74,12 +75,34 @@ def _check_host_shard(process_index: int, process_count: int) -> None:
                          f"process_count {process_count}")
 
 
+def epoch_limit(n: int, batch_size: int, process_count: int,
+                drop_remainder: bool) -> int:
+    """How many of an epoch's ``n`` pairs the global batches cover: whole
+    ``batch_size * process_count`` batches, or all ``n`` where one process
+    keeps its partial tail (``drop_remainder=False``); several processes
+    always drop it, since a partial batch on some of them only would put
+    them out of step."""
+    stride = batch_size * process_count
+    if drop_remainder or process_count > 1:
+        return n - n % stride
+    return n
+
+
+def epoch_batches(n: int, batch_size: int, process_count: int,
+                  drop_remainder: bool) -> int:
+    """The number of batches ``epoch_limit``'s pairs make."""
+    stride = batch_size * process_count
+    return -(-epoch_limit(n, batch_size, process_count, drop_remainder)
+             // stride)
+
+
 class ArrayDataset:
     """A paired two-domain dataset yielding per-epoch uint8 batches.
 
     An epoch has min(len_a, len_b) pairs. Training epochs reshuffle both
     domains independently with a (seed, epoch)-keyed permutation; batches
-    that would be partial are dropped, so every batch has one shape. With
+    that would be partial are dropped, so every batch has one shape, unless
+    ``drop_remainder=False`` on one process (``epoch_limit``). With
     ``process_count`` > 1, ``batch_size`` is this process's slice of each
     global batch (the module docstring).
     """
@@ -98,13 +121,17 @@ class ArrayDataset:
     def __len__(self) -> int:
         return min(len(self.images_a), len(self.images_b))
 
-    def num_batches(self, batch_size: int) -> int:
-        return len(self) // (batch_size * self.process_count)
+    def num_batches(self, batch_size: int,
+                    drop_remainder: bool = True) -> int:
+        return epoch_batches(len(self), batch_size, self.process_count,
+                             drop_remainder)
 
-    def batches(self, batch_size: int, epoch: int = 0
+    def batches(self, batch_size: int, epoch: int = 0,
+                drop_remainder: bool = True
                 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """Yield (a, b) uint8 batch pairs for one epoch: this process's
-        slice of each global batch."""
+        slice of each global batch (with ``drop_remainder=False`` on one
+        process, the partial last batch too)."""
         n = len(self)
         if self.shuffle:
             rng = np.random.default_rng((self.seed, epoch))
@@ -114,8 +141,10 @@ class ArrayDataset:
             idx_a = np.arange(n)
             idx_b = np.arange(n)
         stride = batch_size * self.process_count
+        limit = epoch_limit(n, batch_size, self.process_count,
+                            drop_remainder)
         off = self.process_index * batch_size
-        for start in range(off, n - n % stride, stride):
+        for start in range(off, limit, stride):
             yield (self.images_a[idx_a[start:start + batch_size]],
                    self.images_b[idx_b[start:start + batch_size]])
 

@@ -24,7 +24,12 @@ from typing import Iterator, List, Sequence, Tuple, Union
 
 import numpy as np
 
-from cyclegan_tpu_torch.data.pipeline import decode_record, decode_workers
+from cyclegan_tpu_torch.data.pipeline import (
+    decode_record,
+    decode_workers,
+    epoch_batches,
+    epoch_limit,
+)
 
 # (shard path, payload byte offset, payload length) of one record
 RecordRef = Tuple[str, int, int]
@@ -89,10 +94,8 @@ class StreamingDataset:
 
     def num_batches(self, batch_size: int,
                     drop_remainder: bool = True) -> int:
-        n, stride = len(self), batch_size * self.process_count
-        if drop_remainder or self.process_count > 1:
-            return n // stride
-        return -(-n // stride)
+        return epoch_batches(len(self), batch_size, self.process_count,
+                             drop_remainder)
 
     def _decode_batch(self, pool: cf.ThreadPoolExecutor, sel_a, sel_b
                       ) -> Tuple[np.ndarray, np.ndarray]:
@@ -119,8 +122,8 @@ class StreamingDataset:
         else:
             idx_a = idx_b = np.arange(n)
         stride = batch_size * self.process_count
-        limit = (n - n % stride if drop_remainder or self.process_count > 1
-                 else n)
+        limit = epoch_limit(n, batch_size, self.process_count,
+                            drop_remainder)
         off = self.process_index * batch_size
         starts = list(range(0, limit, stride))
         if not starts:

@@ -24,6 +24,11 @@ index)`` holds on the thread that enters it, and ``ops/conv.py``,
 stride-1 SAME conv on the halo-extended strip gives the strip's rows in
 its interior, so K1 and K5 run on it as they are.
 
+The three collectives are autograd Functions with ``setup_context`` and a
+``vmap`` rule, so ``torch.func.vmap`` (the paired step's twin networks)
+maps over them: the mapped dimension is folded into the batch and each
+collective runs once on the stacked tensor (``_folded``).
+
 Every collective is an ``all_reduce`` (the gloo backend takes CUDA tensors
 only in ``all_reduce`` and ``broadcast``, and two ranks that share one card
 must use gloo): an exchange writes this rank's rows into its slot of a
@@ -106,19 +111,39 @@ def _summed_slots(part: torch.Tensor, group, n: int, idx: int
     return buf
 
 
+def _folded(function, in_dims, x, *args):
+    """The ``vmap`` rule of a collective Function whose first input is an
+    activation with H at axis 1: the mapped dimension folded into the
+    leading batch dimension (H stays at axis 1), the collective run once on
+    the stacked tensor, the result viewed back. So every rank issues the
+    same collectives, one per call, whatever it maps over."""
+    x = x.movedim(in_dims[0], 0)
+    members, batch = x.shape[:2]
+    y = function.apply(x.reshape(members * batch, *x.shape[2:]), *args)
+    return y.view(members, batch, *y.shape[1:]), 0
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(x, group):
         y = x.contiguous().clone()
         dist.all_reduce(y, group=group)
         return y
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
         dist.all_reduce(g, group=ctx.group)
         return g, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        """Elementwise: one all-reduce of the stacked tensor as it is."""
+        return _AllReduceSum.apply(x, group), in_dims[0]
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
@@ -131,8 +156,7 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 
 class _HaloExchange(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, above, below, group, n, idx):
-        ctx.conf = (above, below, group, n, idx, x.shape[1])
+    def forward(x, above, below, group, n, idx):
         h = x.shape[1]
         part = torch.cat([x[:, h - above:], x[:, :below]], dim=1)
         buf = _summed_slots(part, group, n, idx)
@@ -141,6 +165,11 @@ class _HaloExchange(torch.autograd.Function):
         bot = (buf[idx + 1, :, above:] if idx < n - 1
                else torch.zeros_like(part[:, above:]))
         return torch.cat([top, x, bot], dim=1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, above, below, group, n, idx = inputs
+        ctx.conf = (above, below, group, n, idx, x.shape[1])
 
     @staticmethod
     def backward(ctx, g):
@@ -153,6 +182,11 @@ class _HaloExchange(torch.autograd.Function):
         if idx > 0 and below:      # my first rows, the previous bottom one
             dx[:, :below] += buf[idx - 1, :, above:]
         return dx, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, above, below, group, n, idx):
+        return _folded(_HaloExchange, in_dims, x, above, below, group, n,
+                       idx)
 
 
 def halo_exchange_h(x: torch.Tensor, above: int, below: int) -> torch.Tensor:
@@ -198,11 +232,15 @@ def halo_exchange_h_reflect(x: torch.Tensor, pad: int) -> torch.Tensor:
 
 class _GatherH(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, n, idx):
-        ctx.conf = (group, n, idx, x.shape[1])
+    def forward(x, group, n, idx):
         buf = _summed_slots(x.contiguous(), group, n, idx)
         return buf.movedim(0, 1).reshape(x.shape[0], n * x.shape[1],
                                           *x.shape[2:])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, group, n, idx = inputs
+        ctx.conf = (group, n, idx, x.shape[1])
 
     @staticmethod
     def backward(ctx, g):
@@ -210,6 +248,10 @@ class _GatherH(torch.autograd.Function):
         g = g.contiguous().clone()
         dist.all_reduce(g, group=group)
         return g[:, idx * h:(idx + 1) * h], None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group, n, idx):
+        return _folded(_GatherH, in_dims, x, group, n, idx)
 
 
 def gather_h(x: torch.Tensor) -> torch.Tensor:

@@ -95,8 +95,9 @@ with it (JAX's per-shard statistics); with it and more than one data
 rank, rank 0's new moving statistics are broadcast, so the replicas stay
 equal (JAX's shard_map returns one shard's). Spatial sharding with
 ``tpu_layout`` needs ``shard_map_dp``, as in JAX
-(``_check_spatial_kernel_exclusion``); ``paired`` runs without a spatial
-axis.
+(``_check_spatial_kernel_exclusion``). ``paired`` runs under a spatial
+axis too: its ``vmap`` maps over the strip's collectives, which fold the
+twins into the batch and run once (``ops/spatialctx.py``).
 """
 
 from __future__ import annotations
@@ -576,8 +577,8 @@ class _Parallel:
                  (self.n_sp, self.sp_index)))
 
 
-def _parallel(mesh, mesh_axis, spatial_axis, shard_map_dp, tpu_layout,
-              paired=False) -> Optional[_Parallel]:
+def _parallel(mesh, mesh_axis, spatial_axis, shard_map_dp, tpu_layout
+              ) -> Optional[_Parallel]:
     """The step builders' checks, as JAX's, and the mesh of the step."""
     if shard_map_dp and mesh is None:
         raise ValueError("shard_map_dp requires a mesh")
@@ -585,11 +586,7 @@ def _parallel(mesh, mesh_axis, spatial_axis, shard_map_dp, tpu_layout,
         _check_spatial_kernel_exclusion(spatial_axis, tpu_layout)
     if mesh is None:
         return None
-    par = _Parallel(mesh, mesh_axis, spatial_axis, shard_map_dp)
-    if paired and par.spatial_axis is not None:
-        raise ValueError("paired runs without a spatial axis: its vmapped "
-                         "networks take whole images")
-    return par
+    return _Parallel(mesh, mesh_axis, spatial_axis, shard_map_dp)
 
 
 def _preprocessed(preprocess, par, generator, rows, real_a, real_b):
@@ -629,8 +626,7 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
     loss_obj = get_loss_obj(loss_name)
     weights = _weights(loss_weights)
     cdtype = DTYPES[compute_dtype]
-    par = _parallel(mesh, mesh_axis, spatial_axis, shard_map_dp, tpu_layout,
-                    paired)
+    par = _parallel(mesh, mesh_axis, spatial_axis, shard_map_dp, tpu_layout)
 
     def train_step(state: TrainState, real_a: torch.Tensor,
                    real_b: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -54,6 +54,7 @@ import torch
 
 from cyclegan_tpu_torch.config import Namespace, namespace2yaml
 from cyclegan_tpu_torch.data.augment import (
+    denormalize_to_unit,
     normalize,
     prepare_eval_batch,
     random_jitter_batch,
@@ -244,10 +245,10 @@ class CycleGan:
             a_raw, b_raw = validation_dataset.take_pairs(tensorboard_samples)
             self.a_samples = normalize(torch.from_numpy(a_raw)).numpy()
             self.b_samples = normalize(torch.from_numpy(b_raw)).numpy()
-            self.val_summaries.images("A", (self.a_samples + 1) / 2, step=0,
-                                      max_outputs=tensorboard_samples)
-            self.val_summaries.images("B", (self.b_samples + 1) / 2, step=0,
-                                      max_outputs=tensorboard_samples)
+            self.val_summaries.images("A", denormalize_to_unit(
+                self.a_samples), step=0, max_outputs=tensorboard_samples)
+            self.val_summaries.images("B", denormalize_to_unit(
+                self.b_samples), step=0, max_outputs=tensorboard_samples)
 
         current_epoch = int(self.model_config.get("current_epoch", 0))
         for e in range(current_epoch, current_epoch + epochs):
@@ -411,7 +412,7 @@ class CycleGan:
         for tag, samples, direction in (("A2B_predictions", a_samples, "a2b"),
                                         ("B2A_predictions", b_samples, "b2a")):
             prediction = self.predict(samples, direction)
-            self.val_summaries.images(tag, (prediction + 1.0) / 2.0,
+            self.val_summaries.images(tag, denormalize_to_unit(prediction),
                                       step=epoch, max_outputs=num_samples)
 
     def _drain_metrics(self, metrics_dict, pending) -> None:

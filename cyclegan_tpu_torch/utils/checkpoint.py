@@ -188,8 +188,8 @@ def optimizer_tree(model: nn.Module, optimizer: torch.optim.Optimizer):
     raise TypeError(f"no optax state for {type(optimizer).__name__}")
 
 
-def _restore_optimizer(model: nn.Module, optimizer: torch.optim.Optimizer,
-                       tree, step: int) -> None:
+def restore_optimizer(model: nn.Module, optimizer: torch.optim.Optimizer,
+                      tree, step: int) -> None:
     """Load optax's state ``tree`` of one network into ``optimizer``; the
     torch step count of RMSprop, which optax does not store, is the train
     state's ``step``."""
@@ -244,8 +244,8 @@ def load_train_state(path: Union[str, Path], state) -> np.ndarray:
                     restored["model_state"])
     state.step = int(restored["step"])
     for name, model in state.models.items():
-        _restore_optimizer(model, state.optimizers[name],
-                           restored["opt_state"][name], state.step)
+        restore_optimizer(model, state.optimizers[name],
+                          restored["opt_state"][name], state.step)
     with np.load(path) as data:
         for key, generator in ((GENERATOR_KEY, state.generator),
                                (DROPOUT_GENERATOR_KEY,

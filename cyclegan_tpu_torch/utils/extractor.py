@@ -1,6 +1,7 @@
-"""The pretrained feature-extractor file format and its interpreter in
-torch ops (cyclegan_tpu/utils/extractor.py ``FORMAT_VERSION``,
-``build_forward``, ``load_extractor``): real FID as a weight-file drop-in.
+"""The pretrained feature-extractor file format, its interpreter in torch
+ops and its writer from Keras (cyclegan_tpu/utils/extractor.py
+``FORMAT_VERSION``, ``build_forward``, ``load_extractor``,
+``export_keras_extractor``): real FID as a weight-file drop-in.
 
 **Format** (one ``.npz``, the JAX package's):
 
@@ -20,9 +21,9 @@ torch ops (cyclegan_tpu/utils/extractor.py ``FORMAT_VERSION``,
 float -> (N, D) float64`` callable for ``utils.quality.compute_quality``
 and ``apps/evaluate.py --extractor``. It runs on the given device in f32,
 with the library convolution's TF32 off, as the JAX interpreter runs f32.
-Writing such a file from Keras (the JAX package's
-``export_keras_extractor``) needs TensorFlow and is not ported yet
-(ROADMAP.md queue 1, item 8).
+``export_keras_extractor(model, path)`` writes such a file from a Keras
+functional model; TensorFlow comes in with the caller's model, and this
+module never imports it.
 """
 
 from __future__ import annotations
@@ -206,3 +207,90 @@ def load_extractor(path, device="cuda") -> Callable:
 
     extractor.graph = graph  # introspection for tests and tools
     return extractor
+
+
+def _history_names(args) -> List[str]:
+    """The names of the layers whose outputs a Keras node's serialized
+    ``args`` reference (``__keras_tensor__`` entries), in order."""
+    names: List[str] = []
+
+    def walk(obj):
+        if isinstance(obj, dict):
+            if obj.get("class_name") == "__keras_tensor__":
+                names.append(obj["config"]["keras_history"][0])
+            else:
+                for v in obj.values():
+                    walk(v)
+        elif isinstance(obj, (list, tuple)):
+            for v in obj:
+                walk(v)
+
+    walk(args)
+    return names
+
+
+def _endpoint_name(spec) -> str:
+    """A layer name out of Keras' ``input_layers`` / ``output_layers``,
+    serialized as [name, node, tensor] or a list of such triples."""
+    if isinstance(spec[0], str):
+        return spec[0]
+    return spec[0][0]
+
+
+def export_keras_extractor(model, path, image_size: int = 299) -> Path:
+    """Serialize a Keras functional CNN (e.g.
+    ``tf.keras.applications.InceptionV3(weights=..., include_top=False,
+    pooling="avg")``) into the extractor format, walking
+    ``model.get_config()`` and reading each layer's weights. Raises on any
+    layer type outside the supported set."""
+    cfg = model.get_config()
+    layers: List[Dict] = []
+    weights: Dict[str, np.ndarray] = {}
+    for lc in cfg["layers"]:
+        cls, name, c = lc["class_name"], lc["name"], lc["config"]
+        inputs = _history_names(
+            [n.get("args", []) for n in lc.get("inbound_nodes", [])])
+        entry = {"name": name, "inputs": inputs}
+        if cls == "InputLayer":
+            entry["type"] = "input"
+        elif cls == "Conv2D":
+            entry.update(
+                type="conv2d", strides=list(c["strides"]),
+                padding=c["padding"], use_bias=bool(c["use_bias"]),
+                activation=c.get("activation", "linear"))
+        elif cls == "BatchNormalization":
+            entry.update(type="batchnorm", epsilon=float(c["epsilon"]))
+        elif cls == "Activation":
+            entry.update(type="activation", activation=c["activation"])
+        elif cls in ("MaxPooling2D", "AveragePooling2D"):
+            entry.update(
+                type="maxpool2d" if cls == "MaxPooling2D" else "avgpool2d",
+                pool_size=list(c["pool_size"]),
+                strides=list(c["strides"] or c["pool_size"]),
+                padding=c["padding"])
+        elif cls == "Concatenate":
+            entry["type"] = "concat"
+            if c.get("axis", -1) not in (-1, 3):
+                raise ValueError(f"{name}: concat axis must be channels")
+        elif cls == "GlobalAveragePooling2D":
+            entry["type"] = "globalavgpool"
+        else:
+            raise ValueError(
+                f"layer {name!r}: unsupported Keras layer {cls!r}")
+        layers.append(entry)
+        for wvar in model.get_layer(name).weights:
+            wname = wvar.name.split("/")[-1].split(":")[0]
+            weights[f"{name}/{wname}"] = np.asarray(wvar)
+
+    graph = {
+        "format_version": FORMAT_VERSION,
+        "image_size": int(image_size),
+        "preprocess": "inception",
+        "input": _endpoint_name(cfg["input_layers"]),
+        "output": _endpoint_name(cfg["output_layers"]),
+        "layers": layers,
+    }
+    path = Path(path)
+    np.savez_compressed(path, __graph__=np.asarray(json.dumps(graph)),
+                        **weights)
+    return path

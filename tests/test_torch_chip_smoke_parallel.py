@@ -6,7 +6,10 @@ launches a 2-rank spatial train step really makes, recorded through the
 plain versions the wrappers call on the CPU; and both phases run end to
 end on gloo ranks at 32x32, batch 2, the group of one over gloo where the
 card uses NCCL, with the kernels' dispatchers counted in every rank as
-their launches are on the card: every check holds.
+their launches are on the card: every check holds. So do phase 26 (c),
+the ResNet recipe on the data ranks, and phase 27 (c) and (d), the
+spatial HTTP server at 64x64 (its sessions' "auto" resolved as on the
+card, NHCW in bf16) and the paired step on the strips.
 """
 
 import collections
@@ -18,7 +21,7 @@ import chip_smoke
 from cyclegan_tpu_torch import kernels
 from cyclegan_tpu_torch.config import yaml2namespace
 from cyclegan_tpu_torch.ops import (cuda_concat, cuda_conv, cuda_norm_act,
-                                    cuda_resize)
+                                    cuda_reflect, cuda_resize)
 from cyclegan_tpu_torch.parallel import run_ranks
 
 UNET = "model_instances/converged256/model_config.yaml"
@@ -31,7 +34,10 @@ DISPATCHERS = [(cuda_conv, "_conv_same", "conv_same"),
                (cuda_resize, "sum2x2", "sum2x2"),
                (cuda_resize, "dup2x2", "dup2x2"),
                (cuda_concat, "_concat_up2", "concat_up2"),
-               (cuda_concat, "split_pool2", "split_pool2")]
+               (cuda_concat, "split_pool2", "split_pool2"),
+               (cuda_reflect, "_conv_reflect", "conv_reflect"),
+               (cuda_reflect, "conv_reflect_dw", "conv_reflect_dw"),
+               (cuda_reflect, "reflect_fold", "reflect_fold")]
 SETTINGS = (("DEVICE", "cpu"), ("SIZE", 32), ("BATCH", 2),
             ("TIMED_REPS", 1), ("RANK_STEPS_TIMED", 1), ("BN_DP_SIZE", 16),
             ("SPATIAL_F32_POINT", {"size": 32, "batch": 1, "seed": 2,
@@ -193,3 +199,54 @@ def test_parallel_phases_on_the_cpu(tmp_path, monkeypatch):
     assert forwards == 1 and metrics["quality"]
     assert set(metrics["gradient_errors"]) == {"full", "kink_free"}
     assert metrics["nearest_kink"]["kink_free"] > chip_smoke.KINK_MARGIN
+
+
+def _card_auto():
+    """``InferenceSession``'s "auto" layout as on the card: NHCW in
+    bf16."""
+    from cyclegan_tpu_torch.apps import inference
+
+    init = inference.InferenceSession.__init__
+
+    def card_auto(self, model_dir, compute_dtype="float32",
+                  tpu_layout="auto", spatial_devices=0, device="cuda"):
+        if tpu_layout == "auto":
+            tpu_layout = compute_dtype == "bfloat16"
+        init(self, model_dir, compute_dtype, tpu_layout, spatial_devices,
+             device)
+
+    inference.InferenceSession.__init__ = card_auto
+
+
+def _cpu_card_auto():
+    _cpu_card()
+    _card_auto()
+
+
+def test_more_parallel_phases_on_the_cpu(monkeypatch):
+    """Phases 26 (c) and 27 (c, d) end to end on gloo ranks of the CPU."""
+    for name, value in SETTINGS + (("SPATIAL_KINK_FREE_POINT", {
+            "size": 32, "batch": 1, "seed": 29, "beta": [3.0, 4.0]}),):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "failures", [])
+    _count_dispatchers(monkeypatch.setattr)
+    resnet = yaml2namespace(chip_smoke.RESNET_CONFIG)
+    plan = chip_smoke.resnet_train_launches(resnet, 1, 32)
+    launches, metrics = chip_smoke.resnet_data_parallel(
+        resnet, plan, prepare=_cpu_card)
+    assert chip_smoke.failures == []
+    assert launches == {k: len(v) for k, v in plan.items()}
+    for errors in (metrics["gradient_errors"]["point"],
+                   metrics["gradient_errors"]["rank_halves"]):
+        assert set(errors) == {"g_AB", "g_BA", "d_A", "d_B"}
+    cfg = yaml2namespace(UNET)
+    http_plan = chip_smoke.spatial_launches(chip_smoke.serve_launches(
+        cfg.generator, 1, 64), 2)
+    served, paired, metrics = chip_smoke.spatial_server_paired(
+        cfg, http_plan, prepare=_cpu_card_auto)
+    assert chip_smoke.failures == []
+    assert served == {k: len(v) for k, v in http_plan.items()}
+    assert paired == {}
+    assert metrics["quality"]
+    assert set(metrics["paired"]["gradient_errors"]) == {
+        "g_AB", "g_BA", "d_A", "d_B"}

@@ -1,5 +1,7 @@
 """The port stands alone: neither it nor chip_smoke.py imports JAX or the
-JAX package."""
+JAX package, nor TensorFlow (the reference importer reads SavedModel
+bundles without it; the extractor exporter takes the caller's Keras
+model)."""
 
 import ast
 import glob
@@ -54,11 +56,21 @@ def test_parallel_modules_are_checked(path):
     assert path in PORT_FILES
 
 
+@pytest.mark.parametrize("path", [
+    "cyclegan_tpu_torch/apps/import_reference.py",
+    "cyclegan_tpu_torch/utils/tensor_bundle.py"])
+def test_import_modules_are_checked(path):
+    """The reference importer and its bundle reader are among the files
+    whose imports are read and which one process imports below."""
+    assert path in PORT_FILES
+
+
 @pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py"])
 def test_no_forbidden_import(path):
     for name in _imported_modules(path):
         top = name.split(".")[0]
         assert top not in FORBIDDEN, f"{path} imports {name}"
+        assert top != "tensorflow", f"{path} imports {name}"
 
 
 def test_importing_the_port_loads_no_jax():
@@ -67,7 +79,7 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
-            + repr(FORBIDDEN) + "]\n"
+            + repr(FORBIDDEN + ("tensorflow",)) + "]\n"
             + "print(len(sys.modules)); assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)

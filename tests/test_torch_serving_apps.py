@@ -112,13 +112,14 @@ def test_four_networks_restored_exactly(port_session, jax_sessions):
 
 def test_spatial_devices_raise():
     """Spatial serving needs a process group of that many ranks
-    (``tests/test_torch_multiprocess.py`` serves with one); the HTTP
-    server still refuses it (ROADMAP.md queue 1, item 7b)."""
+    (``tests/test_torch_multiprocess.py`` serves with one, and
+    ``tests/test_torch_server_spatial.py`` runs the HTTP server on one);
+    outside one, the session and the HTTP server both refuse it."""
     with pytest.raises(RuntimeError, match="process group of 2 ranks"):
         InferenceSession(MODEL_DIR, spatial_devices=2, device="cpu")
     from cyclegan_tpu_torch.apps.server import serve
 
-    with pytest.raises(NotImplementedError, match="queue 1, item 7b"):
+    with pytest.raises(RuntimeError, match="process group of 2 ranks"):
         serve(MODEL_DIR, "127.0.0.1", 0, 32, spatial_devices=2,
               device="cpu")
 
