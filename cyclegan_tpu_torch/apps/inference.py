@@ -35,6 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from cyclegan_tpu_torch import tracing
 from cyclegan_tpu_torch.config import yaml2namespace
 from cyclegan_tpu_torch.data.augment import denormalize_to_uint8, normalize
 from cyclegan_tpu_torch.data.codec import resize_rgb
@@ -140,11 +141,30 @@ class InferenceSession:
     @torch.inference_mode()
     def stylize(self, images: np.ndarray, direction: str = "a2b") -> np.ndarray:
         """uint8 RGB batch (N, H, W, 3) -> stylized uint8 RGB batch; float
-        input is taken as already in [-1, 1]."""
+        input is taken as already in [-1, 1]. A ``tracing`` root
+        ``stylize`` with the spans ``h2d``, ``forward`` and ``d2h``; on a
+        card each of the two copies waits for the stream, a ``sync``."""
         model = self.models[_GENERATORS[direction]]
-        x = torch.as_tensor(np.asarray(images)).to(self.device)
-        x = normalize(x) if x.dtype == torch.uint8 else x.to(torch.float32)
-        x = x.to(self.compute_dtype)
+        on_card = self.device.type == "cuda"
+        with tracing.span("stylize"):
+            with tracing.span("h2d"):
+                x = torch.as_tensor(np.asarray(images)).to(self.device)
+                if on_card:
+                    tracing.count("sync")
+                x = (normalize(x) if x.dtype == torch.uint8
+                     else x.to(torch.float32))
+                x = x.to(self.compute_dtype)
+            with tracing.span("forward"):
+                y = self._forward(model, x)
+            with tracing.span("d2h"):
+                out = denormalize_to_uint8(y.to(torch.float32)).cpu().numpy()
+                if on_card:
+                    tracing.count("sync")
+        return out
+
+    def _forward(self, model: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """The generator on the normalized batch, in the session's layout
+        (on this rank's strip, gathered, under a spatial mesh)."""
         mesh = self.spatial_mesh
         if mesh is not None:
             x = spatial_mesh.shard_spatial(mesh, x, data_axis=None)
@@ -157,7 +177,7 @@ class InferenceSession:
                     y = model(x)
             if mesh is not None:
                 y = spatialctx.gather_h(y)
-        return denormalize_to_uint8(y.to(torch.float32)).cpu().numpy()
+        return y
 
     def prediction_triple(self, image_bgr: np.ndarray,
                           size: Tuple[int, int] = (256, 256)):

@@ -25,8 +25,9 @@ too large a length, an image that does not decode) gets 400 with the
 reason; any other path 404. The port decodes PNG everywhere and JPEG only
 where cv2 or PIL imports (``data/codec.py``). Each reply carries a
 ``Server-Timing`` header with the milliseconds of its decode, resize,
-stylize and encode. Requests are served on threads
-(``ThreadingHTTPServer``); the session's layout scope is per thread.
+stylize and encode: the spans of its ``tracing`` root ``request``.
+Requests are served on threads (``ThreadingHTTPServer``); the session's
+layout scope and the open spans are per thread.
 
 With ``spatial_devices`` N > 1, ``serve`` runs in every rank of a group
 of N. Rank 0 answers HTTP; for each request it has decoded and resized,
@@ -46,7 +47,6 @@ from __future__ import annotations
 import argparse
 import logging
 import threading
-import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 from urllib.parse import parse_qs, urlparse
@@ -121,6 +121,7 @@ def follow(session) -> int:
 
 def make_handler(session, size: int):
     """The request handler class serving ``session`` at size x size."""
+    from cyclegan_tpu_torch import tracing
     from cyclegan_tpu_torch.data.codec import (
         decode_image_rgb,
         encode_png_bgr,
@@ -128,18 +129,19 @@ def make_handler(session, size: int):
     )
 
     def respond(data: bytes, direction: str):
-        """(PNG, {stage: ms}) of one request's image."""
-        marks = [time.perf_counter()]
-        rgb = decode_image_rgb(data)
-        marks.append(time.perf_counter())
-        rgb = resize_rgb(rgb, (size, size))
-        marks.append(time.perf_counter())
-        stylized = session.stylize(rgb[np.newaxis], direction)[0]
-        marks.append(time.perf_counter())
-        png = encode_png_bgr(np.ascontiguousarray(stylized[..., ::-1]))
-        marks.append(time.perf_counter())
-        return png, {stage: (b - a) * 1e3 for stage, a, b in
-                     zip(TIMED_STAGES, marks, marks[1:])}
+        """(PNG, {stage: ms}) of one request's image: a ``tracing`` root
+        ``request`` whose stages are its spans."""
+        with tracing.span("request") as request:
+            with tracing.span("decode"):
+                rgb = decode_image_rgb(data)
+            with tracing.span("resize"):
+                rgb = resize_rgb(rgb, (size, size))
+            with tracing.span("stylize"):
+                stylized = session.stylize(rgb[np.newaxis], direction)[0]
+            with tracing.span("encode"):
+                png = encode_png_bgr(np.ascontiguousarray(stylized[..., ::-1]))
+        return png, {stage: request["spans"][stage] / 1e6
+                     for stage in TIMED_STAGES}
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # route through logging

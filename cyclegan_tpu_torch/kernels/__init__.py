@@ -48,6 +48,13 @@ def reset_launches() -> None:
     paths.clear()
 
 
+def launched() -> int:
+    """All launches counted so far, each once: the ``_simt`` tallies count
+    launches that their kernel's own name counts as well."""
+    return (sum(launches.values()) - launches["conv_dw_simt"]
+            - launches["conv_same_simt"])
+
+
 def dtype_suffix(t: torch.Tensor) -> str:
     if t.dtype == torch.bfloat16:
         return "bf16"
@@ -83,6 +90,6 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-__all__ = ["KERNELS", "launches", "paths", "reset_launches", "build_dir",
-           "check", "function", "check_cuda", "dtype_suffix", "ptr",
-           "stream"]
+__all__ = ["KERNELS", "launches", "launched", "paths", "reset_launches",
+           "build_dir", "check", "function", "check_cuda", "dtype_suffix",
+           "ptr", "stream"]

@@ -113,6 +113,7 @@ from torch import nn
 from torch.func import functional_call, vmap
 from torch.utils.checkpoint import checkpoint
 
+from cyclegan_tpu_torch import tracing
 from cyclegan_tpu_torch.losses import (
     accuracy,
     calc_cycle_loss,
@@ -616,6 +617,9 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
     gradient, and each batch norm's kept moving statistics are committed
     after the updates (the module docstring). Metrics are detached f32
     scalars on the batch's device; the step never waits for the card.
+    Each call is a ``tracing`` root ``train_step`` with the spans
+    ``jitter``, ``forward``, ``backward`` and ``optimizer`` (zero_grad,
+    updates, batch-stat commit).
 
     With ``mesh`` (``parallel.Mesh``), the batch is this rank's block
     (batch over ``mesh_axis``, H over ``spatial_axis``) and the gradients
@@ -630,6 +634,10 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
 
     def train_step(state: TrainState, real_a: torch.Tensor,
                    real_b: torch.Tensor) -> Dict[str, torch.Tensor]:
+        with tracing.span("train_step"):
+            return _step(state, real_a, real_b)
+
+    def _step(state, real_a, real_b):
         generator, dropout = state.generator, state.dropout_generator
         rows = block = None
         scope = contextlib.nullcontext() if par is None else par.scope()
@@ -638,28 +646,33 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
                 generator, rows, dropout, block = par.draws(
                     state, real_a.shape[0])
             if preprocess is not None:
-                real_a, real_b = (
-                    preprocess(generator, real_a, real_b) if par is None
-                    else _preprocessed(preprocess, par, generator, rows,
-                                       real_a, real_b))
-            for opt in state.optimizers.values():
-                opt.zero_grad(set_to_none=True)
+                with tracing.span("jitter"):
+                    real_a, real_b = (
+                        preprocess(generator, real_a, real_b) if par is None
+                        else _preprocessed(preprocess, par, generator, rows,
+                                           real_a, real_b))
+            with tracing.span("optimizer"):
+                for opt in state.optimizers.values():
+                    opt.zero_grad(set_to_none=True)
             stats = {}
-            surrogate, metrics = _forward_losses(
-                state.models, loss_obj, weights, real_a, real_b, cdtype,
-                stop_grads=True, tpu_layout=tpu_layout,
-                pallas_norm=pallas_norm, fuse_apps=fuse_apps, remat=remat,
-                paired=paired, dropout=dropout, dropout_block=block,
-                stats=stats)
-            surrogate.backward()
+            with tracing.span("forward"):
+                surrogate, metrics = _forward_losses(
+                    state.models, loss_obj, weights, real_a, real_b, cdtype,
+                    stop_grads=True, tpu_layout=tpu_layout,
+                    pallas_norm=pallas_norm, fuse_apps=fuse_apps,
+                    remat=remat, paired=paired, dropout=dropout,
+                    dropout_block=block, stats=stats)
+            with tracing.span("backward"):
+                surrogate.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         if par is not None:
             par.average_grads(state.models)
             metrics = dict(zip(metrics, par.mean(list(metrics.values()))))
-        for name in NETWORKS:
-            state.optimizers[name].step()
-        for kept in stats.values():
-            norm_ops.commit_batch_stats(kept)
+        with tracing.span("optimizer"):
+            for name in NETWORKS:
+                state.optimizers[name].step()
+            for kept in stats.values():
+                norm_ops.commit_batch_stats(kept)
         if par is not None and par.shard_map_dp and par.data_size > 1:
             par.broadcast_stats(stats)
         state.step += 1

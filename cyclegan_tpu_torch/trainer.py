@@ -52,6 +52,7 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from cyclegan_tpu_torch import tracing
 from cyclegan_tpu_torch.config import Namespace, namespace2yaml
 from cyclegan_tpu_torch.data.augment import (
     denormalize_to_unit,
@@ -442,14 +443,19 @@ class CycleGan:
 
     def _put(self, images_a: np.ndarray, images_b: np.ndarray):
         """A fed batch pair on the device; under a spatial axis this
-        rank's H strip of it ((K, B, H, ...) chunks: of dim 2)."""
-        out = (torch.from_numpy(images_a).to(self.device),
-               torch.from_numpy(images_b).to(self.device))
-        if self.spatial_axis is None:
-            return out
-        return shard_batch(self.mesh, out, axis_name=None,
-                           batch_dim=out[0].dim() - 4,
-                           spatial_axis=self.spatial_axis)
+        rank's H strip of it ((K, B, H, ...) chunks: of dim 2). Span
+        ``put``; each copy from pageable host memory to the card waits for
+        the stream, counted as a ``sync``."""
+        with tracing.span("put"):
+            out = (torch.from_numpy(images_a).to(self.device),
+                   torch.from_numpy(images_b).to(self.device))
+            if self.device.type == "cuda":
+                tracing.count("sync", 2)
+            if self.spatial_axis is None:
+                return out
+            return shard_batch(self.mesh, out, axis_name=None,
+                               batch_dim=out[0].dim() - 4,
+                               spatial_axis=self.spatial_axis)
 
     # ------------------------------------------------------------------
     # checkpointing
