@@ -57,8 +57,15 @@ Options, as the JAX step's:
   in the order the applications run; the discriminators and the validate
   step never drop out, as JAX passes them no key.
 - ``make_train_multi_step``: K steps of (K, B, H, W, C) batches, the
-  single step's body K times, metrics stacked along K (JAX's
-  ``steps_per_call``; no CUDA-graph capture).
+  single step K times (each through its graph where the step takes one),
+  metrics stacked along K (JAX's ``steps_per_call``).
+
+CUDA graph (``make_train_step``): on a card, the second call of an input
+shape captures one graph of the step's ``zero_grad``, forward set, f32
+losses and backward (``_grads``), and every call of that shape replays it:
+the host launches a step's 800-odd kernels once. The jitter before it and
+the optimizer updates and batch-stat commit after it stay eager, as does
+the whole step where the graph would not hold (``make_train_step``).
 
 Batch norm (``normalization: batchnorm``): every application of a train
 step normalizes with its own batch's statistics, and all of them read the
@@ -104,6 +111,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import math
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
@@ -113,7 +121,7 @@ from torch import nn
 from torch.func import functional_call, vmap
 from torch.utils.checkpoint import checkpoint
 
-from cyclegan_tpu_torch import tracing
+from cyclegan_tpu_torch import kernels, tracing
 from cyclegan_tpu_torch.losses import (
     accuracy,
     calc_cycle_loss,
@@ -600,6 +608,114 @@ def _preprocessed(preprocess, par, generator, rows, real_a, real_b):
     return spatialctx.slice_local_h(a), spatialctx.slice_local_h(b)
 
 
+class CudaGraph:
+    """The seam between the train step and CUDA graphs, which a test can
+    stand a class of the same three members in for. ``usable(device)``:
+    whether a step on ``device`` can be captured (on a card).
+    ``capture(fn)`` calls ``fn`` with the work it issues to the card
+    recorded into one graph and not run, on a side stream that waits for
+    the current one (torch's default stream cannot be captured), and
+    returns what ``fn`` returned: tensors in the graph's private memory,
+    which each ``replay()`` rewrites. A capture can take memory from the
+    card but not give the caching allocator's back, so first, as
+    ``torch.cuda.graph`` does, it waits for the stream (counted as a
+    ``sync``), collects garbage and empties the cache: the memory of
+    graphs whose steps are gone returns to the card there.
+    ``replay()`` runs the graph on the current stream, without a sync."""
+
+    @staticmethod
+    def usable(device: torch.device) -> bool:
+        return device.type == "cuda"
+
+    def __init__(self):
+        self.graph = torch.cuda.CUDAGraph()
+
+    def capture(self, fn: Callable):
+        torch.cuda.current_stream().synchronize()
+        tracing.count("sync")
+        gc.collect()
+        torch.cuda.empty_cache()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.graph.capture_begin()
+            try:
+                out = fn()
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream().wait_stream(side)
+        return out
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+def _held(models: Mapping[str, nn.Module]) -> Tuple[list, list]:
+    """(the parameters, the parameters and buffers) of the four networks,
+    in one walk of their modules (``parameters()`` and ``buffers()`` walk
+    them twice, a millisecond of host time a step): what a graph of the
+    step reads and writes."""
+    params, held = [], []
+    for name in NETWORKS:
+        for module in models[name].modules():
+            params += [p for p in module._parameters.values()
+                       if p is not None]
+            held += [b for b in module._buffers.values() if b is not None]
+    return params, params + held
+
+
+class _Captured:
+    """One input shape's graph of a step's ``grads(state, a, b)`` (zero_grad,
+    forward set, losses, backward): the two static inputs it reads, what it
+    writes (the metrics, the kept batch statistics and each parameter's
+    gradient), the addresses of the parameters and buffers it was
+    captured on, and the kernel launches and paths of one step, which the
+    wrappers counted while it was captured and nothing counts on a
+    replay."""
+
+    def __init__(self, state: TrainState, grads: Callable,
+                 real_a: torch.Tensor, real_b: torch.Tensor):
+        params, held = _held(state.models)
+        self.addresses = [t.data_ptr() for t in held]
+        self.inputs = tuple(torch.empty(x.shape, dtype=x.dtype,
+                                        device=x.device).copy_(x)
+                            for x in (real_a, real_b))
+        launches, paths = dict(kernels.launches), kernels.paths.copy()
+        self.graph = CudaGraph()
+        self.out = self.graph.capture(lambda: (
+            *grads(state, *self.inputs), [p.grad for p in params]))
+        self.launches = {k: kernels.launches[k] - n
+                         for k, n in launches.items()}
+        self.paths = kernels.paths - paths
+
+    def parameters(self, state: TrainState) -> Optional[list]:
+        """``state``'s parameters, where its parameters and buffers are
+        where the graph reads and writes them; else None."""
+        params, held = _held(state.models)
+        if [t.data_ptr() for t in held] != self.addresses:
+            return None
+        return params
+
+    def count(self) -> None:
+        """One step's kernel launches and paths."""
+        for name, n in self.launches.items():
+            kernels.launches[name] += n
+        kernels.paths.update(self.paths)
+
+    def run(self, params: list, real_a: torch.Tensor, real_b: torch.Tensor):
+        """(metrics, kept batch statistics) of one step on the batch pair:
+        the pair copied in, the graph replayed, the metrics copied out,
+        and each parameter's ``.grad`` the gradient the graph writes."""
+        for static, x in zip(self.inputs, (real_a, real_b)):
+            static.copy_(x)
+        self.graph.replay()
+        metrics, stats, grads = self.out
+        for p, g in zip(params, grads):
+            if p.grad is not g:
+                p.grad = g
+        return {k: v.clone() for k, v in metrics.items()}, stats
+
+
 def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
                     compute_dtype: str = "float32",
                     preprocess: Optional[Callable] = None,
@@ -616,10 +732,42 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
     on ``state``. After it each parameter's ``.grad`` holds the step's
     gradient, and each batch norm's kept moving statistics are committed
     after the updates (the module docstring). Metrics are detached f32
-    scalars on the batch's device; the step never waits for the card.
-    Each call is a ``tracing`` root ``train_step`` with the spans
-    ``jitter``, ``forward``, ``backward`` and ``optimizer`` (zero_grad,
-    updates, batch-stat commit).
+    scalars on the batch's device, each step's its own; the step never
+    waits for the card. Each call is a ``tracing`` root ``train_step``
+    with the spans ``jitter`` and ``optimizer`` (the updates and
+    batch-stat commit; on an eager step zero_grad too), and ``forward``
+    and ``backward`` on an eager step.
+
+    CUDA graph: per input shape and dtype (after the preprocess), the
+    first call runs eager (it builds the kernels, picks the library's
+    plans and sets autograd up), the second captures ``_grads`` in one
+    graph (``CudaGraph``) and replays it, every later call replays it.
+    The jitter's output is copied into the graph's two static inputs;
+    the metrics are copied out of it after each replay. A replayed step
+    has span ``replay`` (input copy, replay, metric copy) and counter
+    ``graph_replay``; the capturing one span ``capture`` (its zero_grad,
+    forward and backward spans under it), counter ``graph_capture`` and
+    one ``sync`` (``CudaGraph.capture`` waits for the stream).
+    The wrappers count a step's kernel launches and paths while it is
+    captured, and each replay adds them again. The graph holds the
+    addresses of the parameters and buffers: the optimizers update them
+    in place, and ``utils/checkpoint.load_train_state`` copies into them
+    (``load_state_dict``), so they stay where they were; where they move
+    (new tensors put into the models) the step captures again. After a
+    replay each parameter's ``.grad`` is the gradient the graph writes,
+    in the graph's memory, whatever was assigned to it in between. The
+    graph's memory lives as long as the step function. The eager step
+    stays, for the whole call, on:
+
+    - a device other than a card (``CudaGraph.usable``);
+    - a mesh: its data and spatial collectives run inside the forward
+      and backward, and the gradient all-reduce after them;
+    - generators that draw dropout masks: they draw from the state's
+      generator on the card inside the forward, and a replay would
+      repeat one step's masks;
+    - ``remat`` and ``paired``: the checkpoint's recompute inside the
+      backward and the ``vmap``ped applications are not tried under
+      capture.
 
     With ``mesh`` (``parallel.Mesh``), the batch is this rank's block
     (batch over ``mesh_axis``, H over ``spatial_axis``) and the gradients
@@ -631,43 +779,78 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
     weights = _weights(loss_weights)
     cdtype = DTYPES[compute_dtype]
     par = _parallel(mesh, mesh_axis, spatial_axis, shard_map_dp, tpu_layout)
+    graphs: Dict[tuple, Optional[_Captured]] = {}
 
     def train_step(state: TrainState, real_a: torch.Tensor,
                    real_b: torch.Tensor) -> Dict[str, torch.Tensor]:
         with tracing.span("train_step"):
             return _step(state, real_a, real_b)
 
+    def _grads(state, real_a, real_b, dropout=None, block=None):
+        """zero_grad, the forward set with its f32 losses and ONE backward:
+        what a graph of the step holds. (metrics, kept batch stats)."""
+        with tracing.span("optimizer"):
+            for opt in state.optimizers.values():
+                opt.zero_grad(set_to_none=True)
+        stats = {}
+        with tracing.span("forward"):
+            surrogate, metrics = _forward_losses(
+                state.models, loss_obj, weights, real_a, real_b, cdtype,
+                stop_grads=True, tpu_layout=tpu_layout,
+                pallas_norm=pallas_norm, fuse_apps=fuse_apps, remat=remat,
+                paired=paired, dropout=dropout, dropout_block=block,
+                stats=stats)
+        with tracing.span("backward"):
+            surrogate.backward()
+        return {k: v.detach() for k, v in metrics.items()}, stats
+
+    def _graphed(state, real_a, real_b):
+        """(metrics, stats) through the shape's graph, captured on its
+        second call; None where the step runs eager."""
+        if remat or paired or not CudaGraph.usable(real_a.device) or any(
+                getattr(state.models[n], "use_dropout", False)
+                for n in ("g_AB", "g_BA")):
+            return None
+        key = (real_a.device, real_a.shape, real_a.dtype, real_b.shape,
+               real_b.dtype)
+        if key not in graphs:
+            graphs[key] = None
+            return None
+        captured = graphs[key]
+        params = None if captured is None else captured.parameters(state)
+        if params is not None:
+            with tracing.span("replay"):
+                tracing.count("graph_replay")
+                captured.count()
+                return captured.run(params, real_a, real_b)
+        graphs[key] = captured = None  # the old graph's memory goes first
+        with tracing.span("capture"):
+            tracing.count("graph_capture")
+            graphs[key] = captured = _Captured(state, _grads, real_a,
+                                               real_b)
+            return captured.run(captured.parameters(state), real_a, real_b)
+
     def _step(state, real_a, real_b):
-        generator, dropout = state.generator, state.dropout_generator
-        rows = block = None
-        scope = contextlib.nullcontext() if par is None else par.scope()
-        with scope:
-            if par is not None:
+        if par is not None:
+            with par.scope():
                 generator, rows, dropout, block = par.draws(
                     state, real_a.shape[0])
-            if preprocess is not None:
-                with tracing.span("jitter"):
-                    real_a, real_b = (
-                        preprocess(generator, real_a, real_b) if par is None
-                        else _preprocessed(preprocess, par, generator, rows,
-                                           real_a, real_b))
-            with tracing.span("optimizer"):
-                for opt in state.optimizers.values():
-                    opt.zero_grad(set_to_none=True)
-            stats = {}
-            with tracing.span("forward"):
-                surrogate, metrics = _forward_losses(
-                    state.models, loss_obj, weights, real_a, real_b, cdtype,
-                    stop_grads=True, tpu_layout=tpu_layout,
-                    pallas_norm=pallas_norm, fuse_apps=fuse_apps,
-                    remat=remat, paired=paired, dropout=dropout,
-                    dropout_block=block, stats=stats)
-            with tracing.span("backward"):
-                surrogate.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if par is not None:
+                if preprocess is not None:
+                    with tracing.span("jitter"):
+                        real_a, real_b = _preprocessed(
+                            preprocess, par, generator, rows, real_a, real_b)
+                metrics, stats = _grads(state, real_a, real_b, dropout,
+                                        block)
             par.average_grads(state.models)
             metrics = dict(zip(metrics, par.mean(list(metrics.values()))))
+        else:
+            if preprocess is not None:
+                with tracing.span("jitter"):
+                    real_a, real_b = preprocess(state.generator, real_a,
+                                                real_b)
+            out = _graphed(state, real_a, real_b)
+            metrics, stats = (out if out is not None else _grads(
+                state, real_a, real_b, state.dropout_generator))
         with tracing.span("optimizer"):
             for name in NETWORKS:
                 state.optimizers[name].step()

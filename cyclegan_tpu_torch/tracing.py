@@ -25,7 +25,10 @@ even then).
 
 Spans and what reads them (the benchmark's per-layer metrics, PERF.md §3):
 root ``put`` (``trainer.py``, counter ``sync``); root ``train_step``
-(``steps.py``) with ``jitter``, ``forward``, ``backward``, ``optimizer``;
+(``steps.py``) with ``jitter`` and ``optimizer``, and ``forward`` and
+``backward`` where it runs eager, ``replay`` (counter ``graph_replay``)
+where it replays its CUDA graph and ``capture`` (counter
+``graph_capture``) where it captures it;
 root ``stylize`` (``apps/inference.py``, counter ``sync``) with ``h2d``,
 ``forward``, ``d2h``; root ``request`` (``apps/server.py``) with
 ``decode``, ``resize``, ``stylize``, ``encode``, its ``Server-Timing``.
