@@ -227,7 +227,19 @@ failing the run if it fails:
     TensorFlow; a bf16 NHCW batch-8 forward of the import bit-equal to
     converged256's, with the serving plan's launches; one f32 step resumed
     from it bit-equal, in every parameter and Adam slot, to a step from a
-    state built straight from the same parameters and slots.
+    state built straight from the same parameters and slots;
+29. U-GAT-IT (``ugatit``, ``UGATIT_CONFIG``: the full model at its
+    published widths): K14 and K15 (AdaLIN/ILN) against their plain
+    versions at every launch shape of a batch-8 256x256 train step and
+    serving forward and at ``UGATIT_EDGE_NORM_SHAPES``, bf16 and f32, both
+    paths (16-byte units, one element), each bf16 case twice bit-equal;
+    both timed beside their bytes' least time; then the trainer's step at
+    batch 8 eager, captured and replayed, each with
+    ``UGATIT_POWER_ITERATIONS`` on its root and 60 K14 and 60 K15
+    launches, finite losses, img/s over five replays and the peak memory
+    with the graph's pool. Its train step is the ``ugatit_train`` path of
+    the kernels line: K14/K15 timed at its shapes, the other kernels'
+    launches counted.
 
 Phase 2 checks, and phase 3 times, every unique launch shape of every
 plan, the option phases' batch-16 and batch-4 shapes and the strips'
@@ -245,6 +257,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import gc
 import itertools
 import json
 import math
@@ -376,6 +389,8 @@ SOURCES = {
                "cyclegan_tpu/ops/pallas_concat.py:140", []),
     "instance_norm_nhwc": (_CSRC + "instance_norm_nhwc.cu",
                            "cyclegan_tpu/ops/pallas_norm.py:120", []),
+    "ada_norm": (_CSRC + "ada_norm.cu", None, []),
+    "ada_norm_bwd": (_CSRC + "ada_norm.cu", None, []),
     "conv_dw_simt": (_CSRC + "conv_dw.cu",
                      "cyclegan_tpu/ops/pallas_conv.py:686",
                      ["cyclegan_tpu/ops/pallas_conv.py:991",
@@ -4322,10 +4337,11 @@ def kernel_entries(rows, max_err, launches, forwards, serve_plans):
     path's run (``launches`` their sum), and its times summed over the
     launches of one train step of each planned path: the recipes and the
     step's options (``paths`` splits them by train step and by serving
-    forward)."""
+    forward). A path's kernel with no timed shape on it (the trainer's
+    runs; U-GAT-IT's convs) gives its launches only."""
     from cyclegan_tpu_torch import kernels
 
-    planned = set(rows[0]["per_step"]) if rows else set()
+    planned = {p for r in rows for p in r["per_step"]} - set(serve_plans)
     train_paths = [p for p in launches if p in planned]
     entries = []
     for name in kernels.KERNELS:
@@ -4335,7 +4351,8 @@ def kernel_entries(rows, max_err, launches, forwards, serve_plans):
         for path in train_paths:
             used = [(r, r["per_step"].get(path, 0)) for r in mine
                     if r["per_step"].get(path, 0)]
-            paths[path] = _sums(used, launches[path].get(name, 0))
+            n = launches[path].get(name, 0)
+            paths[path] = _sums(used, n) if used else {"launches": n}
         for path, plan in serve_plans.items():
             used = [(by_shape[shape], n) for shape, n in
                     collections.Counter(plan.get(name, [])).items()]
@@ -4403,12 +4420,239 @@ def train_and_serve(name, cfg_path, point, batch_size, cfgs, plans,
     stamp(serve_path)
 
 
+# Phase 29: U-GAT-IT (``models/ugatit.py``) at its published widths,
+# 256x256, batch 8, seeded from the port's own init (PyTorch's default).
+UGATIT_CONFIG = {
+    "generator": {"type": "ugatit_generator", "ngf": 64, "n_res": 4,
+                  "img_size": SIZE},
+    "discriminator": {"type": "ugatit_discriminator", "ndf": 64,
+                      "n_layers_global": 7, "n_layers_local": 5},
+    "loss": "ugatit",
+    "loss_weights": {"adversarial": 1.0, "cycle": 10.0, "identity": 10.0,
+                     "cam": 1000.0}}
+UGATIT_OPT = {"name": "adam", "learning_rate": 1e-4, "beta_1": 0.5,
+              "beta_2": 0.999, "epsilon": 1e-8, "weight_decay": 1e-4}
+# one power iteration per spectral-normalised weight (9 global, 7 local)
+# per discriminator application, three applications of each of the two
+UGATIT_POWER_ITERATIONS = 2 * 3 * (9 + 7)
+# K14/K15 launch shapes (B, H, C, W, per-sample gamma, relu) of a train
+# step and a serving forward at batch 8, each with its launches per
+# generator application: the four AdaLIN blocks' two norms and the two ILN
+# up-blocks; then edge shapes beyond them (W of no whole 16-byte unit: the
+# element path; one sample; C past the CTA's threads)
+UGATIT_NORM_SHAPES = {(BATCH, 64, 256, 64, True, True): 4,
+                      (BATCH, 64, 256, 64, True, False): 4,
+                      (BATCH, 128, 128, 128, False, True): 1,
+                      (BATCH, 256, 64, 256, False, True): 1}
+UGATIT_EDGE_NORM_SHAPES = [(2, 6, 5, 7, True, True), (1, 16, 300, 16, True,
+                                                      False),
+                           (3, 10, 7, 12, False, True)]
+UGATIT_NORMS_PER_APP = sum(UGATIT_NORM_SHAPES.values())
+# the generator applications a train step differentiates: two
+# translations, two cycles, two identities
+UGATIT_APPS_PER_STEP = 6
+UGATIT_PATH = "ugatit_train"
+
+
+def _ada_inputs(shape, dtype, seed=0):
+    b, h, c, w, per_sample, _ = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = dict(device="cuda", generator=g)
+    x = (torch.randn((b, h, c, w), **dev) * 1.5 + 0.3).to(dtype)
+    gy = torch.randn((b, h, c, w), **dev).to(dtype)
+    rho = torch.rand(c, **dev)
+    pshape = (b, c) if per_sample else (c,)
+    gamma = torch.randn(pshape, **dev)
+    beta = torch.randn(pshape, **dev)
+    return x, gy, rho, gamma, beta
+
+
+def check_ada_norm(shapes, label=""):
+    """K14 and K15 against their plain versions (run on the card in f32
+    from the same inputs), bf16 and f32, each bf16 case twice for bit
+    equality; returns {(kernel, dtype): max abs error}."""
+    from cyclegan_tpu_torch.ops import ada_norm as an
+
+    errs = collections.defaultdict(float)
+    for shape in shapes:
+        relu = shape[5]
+        for dtype in (torch.bfloat16, torch.float32):
+            x, gy, rho, gamma, beta = _ada_inputs(shape, dtype)
+            y, saved, stats = an.ada_norm_cuda(x, rho, gamma, beta,
+                                               relu=relu, with_stats=True)
+            y_p, saved_p, stats_p = an.ada_norm_plain(
+                x, rho, gamma, beta, relu=relu, with_stats=True)
+            back = an.ada_norm_bwd_cuda(x, gy, rho, gamma, saved, stats,
+                                        relu)
+            back_p = an.ada_norm_bwd_plain(x, gy, rho, gamma, saved, stats,
+                                           relu)
+            e_fwd = float((y.float() - y_p.float()).abs().max())
+            e_stats = max(float((a - b).abs().max() / b.abs().max())
+                          for a, b in ((saved[0], saved_p[0]),
+                                       (saved[2], saved_p[2]),
+                                       (stats, stats_p)))
+            e_bwd = max(float((a.float() - b.float()).abs().max()
+                              / b.float().abs().max().clamp_min(1e-30))
+                        for a, b in zip(back, back_p))
+            tol = 0.02 if dtype == torch.bfloat16 else 1e-4
+            scale = float(y_p.float().abs().max())
+            for name, err, bound in (("ada_norm", e_fwd, tol * scale),
+                                     ("ada_norm_stats", e_stats, 1e-4),
+                                     ("ada_norm_bwd", e_bwd, 5 * tol)):
+                print(f"{label}{name} {shape} {dtype}: max err {err:.3g} "
+                      f"(bound {bound:.3g})", flush=True)
+                if not err <= bound:
+                    fail(f"{name} {shape} {dtype}: error {err} > {bound}")
+                key = name if name != "ada_norm_stats" else "ada_norm"
+                errs[(key, dtype)] = max(errs[(key, dtype)],
+                                         err / (scale if name == "ada_norm"
+                                                else 1.0))
+            if dtype == torch.bfloat16:
+                y2 = an.ada_norm_cuda(x, rho, gamma, beta, relu=relu)
+                back2 = an.ada_norm_bwd_cuda(x, gy, rho, gamma, saved,
+                                             stats, relu)
+                if not (torch.equal(y, y2) and all(
+                        torch.equal(a, b) for a, b in zip(back, back2))):
+                    fail(f"ada_norm {shape}: two runs differ")
+    return dict(errs)
+
+
+def time_ada_norm(shapes):
+    """K14 and K15 at each shape of ``shapes`` ({shape: launches per
+    generator application}, bf16), each beside its plain version and the
+    least time of the bytes it reads and writes once (forward x in, y out;
+    backward x and dy in, dx out) at the card's bandwidth: rows as
+    ``time_kernels`` makes them, per step of ``UGATIT_PATH``."""
+    from cyclegan_tpu_torch.ops import ada_norm as an
+
+    rows = []
+    for shape, per_app in shapes.items():
+        relu = shape[5]
+        x, gy, rho, gamma, beta = _ada_inputs(shape, torch.bfloat16)
+        _, saved, stats = an.ada_norm_cuda(x, rho, gamma, beta, relu=relu,
+                                           with_stats=True)
+        nbytes = x.numel() * x.element_size()
+        for name, kernel, plain, moved in (
+                ("ada_norm",
+                 lambda: an.ada_norm_cuda(x, rho, gamma, beta, relu=relu),
+                 lambda: an.ada_norm_plain(x, rho, gamma, beta, relu=relu),
+                 2 * nbytes),
+                ("ada_norm_bwd",
+                 lambda: an.ada_norm_bwd_cuda(x, gy, rho, gamma, saved,
+                                              stats, relu),
+                 lambda: an.ada_norm_bwd_plain(x, gy, rho, gamma, saved,
+                                               stats, relu),
+                 3 * nbytes)):
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            row = {"kernel": name, "shape": list(shape),
+                   "per_step": {UGATIT_PATH: UGATIT_APPS_PER_STEP * per_app},
+                   "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+                   "library_ms": None, "bytes": moved, "operations": 0,
+                   "bytes_ms": bytes_ms, "ops_ms": 0.0, "bound_ms": bytes_ms,
+                   "fits_l2": moved <= L2_BYTES, "copy_ms": None}
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            rows.append(row)
+            print(f"time {name} {shape} {row['per_step']} kernel "
+                  f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f}  bound "
+                  f"{bytes_ms:.4f} ({100 * row['bound_share']:.1f}% of it)",
+                  flush=True)
+    return rows
+
+
+def ugatit(out_dir):
+    """Phase 29: K14/K15 checked at every launch shape of a U-GAT-IT train
+    step and serving forward and at the edge shapes, timed; then the
+    trainer's step at batch 8 (eager, captured, replayed): its K14/K15
+    launches, ``power_iterations`` on each root, finite losses, img/s over
+    replayed steps and peak memory with the graph's pool."""
+    from cyclegan_tpu_torch import kernels, tracing
+    from cyclegan_tpu_torch.config import Namespace
+    from cyclegan_tpu_torch.trainer import CycleGan
+
+    with no_tf32():
+        errs = check_ada_norm(UGATIT_NORM_SHAPES)
+        for key, err in check_ada_norm(UGATIT_EDGE_NORM_SHAPES,
+                                       "edge ").items():
+            errs[key] = max(errs.get(key, 0.0), err)
+    for name in ("ada_norm", "ada_norm_bwd"):
+        took = {p.split(".")[1] for p in kernels.paths
+                if p.startswith(name + ".")}
+        if took != {"vector", "element"}:
+            fail(f"{name}: phase 29 ran only the paths {took}")
+    rows = time_ada_norm(UGATIT_NORM_SHAPES)
+    with tempfile.TemporaryDirectory() as tmp:
+        model = Namespace({"name": "ugatit", "new": True, "location": tmp,
+                           "seed": 0, **UGATIT_CONFIG})
+        train_cfg = Namespace({
+            "epochs": 1, "batch_size": BATCH, "image_size": SIZE,
+            "g_opt": UGATIT_OPT, "d_opt": dict(UGATIT_OPT),
+            "compute_dtype": "bfloat16", "tpu_layout": "auto",
+            "display_every": 0, "nan_check": False})
+        torch.cuda.reset_peak_memory_stats()
+        trainer = CycleGan(model, train_cfg, device="cuda")
+        params = sum(p.numel() for m in trainer.state.models.values()
+                     for p in m.parameters())
+        a, b = _uniform_pair(BATCH, SIZE)
+        counts, losses = [], []
+        for i in range(3):
+            kernels.reset_launches()
+            m = trainer.train_step_fn(trainer.state, *trainer._put(a, b))
+            launched = {k: v for k, v in kernels.launches.items() if v}
+            losses.append({k: float(v) for k, v in m.items()})
+            entry = tracing.entries()[-1]
+            counts.append({"power_iterations":
+                           entry["counters"].get("power_iterations"),
+                           "replayed": bool(entry["counters"].get(
+                               "graph_replay")),
+                           "ada_norm": kernels.launches["ada_norm"],
+                           "ada_norm_bwd": kernels.launches["ada_norm_bwd"]})
+        print(f"ugatit steps: {counts}; losses {losses}", flush=True)
+        want = UGATIT_APPS_PER_STEP * UGATIT_NORMS_PER_APP
+        for i, c in enumerate(counts):
+            if c["power_iterations"] != UGATIT_POWER_ITERATIONS:
+                fail(f"ugatit step {i}: power_iterations {c}")
+            if c["ada_norm"] != want or c["ada_norm_bwd"] != want:
+                fail(f"ugatit step {i}: K14/K15 launches {c}, want {want}")
+        if not counts[2]["replayed"]:
+            fail("ugatit: the third step did not replay its graph")
+        if not all(math.isfinite(v) for ls in losses for v in ls.values()):
+            fail(f"ugatit: losses {losses}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 5
+        for _ in range(n):
+            trainer.train_step_fn(trainer.state, *trainer._put(a, b))
+        torch.cuda.synchronize()
+        img_s = n * BATCH / (time.perf_counter() - t0)
+        metrics = {"params": params, "img_s": img_s,
+                   "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+                   "peak_allocated_gb":
+                       torch.cuda.max_memory_allocated() / 1e9,
+                   "steps": counts, "kernel_rows": rows,
+                   "max_err": {f"{k}.{d}": v for (k, d), v in errs.items()}}
+        print(f"ugatit: {params} parameters, {img_s:.2f} img/s, peak "
+              f"reserved {metrics['peak_reserved_gb']:.2f} GB", flush=True)
+        del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if out_dir is not None:
+        (out_dir / "ugatit.json").write_text(json.dumps(metrics, indent=1))
+    return errs, rows, launched, metrics
+
+
+def _uniform_pair(batch, size, seed=0):
+    g = np.random.default_rng(seed)
+    return (g.integers(0, 256, (batch, size, size, 3), dtype=np.uint8),
+            g.integers(0, 256, (batch, size, size, 3), dtype=np.uint8))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, default=None,
                         help="directory for per-launch details and the "
                              "profiler traces")
-    out_dir = parser.parse_args(argv).out
+    args = parser.parse_args(argv)
+    out_dir = args.out
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4432,7 +4676,6 @@ def main(argv=None) -> int:
         for op, n in sass.items():
             if not n:
                 fail(f"{lib}: no {op} instruction in its SASS")
-
     # the seeded recipes after the default one, each trained then served
     # from the folder the port saves: (name, config file, f32 point, batch)
     seeded = (("resnet", RESNET_CONFIG, RESNET_F32_POINT, BATCH),
@@ -4630,6 +4873,11 @@ def main(argv=None) -> int:
         launches.update(import_launches)
         forwards["import_serve"] = 1
         stamp("phase 28 (reference import)")
+        (ugatit_errs, ugatit_rows, launches[UGATIT_PATH],
+         metrics["ugatit"]) = ugatit(out_dir)
+        max_err.update(ugatit_errs)
+        rows += ugatit_rows
+        stamp("phase 29 (U-GAT-IT)")
 
     entries = kernel_entries(rows, max_err, launches, forwards, serve_plans)
     for path, plan in {**plans, **serve_plans}.items():

@@ -39,7 +39,7 @@ from cyclegan_tpu_torch import tracing
 from cyclegan_tpu_torch.config import yaml2namespace
 from cyclegan_tpu_torch.data.augment import denormalize_to_uint8, normalize
 from cyclegan_tpu_torch.data.codec import resize_rgb
-from cyclegan_tpu_torch.models import create_model
+from cyclegan_tpu_torch.models import create_model, generated_image
 from cyclegan_tpu_torch.ops import cuda_norm, layout, spatialctx
 from cyclegan_tpu_torch.parallel import spatial as spatial_mesh
 from cyclegan_tpu_torch.utils.checkpoint import load_pytree
@@ -163,18 +163,20 @@ class InferenceSession:
         return out
 
     def _forward(self, model: nn.Module, x: torch.Tensor) -> torch.Tensor:
-        """The generator on the normalized batch, in the session's layout
-        (on this rank's strip, gathered, under a spatial mesh)."""
+        """The generator's image on the normalized batch (a U-GAT-IT
+        generator's first output), in the session's layout (on this rank's
+        strip, gathered, under a spatial mesh)."""
         mesh = self.spatial_mesh
         if mesh is not None:
             x = spatial_mesh.shard_spatial(mesh, x, data_axis=None)
         with spatial_mesh.scope(mesh):
             if self.tpu_layout:
                 with layout.nhcw():
-                    y = layout.from_nhcw(model(layout.to_nhcw(x)))
+                    y = layout.from_nhcw(generated_image(
+                        model(layout.to_nhcw(x))))
             else:
                 with layout.nhwc(), cuda_norm.scope(False):
-                    y = model(x)
+                    y = generated_image(model(x))
             if mesh is not None:
                 y = spatialctx.gather_h(y)
         return y

@@ -18,7 +18,10 @@ from cyclegan_tpu_torch.kernels._build import build_dir, check, function
 # conv), its weight gradient K9-dW and K10 (the fold of its input gradient)
 # serve and train the ResNet recipe; K11 (the plain channel concat) and
 # K12 (its split) those of the transpose-expansion and strided U-Nets; K13
-# (the NHWC instance norm) the NHWC layout's norms with ``pallas_norm``.
+# (the NHWC instance norm) the NHWC layout's norms with ``pallas_norm``;
+# K14 (``ada_norm``, U-GAT-IT's AdaLIN and ILN) and its backward K15
+# (``ada_norm_bwd``) the U-GAT-IT generator's, one count per call of their
+# three launches.
 # ``conv_dw_simt`` counts the launches of K5's and K9-dW's CUDA-core design
 # (f32, and bf16 outside the TMA domain), which ``conv_dw`` and
 # ``conv_reflect_dw`` count as well; a bf16 train step at 256x256 makes none.
@@ -28,7 +31,8 @@ from cyclegan_tpu_torch.kernels._build import build_dir, check, function
 KERNELS = ("conv_same", "instance_norm_act", "sum2x2", "concat_up2",
            "conv_dw", "instance_norm_act_bwd", "dup2x2", "split_pool2",
            "conv_reflect", "conv_reflect_dw", "reflect_fold", "concat2",
-           "split2", "instance_norm_nhwc", "conv_dw_simt", "conv_same_simt")
+           "split2", "instance_norm_nhwc", "ada_norm", "ada_norm_bwd",
+           "conv_dw_simt", "conv_same_simt")
 launches = {name: 0 for name in KERNELS}
 # the path of each launch of K3, K4, K7, K8 and K10, "<kernel>.vector" (16-
 # or 8-byte units) or "<kernel>.element", and of K13,

@@ -4,6 +4,12 @@ Adversarial losses by name: "mse" (LSGAN), "mae", "bce" from logits; the
 cycle-consistency and identity losses are weighted L1 means. Every
 reduction is a full mean in f32: the train step casts the networks' bf16
 outputs to f32 before any loss.
+
+``loss: ugatit`` is U-GAT-IT's set (the authors' ``UGATIT.py``,
+``ugatit_losses``): least squares on each discriminator's four outputs
+(global and local logits and CAM logits), the generators' CAM logits as
+BCE from logits (translation target 1, identity target 0), L1 cycle and
+identity; weights ``adversarial``, ``cycle``, ``identity``, ``cam``.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ def _bce_from_logits(y_true: torch.Tensor,
 
 
 _LOSS_OBJ_MAPS = {"mse": _mse, "mae": _mae, "bce": _bce_from_logits}
+UGATIT = "ugatit"
 
 
 def get_loss_obj(loss: str) -> LossFn:
@@ -69,3 +76,50 @@ def accuracy(real, fake):
     labels = torch.cat([torch.ones_like(real), torch.zeros_like(fake)],
                        dim=0).to(torch.float32)
     return torch.mean((predictions == labels).to(torch.float32))
+
+
+def ugatit_losses(w, real_a, real_b, cycled_a, cycled_b, same_a, same_b,
+                  cams, d_real_a, d_real_b, d_fake_a_gen, d_fake_b_gen,
+                  d_fake_a_d, d_fake_b_d):
+    """(surrogate, metrics) of U-GAT-IT's losses, every input f32. ``cams``:
+    the generators' CAM logits (``ab`` of g_AB(a), ``ba`` of g_BA(b), ``aa``
+    of g_BA(a), ``bb`` of g_AB(b)); each ``d_*`` a discriminator's four
+    outputs, the fakes' through the generator view (``_gen``: parameters
+    detached) and the discriminator view (``_d``: fakes detached).
+
+    G_loss_A = adv (sum of d_A's four least squares on g_BA(b) against 1)
+    + cycle |g_BA(g_AB(a)) - a| + identity |g_BA(a) - a| + cam (BCE of
+    g_BA(b)'s CAM against 1 and g_BA(a)'s against 0); G_loss_B the same the
+    other way. ``gAB_loss`` is G_loss_B plus A's cycle term, whose gradient
+    reaches g_AB too (``gBA_loss`` likewise), so each generator's gradient
+    is that of its metric; ``dA_loss`` = adv (d_A's four outputs: reals
+    against 1, fakes against 0). The surrogate G_loss_A + G_loss_B +
+    dA_loss + dB_loss has each network's gradient."""
+    adv, cyc, idw, camw = (w["adversarial"], w["cycle"], w["identity"],
+                           w["cam"])
+
+    def lsq(outs, target):
+        return sum(_mse(torch.full_like(y, target), y) for y in outs)
+
+    def bce(logits, target):
+        return _bce_from_logits(torch.full_like(logits, target), logits)
+
+    cycle_a = _mae(real_a, cycled_a)
+    cycle_b = _mae(real_b, cycled_b)
+    g_loss_a = (adv * lsq(d_fake_a_gen, 1.0) + cyc * cycle_a
+                + idw * _mae(real_a, same_a)
+                + camw * (bce(cams["ba"], 1.0) + bce(cams["aa"], 0.0)))
+    g_loss_b = (adv * lsq(d_fake_b_gen, 1.0) + cyc * cycle_b
+                + idw * _mae(real_b, same_b)
+                + camw * (bce(cams["ab"], 1.0) + bce(cams["bb"], 0.0)))
+    da_loss = adv * (lsq(d_real_a, 1.0) + lsq(d_fake_a_d, 0.0))
+    db_loss = adv * (lsq(d_real_b, 1.0) + lsq(d_fake_b_d, 0.0))
+    metrics = dict(
+        gAB_loss=g_loss_b + cyc * cycle_a,
+        gBA_loss=g_loss_a + cyc * cycle_b,
+        dA_loss=da_loss,
+        dB_loss=db_loss,
+        dA_acc=accuracy(d_real_a[0], d_fake_a_d[0]),
+        dB_acc=accuracy(d_real_b[0], d_fake_b_d[0]),
+    )
+    return g_loss_a + g_loss_b + da_loss + db_loss, metrics

@@ -3,10 +3,17 @@ from cyclegan_tpu_torch.models.resnet import (
     ResNetGenerator,
     SimpleDiscriminator,
 )
+from cyclegan_tpu_torch.models.ugatit import (
+    UGATITDiscriminator,
+    UGATITGenerator,
+    generated_image,
+)
 from cyclegan_tpu_torch.models.unet import StridedUNet, UNetGenerator
 
 __all__ = ["ResNetGenerator", "SimpleDiscriminator", "StridedUNet",
-           "UNetGenerator", "create_model", "spatial_unsupported_transposes"]
+           "UGATITDiscriminator", "UGATITGenerator", "UNetGenerator",
+           "create_model", "generated_image",
+           "spatial_unsupported_transposes"]
 
 
 def spatial_unsupported_transposes(model_config):

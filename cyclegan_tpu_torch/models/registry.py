@@ -11,6 +11,10 @@ from cyclegan_tpu_torch.models.resnet import (
     ResNetGenerator,
     SimpleDiscriminator,
 )
+from cyclegan_tpu_torch.models.ugatit import (
+    UGATITDiscriminator,
+    UGATITGenerator,
+)
 from cyclegan_tpu_torch.models.unet import StridedUNet, UNetGenerator
 
 _BUILDERS = {
@@ -18,6 +22,8 @@ _BUILDERS = {
     "strided_unet": StridedUNet,
     "resnet_generator": ResNetGenerator,
     "simple_discriminator": SimpleDiscriminator,
+    "ugatit_generator": UGATITGenerator,
+    "ugatit_discriminator": UGATITDiscriminator,
 }
 
 
@@ -25,5 +31,5 @@ def create_model(config: Mapping[str, Any],
                  generator: Optional[torch.Generator] = None) -> nn.Module:
     """Build a model from its config's ``type``; an unknown type raises
     KeyError. Every type and normalization of the JAX package is
-    ported."""
+    ported; the U-GAT-IT types are the port's own."""
     return _BUILDERS[config["type"]](config, generator)

@@ -2,7 +2,9 @@
 
 - adam: beta_1 from the config, beta_2 0.999 and Keras' epsilon 1e-7
   (torch defaults to 1e-8). torch's update, lr * m_hat / (sqrt(v_hat) +
-  eps) with both moments bias-corrected, is optax's.
+  eps) with both moments bias-corrected, is optax's. The config may set
+  ``epsilon`` and ``weight_decay`` (coupled, torch's: g += wd * p before
+  the moments): U-GAT-IT's 1e-8 and 1e-4.
 - rmsprop: ``torch.optim.RMSprop`` with alpha 0.9 and eps 1e-7, which is
   optax's ``rmsprop(decay=0.9, eps=1e-7, eps_in_sqrt=False)``: both start
   nu at 0 and update by lr * g / (sqrt(nu) + eps).
@@ -125,7 +127,8 @@ def get_optimizer(optimizer_config: Mapping[str, Any],
         return torch.optim.Adam(
             params, lr=learning_rate,
             betas=(float(optimizer_config["beta_1"]), ADAM_BETA_2),
-            eps=KERAS_EPSILON)
+            eps=float(optimizer_config.get("epsilon", KERAS_EPSILON)),
+            weight_decay=float(optimizer_config.get("weight_decay", 0.0)))
     if name == "rmsprop":
         return torch.optim.RMSprop(params, lr=learning_rate,
                                    alpha=RMSPROP_DECAY, eps=KERAS_EPSILON)

@@ -67,6 +67,16 @@ the host launches a step's 800-odd kernels once. The jitter before it and
 the optimizer updates and batch-stat commit after it stay eager, as does
 the whole step where the graph would not hold (``make_train_step``).
 
+U-GAT-IT (``loss: ugatit``, ``models/ugatit.py``): the same six
+generator applications and three applications of each discriminator (the
+reals, the fakes' generator and discriminator views), each network
+returning a tuple (``_forward_losses_ugatit``), and the losses of
+``losses.ugatit_losses`` in f32; each discriminator application runs one
+power iteration per spectral-normalised weight, an in-place write of its
+``u`` buffer that the step's CUDA graph replays. After the optimizer
+updates every generator ``rho`` is clipped into [0, 1]. A mesh,
+``paired``, ``fuse_apps`` and ``remat`` are refused for it.
+
 Batch norm (``normalization: batchnorm``): every application of a train
 step normalizes with its own batch's statistics, and all of them read the
 same old moving statistics (``ops/norm.py`` ``batch_stats``). As in JAX
@@ -123,12 +133,14 @@ from torch.utils.checkpoint import checkpoint
 
 from cyclegan_tpu_torch import kernels, tracing
 from cyclegan_tpu_torch.losses import (
+    UGATIT,
     accuracy,
     calc_cycle_loss,
     discriminator_loss,
     generator_loss,
     get_loss_obj,
     identity_loss,
+    ugatit_losses,
 )
 from cyclegan_tpu_torch.models import create_model
 from cyclegan_tpu_torch.ops import cuda_norm, layout, spatialctx
@@ -140,6 +152,9 @@ NETWORKS = ("g_AB", "g_BA", "d_A", "d_B")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _METRIC_OF = {"g_AB": "gAB_loss", "g_BA": "gBA_loss", "d_A": "dA_loss",
               "d_B": "dB_loss"}
+# counters a step's graph counts while it is captured, added again on each
+# replay (the power iterations run inside it)
+REPLAYED_COUNTERS = ("power_iterations",)
 
 
 @dataclasses.dataclass
@@ -270,7 +285,7 @@ def _forward_losses(models: Mapping[str, nn.Module], loss_obj: Callable,
                     remat: bool = False, paired: bool = False,
                     dropout: Optional[torch.Generator] = None,
                     dropout_block=None, train: bool = True,
-                    stats: Optional[dict] = None
+                    stats: Optional[dict] = None, ugatit: bool = False
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The shared forward set and the losses (cyclegan_tpu/steps.py
     ``_forward_losses``, or ``_forward_losses_paired`` with ``paired``), in
@@ -287,7 +302,16 @@ def _forward_losses(models: Mapping[str, nn.Module], loss_obj: Callable,
     else with the moving statistics. ``stats``, a dict, receives each
     network's kept application's new moving statistics ({network: {norm
     block: (mean, var)}}, the module docstring), for
-    ``ops/norm.commit_batch_stats``; the paired step keeps none."""
+    ``ops/norm.commit_batch_stats``; the paired step keeps none.
+    ``ugatit``: U-GAT-IT's networks and losses (``_forward_losses_ugatit``;
+    ``loss_obj`` unused)."""
+    if ugatit:
+        scope = layout.nhcw() if tpu_layout else layout.nhwc()
+        with scope, cuda_norm.scope(pallas_norm):
+            if tpu_layout:
+                real_a, real_b = layout.to_nhcw(real_a), layout.to_nhcw(real_b)
+            return _forward_losses_ugatit(models, weights, real_a, real_b,
+                                          compute_dtype, stop_grads)
     if paired:
         with layout.nhwc(), cuda_norm.scope(pallas_norm), \
                 norm_ops.batch_stats(train):
@@ -375,6 +399,47 @@ def _forward_losses_scoped(models, loss_obj, weights, real_a, real_b,
                    same_a, same_b, disc_real_a, disc_real_b,
                    disc_fake_a_gen, disc_fake_b_gen, disc_fake_a_d,
                    disc_fake_b_d)
+
+
+def _forward_losses_ugatit(models, weights, real_a, real_b, compute_dtype,
+                           stop_grads):
+    """U-GAT-IT's forward set, in the scope its caller opens: the six
+    generator applications in the order of ``_forward_losses_scoped``, then
+    d_A and d_B on the reals and, with ``stop_grads``, each on its fake
+    batch through both views (``disc_views``); every output cast to f32
+    for ``losses.ugatit_losses``."""
+    a_net = real_a.to(compute_dtype)
+    b_net = real_b.to(compute_dtype)
+    params = _cast_params(models, compute_dtype)
+
+    def run(name, x):
+        return functional_call(models[name], params[name], (x,))
+
+    def f32(outs):
+        return tuple(t.float() for t in outs)
+
+    fake_b, cam_ab = run("g_AB", a_net)
+    cycled_a, _ = run("g_BA", fake_b)
+    fake_a, cam_ba = run("g_BA", b_net)
+    cycled_b, _ = run("g_AB", fake_a)
+    same_a, cam_aa = run("g_BA", a_net)
+    same_b, cam_bb = run("g_AB", b_net)
+    d_real_a, d_real_b = run("d_A", a_net), run("d_B", b_net)
+    if stop_grads:
+        d_fake_a_gen, d_fake_a_d = disc_views(models["d_A"], params["d_A"],
+                                              fake_a)
+        d_fake_b_gen, d_fake_b_d = disc_views(models["d_B"], params["d_B"],
+                                              fake_b)
+    else:
+        d_fake_a_gen = d_fake_a_d = run("d_A", fake_a)
+        d_fake_b_gen = d_fake_b_d = run("d_B", fake_b)
+    cams = {"ab": cam_ab, "ba": cam_ba, "aa": cam_aa, "bb": cam_bb}
+    return ugatit_losses(
+        weights, real_a, real_b, cycled_a.float(), cycled_b.float(),
+        same_a.float(), same_b.float(),
+        {k: v.float() for k, v in cams.items()}, f32(d_real_a),
+        f32(d_real_b), f32(d_fake_a_gen), f32(d_fake_b_gen),
+        f32(d_fake_a_d), f32(d_fake_b_d))
 
 
 def _forward_losses_paired(models, loss_obj, weights, real_a, real_b,
@@ -681,12 +746,16 @@ class _Captured:
                                         device=x.device).copy_(x)
                             for x in (real_a, real_b))
         launches, paths = dict(kernels.launches), kernels.paths.copy()
+        counted = tracing.counters()
         self.graph = CudaGraph()
         self.out = self.graph.capture(lambda: (
             *grads(state, *self.inputs), [p.grad for p in params]))
         self.launches = {k: kernels.launches[k] - n
                          for k, n in launches.items()}
         self.paths = kernels.paths - paths
+        now = tracing.counters()
+        self.counters = {k: now[k] - counted.get(k, 0)
+                         for k in REPLAYED_COUNTERS if now.get(k)}
 
     def parameters(self, state: TrainState) -> Optional[list]:
         """``state``'s parameters, where its parameters and buffers are
@@ -697,10 +766,13 @@ class _Captured:
         return params
 
     def count(self) -> None:
-        """One step's kernel launches and paths."""
+        """One step's kernel launches and paths, and its
+        ``REPLAYED_COUNTERS``."""
         for name, n in self.launches.items():
             kernels.launches[name] += n
         kernels.paths.update(self.paths)
+        for name, n in self.counters.items():
+            tracing.count(name, n)
 
     def run(self, params: list, real_a: torch.Tensor, real_b: torch.Tensor):
         """(metrics, kept batch statistics) of one step on the batch pair:
@@ -714,6 +786,32 @@ class _Captured:
             if p.grad is not g:
                 p.grad = g
         return {k: v.clone() for k, v in metrics.items()}, stats
+
+
+def _ugatit_options(loss_name: str, mesh, **options) -> bool:
+    """Whether the step is U-GAT-IT's; a ValueError where it is and a mesh
+    or one of ``options`` is set, which its step does not take."""
+    if loss_name != UGATIT:
+        return False
+    refused = [k for k, v in options.items() if v]
+    if mesh is not None:
+        refused.insert(0, "mesh")
+    if refused:
+        raise ValueError(f"loss {UGATIT!r}: the U-GAT-IT step takes no "
+                         f"{', '.join(refused)} (a mesh, an H-sharded "
+                         f"spatial axis, paired, fuse_apps and remat are "
+                         f"out of its scope)")
+    return True
+
+
+def _clip_rhos(models: Mapping[str, nn.Module]) -> None:
+    """Clip every ``rho`` of the networks that have them (``rhos()``: the
+    U-GAT-IT generator's AdaLIN and ILN) into [0, 1], in place."""
+    rhos = [p for m in models.values() for p in getattr(m, "rhos", list)()]
+    if rhos:
+        with torch.no_grad():
+            torch._foreach_clamp_min_(rhos, 0.0)
+            torch._foreach_clamp_max_(rhos, 1.0)
 
 
 def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
@@ -775,7 +873,9 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
     the preprocess is called as ``preprocess(generator, a, b, rows=rows)``
     and draws for ``rows`` (``augment.random_jitter_batch``'s: the global
     batch's draw and this rank's rows of it, or None)."""
-    loss_obj = get_loss_obj(loss_name)
+    ugatit = _ugatit_options(loss_name, mesh, paired=paired,
+                             fuse_apps=fuse_apps, remat=remat)
+    loss_obj = None if ugatit else get_loss_obj(loss_name)
     weights = _weights(loss_weights)
     cdtype = DTYPES[compute_dtype]
     par = _parallel(mesh, mesh_axis, spatial_axis, shard_map_dp, tpu_layout)
@@ -799,7 +899,7 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
                 stop_grads=True, tpu_layout=tpu_layout,
                 pallas_norm=pallas_norm, fuse_apps=fuse_apps, remat=remat,
                 paired=paired, dropout=dropout, dropout_block=block,
-                stats=stats)
+                stats=stats, ugatit=ugatit)
         with tracing.span("backward"):
             surrogate.backward()
         return {k: v.detach() for k, v in metrics.items()}, stats
@@ -854,6 +954,7 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
         with tracing.span("optimizer"):
             for name in NETWORKS:
                 state.optimizers[name].step()
+            _clip_rhos(state.models)
             for kept in stats.values():
                 norm_ops.commit_batch_stats(kept)
         if par is not None and par.shard_map_dp and par.data_size > 1:
@@ -906,7 +1007,8 @@ def make_validate_step(loss_name: str, loss_weights: Mapping[str, float],
     ``preprocess(images)`` (e.g. ``prepare_eval_batch``, elementwise, so
     right on a strip) runs first on each batch. With ``mesh`` the batches
     are this rank's blocks and the metrics are averaged over the mesh."""
-    loss_obj = get_loss_obj(loss_name)
+    ugatit = _ugatit_options(loss_name, mesh, fuse_apps=fuse_apps)
+    loss_obj = None if ugatit else get_loss_obj(loss_name)
     weights = _weights(loss_weights)
     cdtype = DTYPES[compute_dtype]
     par = _parallel(mesh, mesh_axis, spatial_axis, shard_map_dp, tpu_layout)
@@ -920,7 +1022,8 @@ def make_validate_step(loss_name: str, loss_weights: Mapping[str, float],
             _, metrics = _forward_losses(
                 state.models, loss_obj, weights, real_a, real_b, cdtype,
                 stop_grads=False, tpu_layout=tpu_layout,
-                pallas_norm=pallas_norm, fuse_apps=fuse_apps, train=False)
+                pallas_norm=pallas_norm, fuse_apps=fuse_apps, train=False,
+                ugatit=ugatit)
         if par is not None:
             metrics = dict(zip(metrics, par.mean(list(metrics.values()))))
         return metrics

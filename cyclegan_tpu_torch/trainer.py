@@ -61,6 +61,7 @@ from cyclegan_tpu_torch.data.augment import (
     random_jitter_batch,
 )
 from cyclegan_tpu_torch.data.pipeline import ArrayDataset
+from cyclegan_tpu_torch.models import generated_image
 from cyclegan_tpu_torch.ops import cuda_norm, layout
 from cyclegan_tpu_torch.parallel import replicate, shard_batch
 from cyclegan_tpu_torch.parallel.spatial import check_spatial_divisibility
@@ -385,9 +386,10 @@ class CycleGan:
         try:
             with torch.no_grad(), scope, cuda_norm.scope(self.pallas_norm):
                 if self.tpu_layout:
-                    y = layout.from_nhcw(model(layout.to_nhcw(x)))
+                    y = layout.from_nhcw(generated_image(
+                        model(layout.to_nhcw(x))))
                 else:
-                    y = model(x)
+                    y = generated_image(model(x))
         finally:
             model.train(was_training)
         return y.float().cpu().numpy()
