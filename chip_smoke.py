@@ -32,7 +32,11 @@ failing the run if it fails:
    conv's K9, K9-dW and K10, the channel concat K11 and its split K12, and
    the NHWC instance norm K13 (with its mean and rstd) at every norm of
    the NHWC train steps of phases 12-13, affine and not; bf16 K5 and K9-dW
-   must run their TMA design there, and ``conv_dw_simt`` (their CUDA-core
+   must run their tap-ring design there (``kernels.paths``
+   ``conv_dw.ring`` / ``conv_reflect_dw.ring`` once per launch, no
+   ``.simt``; every K9-dW shape of U-GAT-IT's step included, and each bf16
+   dW twice, which must give the same bits), and ``conv_dw_simt`` (their
+   CUDA-core
    design, which f32 runs) is held at the same shapes in bf16 too; bf16 K1
    and K9 must run their tensor-core design, and ``conv_same_simt`` (their
    CUDA-core design, which f32 runs) is held at every K1 and K9 shape in
@@ -418,7 +422,7 @@ SIMT = "conv_dw_simt"
 SIMT_SAME = "conv_same_simt"
 # kernels whose bf16 outputs phase 2 requires bit-identical run to run
 DETERMINISTIC = ("instance_norm_act", "instance_norm_act_bwd",
-                 "instance_norm_nhwc")
+                 "instance_norm_nhwc", "conv_dw", "conv_reflect_dw")
 # kernel-name fragments of the profiler trace -> kernel family
 TRACE_FAMILIES = (
     ("conv_same_tc_kernel", "conv_same"), ("conv_same_pack_kernel", "conv_same"),
@@ -427,12 +431,11 @@ TRACE_FAMILIES = (
     ("conv_same_simt_kernel", SIMT_SAME),
     ("conv_reflect_simt_kernel", SIMT_SAME),
     ("conv_reflect_dw_tma_kernel", "conv_reflect_dw"),
-    ("reflect_dw_shift_copies_kernel", "conv_reflect_dw"),
     ("reflect_sum_splits_kernel", "conv_reflect_dw"),
     ("conv_reflect_dw_partial_kernel", SIMT),
     ("reflect_fold_kernel", "reflect_fold"),
-    ("conv_dw_tma_kernel", "conv_dw"), ("dw_shift_copies_kernel", "conv_dw"),
-    ("conv_dw_partial_kernel", SIMT), ("sum_splits_kernel", "conv_dw"),
+    ("conv_dw_tma_kernel", "conv_dw"), ("conv_dw_partial_kernel", SIMT),
+    ("sum_splits_kernel", "conv_dw"),
     ("norm_act_bwd_kernel", "instance_norm_act_bwd"),
     ("norm_act_kernel", "instance_norm_act"),
     ("sum2x2_kernel", "sum2x2"), ("dup2x2_kernel", "dup2x2"),
@@ -1011,8 +1014,8 @@ def make_case(name, shape, dtype, seed):
         kernel = (cuda_reflect.conv_reflect_dw_cuda
                   if name == "conv_reflect_dw"
                   else cuda_reflect.conv_reflect_dw_simt_cuda)
-        # bytes: x and g read once, dW written once (the shifted copies of
-        # the TMA design are the kernel's own traffic, not the function's)
+        # bytes: x and g read once, dW written once (the split partial
+        # sums are the kernel's own traffic, not the function's)
         return (lambda: (kernel(x, gy, k),),
                 lambda: (cuda_reflect.conv_reflect_dw_plain(x, gy, k),),
                 lambda: torch.nn.grad.conv2d_weight(
@@ -1256,9 +1259,11 @@ def unique_shapes(plan):
 def check_kernels(shapes, label=""):
     """Phase 2: kernel vs plain at every unique launch shape, bf16 and
     f32. Returns the largest absolute error per (kernel, dtype). bf16 K5
-    and K9-dW must run their TMA design (no ``conv_dw_simt`` launch), bf16
-    K1 and K9 their tensor-core design (no ``conv_same_simt`` launch); bf16
-    K2 and K6 must give the same bits in a second run."""
+    and K9-dW must run their tap-ring design (``kernels.paths``
+    ``<kernel>.ring`` once a call, no ``conv_dw_simt`` launch), bf16 K1
+    and K9 their tensor-core design (no ``conv_same_simt`` launch); the
+    bf16 kernels of ``DETERMINISTIC`` must give the same bits in a second
+    run."""
     from cyclegan_tpu_torch import kernels
 
     max_err = {}
@@ -1286,11 +1291,14 @@ def check_kernels(shapes, label=""):
                                                                   again)):
                         fail(f"{name} {shape} bf16: two runs differ")
                 torch.cuda.synchronize()
-                if (dtype == torch.bfloat16 and name in (
-                        "conv_dw", "conv_reflect_dw")
-                        and kernels.launches[SIMT] != simt):
-                    fail(f"{name} {shape} bf16 ran the CUDA-core design, "
-                         f"not the TMA one")
+                if dtype == torch.bfloat16 and name in ("conv_dw",
+                                                        "conv_reflect_dw"):
+                    calls = 1 + (name in DETERMINISTIC)
+                    ring = kernels.paths[name + ".ring"] - before[
+                        name + ".ring"]
+                    if kernels.launches[SIMT] != simt or ring != calls:
+                        fail(f"{name} {shape} bf16 ran the CUDA-core "
+                             f"design, not the tap-ring one")
                 if (dtype == torch.bfloat16 and name in (
                         "conv_same", "conv_reflect")
                         and kernels.launches[SIMT_SAME] != simt_same):
@@ -1829,6 +1837,10 @@ def train(label, model_cfg, plan, model_dir, out_dir, f32_point=None,
     if kernels.launches[SIMT]:
         fail(f"{label}: {kernels.launches[SIMT]} dW launches on the CUDA-core "
              f"design in a bf16 step, none expected")
+    for name in ("conv_dw", "conv_reflect_dw"):
+        if kernels.paths[name + ".ring"] != kernels.launches[name]:
+            fail(f"{label}: {kernels.launches[name]} {name} launches, "
+                 f"{kernels.paths[name + '.ring']} on the tap-ring design")
     if kernels.launches[SIMT_SAME]:
         fail(f"{label}: {kernels.launches[SIMT_SAME]} conv launches on the "
              f"CUDA-core design in a bf16 step, none expected")
@@ -4454,6 +4466,21 @@ UGATIT_APPS_PER_STEP = 6
 UGATIT_PATH = "ugatit_train"
 
 
+def ugatit_dw_launches(batch=BATCH, size=SIZE):
+    """The K9-dW launches of one U-GAT-IT train step, (B, H, Cin, Cout, K),
+    one per reflect conv of each of the step's generator applications: the
+    7x7 stem, the n_res residual and n_res AdaLIN blocks' two 3x3 convs
+    each at size / 4, the two up-blocks' 3x3 convs and the 7x7 head (its
+    discriminators' convs are the library's)."""
+    gen = UGATIT_CONFIG["generator"]
+    f, s4 = int(gen["ngf"]), size // 4
+    app = ([(batch, size, 3, f, 7)]
+           + [(batch, s4, 4 * f, 4 * f, 3)] * (4 * int(gen["n_res"]))
+           + [(batch, size // 2, 4 * f, 2 * f, 3),
+              (batch, size, 2 * f, f, 3), (batch, size, f, 3, 7)])
+    return {"conv_reflect_dw": app * UGATIT_APPS_PER_STEP}
+
+
 def _ada_inputs(shape, dtype, seed=0):
     b, h, c, w, per_sample, _ = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -4605,7 +4632,11 @@ def ugatit(out_dir):
                            "replayed": bool(entry["counters"].get(
                                "graph_replay")),
                            "ada_norm": kernels.launches["ada_norm"],
-                           "ada_norm_bwd": kernels.launches["ada_norm_bwd"]})
+                           "ada_norm_bwd": kernels.launches["ada_norm_bwd"],
+                           "conv_reflect_dw":
+                               kernels.launches["conv_reflect_dw"],
+                           "dw_ring": kernels.paths["conv_reflect_dw.ring"],
+                           "dw_simt": kernels.launches[SIMT]})
         print(f"ugatit steps: {counts}; losses {losses}", flush=True)
         want = UGATIT_APPS_PER_STEP * UGATIT_NORMS_PER_APP
         for i, c in enumerate(counts):
@@ -4613,6 +4644,11 @@ def ugatit(out_dir):
                 fail(f"ugatit step {i}: power_iterations {c}")
             if c["ada_norm"] != want or c["ada_norm_bwd"] != want:
                 fail(f"ugatit step {i}: K14/K15 launches {c}, want {want}")
+            dw = len(ugatit_dw_launches()["conv_reflect_dw"])
+            if c["conv_reflect_dw"] != dw or c["dw_ring"] != dw or c[
+                    "dw_simt"]:
+                fail(f"ugatit step {i}: K9-dW launches {c}, want {dw} on "
+                     f"the tap-ring design")
         if not counts[2]["replayed"]:
             fail("ugatit: the third step did not replay its graph")
         if not all(math.isfinite(v) for ls in losses for v in ls.values()):
@@ -4732,6 +4768,9 @@ def main(argv=None) -> int:
     # step resumed from it at GRAD_BATCH
     plans["resnet_dp_train"] = resnet_train_launches(cfgs["resnet"],
                                                      BATCH // RANKS, SIZE)
+    # phase 29: U-GAT-IT's K9-dW launches (its other kernels' shapes are
+    # timed in the phase itself)
+    plans[UGATIT_PATH] = ugatit_dw_launches()
     serve_plans["spatial_http_512"] = spatial_launches(serve_launches(
         cfgs["unet"].generator, 1, SPATIAL_SERVE_SIZE), RANKS)
     serve_plans["import_serve"] = serve_plans["unet_serve"]

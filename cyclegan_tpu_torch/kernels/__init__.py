@@ -35,9 +35,10 @@ KERNELS = ("conv_same", "instance_norm_act", "sum2x2", "concat_up2",
            "conv_dw_simt", "conv_same_simt")
 launches = {name: 0 for name in KERNELS}
 # the path of each launch of K3, K4, K7, K8 and K10, "<kernel>.vector" (16-
-# or 8-byte units) or "<kernel>.element", and of K13,
-# "instance_norm_nhwc.resident", ".streamed" or ".element", counted beside
-# ``launches``
+# or 8-byte units) or "<kernel>.element", of K13,
+# "instance_norm_nhwc.resident", ".streamed" or ".element", and of K5 and
+# K9-dW, "conv_dw.ring" / "conv_reflect_dw.ring" (the tap-ring design) or
+# ".simt" (the CUDA-core one), counted beside ``launches``
 paths = collections.Counter()
 
 P = ctypes.c_void_p

@@ -55,7 +55,7 @@
 //   bytes; a window of xp of one channel group is such rows, one pixel
 //   each, so the A operand of tap (dy, dx) is the same window with its
 //   descriptor start moved by (dy Wp + dx) 16 bytes: always 16-byte aligned
-//   (no column-shifted copies, which TMA boxes needed for K5), one window
+//   (no column-shifted copies, which a TMA box would need), one window
 //   per 16 channels for all K*K taps;
 // - a shared-memory load per FMA: wgmma reads both operands from shared
 //   memory itself, a 64 x N x 16 product per instruction;

@@ -22,14 +22,17 @@ generator's shapes). Both run on the tensor cores in bf16
 channel-grouped copy and the weights K-major (``conv_tc_pack_plain`` is the
 plain version of that pack; ``conv_tc_geometry`` the tiling) and then runs
 wgmma on flattened-pixel M tiles, each tap the same shared-memory window
-read at another offset; K5 takes TMA tiles of x's K column-shifted copies
-(written by a copy kernel first; ``shifted_copies`` is their plain version)
-and of dY into wgmma (``conv_dw_tma_kernel``) wherever the tensors lie in
-its domain (``dw_tma_domain``: 16-byte aligned, W a multiple of 8, which
-every launch of the recipes at 256x256 meets). f32, and K5's bf16 outside
+read at another offset; K5 (``conv_dw_tma_kernel``, the tap-ring design)
+walks the rows of x and dY once, keeps the rows its taps read in a ring of
+shared memory with 8 channels innermost and forms every tap from it on
+chip, into wgmma, wherever the tensors lie in its domain
+(``dw_tma_domain``: 16-byte aligned, W a multiple of 8 and a cut that
+fits, ``dw_tma_geometry``, which every launch of the recipes meets); it
+counts ``conv_dw.ring`` in ``kernels.paths``. f32, and K5's bf16 outside
 its domain, run the CUDA-core designs (``conv_same_simt_cuda``,
 ``conv_dw_simt_cuda``), counted under ``conv_same_simt`` and
-``conv_dw_simt`` besides ``conv_same`` and ``conv_dw``. See the sources.
+``conv_dw_simt`` besides ``conv_same`` and ``conv_dw`` (K5's also as
+``conv_dw.simt``). See the sources.
 
 ``conv_same`` is the differentiable op: ``ConvSame`` launches the kernels
 for CUDA tensors and takes the plain versions only for tensors on the CPU,
@@ -39,6 +42,7 @@ the bias outside the kernel (cyclegan_tpu/ops/conv.py).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -51,11 +55,16 @@ from cyclegan_tpu_torch.kernels import I, L, P
 # K5's CUDA-core block tile (conv_dw.cu MT, NT) and the blocks it aims to
 # keep in flight
 _DW_TILE_M, _DW_TILE_N, _DW_BLOCKS = 64, 32, 8 * 132
-# K5's TMA design (conv_dw.cu): pixels per stage, rows of an M tile, M tiles
-# per block; the blocks it aims at (eight per SM) and the fewest stages of 64
-# pixels a block should sum (picked in a sweep on an H100)
-TMA_PX, TMA_TILE_ROWS, TMA_CONSUMERS = 64, 64, 2
-_TMA_BLOCKS, _TMA_MIN_STAGES = 8 * 132, 32
+# K5's tap-ring design (conv_dw.cu DW_*): pixels a step, g tiles and x rows
+# in flight, ring rows beyond a block's dy span, the widest window a channel
+# group stages, the most channel groups of one x box, the fewest steps a
+# split sums, one block per SM, the shared memory a block may use
+DW_PX, DW_GSTAGES, DW_RAW, DW_AHEAD = 64, 4, 3, 2
+DW_MAX_LINES, DW_MAX_GROUPS = 96, 32
+_DW_MIN_UNITS, _DW_SMS, _DW_SMEM_MAX = 16, 132, 232448
+# the cost model that picks a block's m64 tiles (conv_dw.cu dw_geometry): a
+# step's clocks apart from its tiles (fitted on an H100), and a tile's
+DW_STEP_CLK = 300
 
 
 # K1's tensor-core design (conv_same.cu): consumer warpgroups per block, the
@@ -296,91 +305,128 @@ def dw_splits(k: int, c: int, cout: int, rows: int) -> int:
     return max(1, min(rows, math.ceil(_DW_BLOCKS / tiles)))
 
 
-def dw_tma_geometry(c: int, k: int):
-    """How K5's TMA design cuts the K*K*C (tap, channel) rows into 64-row M
-    tiles (conv_dw.cu ``tma_geometry``): (cb, taps, c_tiles, m_tiles) with
-    cb channel rows per tap (the smallest of 8, 16, 32, 64 at least C; 64
-    beyond), taps = 64 / cb taps per tile, c_tiles channel tiles per tap
-    group. Tile t holds taps (t // c_tiles) * taps + j for j < taps (those
-    below K*K) and channels (t % c_tiles) * cb + [0, cb); rows at channels
-    past C are zeros."""
-    cb = next((n for n in (8, 16, 32) if c <= n), 64)
-    taps = TMA_TILE_ROWS // cb
-    c_tiles = -(-c // cb)
-    return cb, taps, c_tiles, c_tiles * -(-(k * k) // taps)
+def dw_block(m: int, rg_block: int, total: int, k: int) -> dict:
+    """Block m of K5's tap-ring design (conv_dw.cu ``dw_block``): row groups
+    [r0, r1) of the ``total`` (channel group, tap) row groups in
+    group-major order (tap dy k + dx fastest), its channel groups [g0, g1]
+    and the dy rows [d0, d1] its taps read: all K where it spans two
+    groups."""
+    kk = k * k
+    r0 = m * rg_block
+    r1 = min(total, r0 + rg_block)
+    g0, g1 = r0 // kk, (r1 - 1) // kk
+    one = g0 == g1
+    return {"r0": r0, "r1": r1, "g0": g0, "g1": g1,
+            "d0": (r0 % kk) // k if one else 0,
+            "d1": ((r1 - 1) % kk) // k if one else k - 1}
 
 
-def dw_tma_n(cout: int) -> int:
-    """The wgmma N of K5's TMA design: Cout rounded up to 8, 16, 32, 64, or
-    128 (tiles of 128 beyond)."""
-    return next((n for n in (8, 16, 32, 64) if cout <= n), 128)
+@functools.lru_cache(maxsize=None)
+def dw_tma_geometry(b: int, h: int, w: int, c: int, cout: int, k: int,
+                    pad: int):
+    """How K5's and K9-dW's tap-ring design (conv_dw.cu ``dw_geometry``, the
+    same rule) cuts a launch on x [b, h, c, w], or None where no cut fits
+    (the CUDA-core design then runs).
+
+    The rows (channel group of 8, tap) are taken in group-major order,
+    ``rg_block`` = 16 mt of them a block: mt m64 tiles per consumer
+    warpgroup, of 4, 2, 1 (8 too at n 8; 2, 1 at n 128) the one of least
+    estimated time, m_blocks steps of ``DW_STEP_CLK`` plus 2 mt tiles of
+    max(2 n, 64 + n) clocks, the most tiles where two tie. n_tiles tiles of
+    n = Cout / n_tiles rounded up to 8, 16, 32, 64 or 128 output channels.
+    A row's window: lead pixels before the step's 64, lines in all (a
+    multiple of 32, at most ``DW_MAX_LINES``) and raw_lines as TMA loads it
+    (an odd multiple of 8: no bank conflict in the transposing ldmatrix).
+    The ring: slots rows (the widest dy span + ``DW_AHEAD``) of groups_max
+    channel groups (at most ``DW_MAX_GROUPS``), and ``DW_RAW`` x rows as
+    they lie. chunks 64-pixel steps a row; units = b chunks h steps, cut
+    into splits slices (one block per SM, at least ``_DW_MIN_UNITS`` steps
+    a slice); the block's shared memory. Cached: a step asks for the same
+    few shapes each time (the caller must not change the dict)."""
+    kk = k * k
+    groups = -(-c // 8)
+    total = groups * kk
+    n_tiles = -(-cout // 128)
+    n = next(v for v in (8, 16, 32, 64, 128) if -(-cout // n_tiles) <= v)
+    lead = 8 * -(-pad // 8)
+    trail = 8 * -(-(k - 1 - pad) // 8)
+    lines = -(-(DW_PX + lead + trail) // 32) * 32
+    raw_lines = DW_PX + lead + trail + (8 if (lead + trail) % 16 == 0 else 0)
+    if lines > DW_MAX_LINES:
+        return None
+    best = None
+    tile_clk = max(2 * n, 64 + n)
+    for mt in {8: (8, 4, 2, 1), 128: (2, 1)}.get(n, (4, 2, 1)):
+        rg_block = 16 * mt
+        m_blocks = -(-total // rg_block)
+        blocks = [dw_block(m, rg_block, total, k) for m in range(m_blocks)]
+        slots = max(blk["d1"] - blk["d0"] + 1 for blk in blocks) + DW_AHEAD
+        groups_max = max(blk["g1"] - blk["g0"] + 1 for blk in blocks)
+        smem = (1024 + DW_GSTAGES * n * 128
+                + (slots * lines + DW_RAW * raw_lines) * groups_max * 16
+                + 16 * (DW_GSTAGES + DW_RAW + slots))
+        if smem > _DW_SMEM_MAX or groups_max > DW_MAX_GROUPS:
+            continue
+        cost = m_blocks * (DW_STEP_CLK + 2 * mt * tile_clk)
+        if best is None or cost < best["cost"]:
+            best = {"mt": mt, "rg_block": rg_block, "m_blocks": m_blocks,
+                    "slots": slots, "groups_max": groups_max, "smem": smem,
+                    "cost": cost, "eff": total / (m_blocks * rg_block)}
+    if best is None:
+        return None
+    chunks = -(-w // DW_PX)
+    units = b * chunks * h
+    splits = max(1, min(units // _DW_MIN_UNITS,
+                        _DW_SMS // (best["m_blocks"] * n_tiles)))
+    return {**best, "n": n, "n_tiles": n_tiles, "groups": groups,
+            "total": total, "lead": lead, "lines": lines,
+            "raw_lines": raw_lines, "chunks": chunks,
+            "units": units, "splits": splits}
 
 
-def dw_tma_splits(k: int, c: int, cout: int, rows: int, w: int) -> int:
-    """How many slices of the B*H rows (each W wide) K5's TMA design splits
-    its sum into: up to eight blocks per SM, as long as each block sums at
-    least 32 stages of 64 pixels (more splits cost more workspace to add);
-    never more slices than rows."""
-    blocks = (-(-dw_tma_geometry(c, k)[3] // TMA_CONSUMERS)
-              * -(-cout // dw_tma_n(cout)))
-    stages = rows * -(-w // TMA_PX)
-    return max(1, min(rows, math.ceil(_TMA_BLOCKS / blocks),
-                      stages // _TMA_MIN_STAGES))
+def dw_tma_domain(x: torch.Tensor, g: torch.Tensor, k: int, pad: int,
+                  reflect: bool = False) -> bool:
+    """Whether K5's and K9-dW's tap-ring design takes these operands: bf16,
+    both base addresses 16-byte aligned, W a multiple of 8 (TMA's row
+    strides are multiples of 16 bytes) and a cut that fits
+    (``dw_tma_geometry``); for K9-dW (``reflect``) a window with a line
+    past the raw row's end (K up to 17)."""
+    B, H, C, W = (int(v) for v in x.shape)
+    if not (x.dtype == torch.bfloat16 and W % 8 == 0
+            and x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0):
+        return False
+    geo = dw_tma_geometry(B, H, W, C, int(g.shape[2]), k, pad)
+    return geo is not None and not (reflect
+                                    and geo["raw_lines"] >= geo["lines"])
 
 
-def dw_tma_domain(x: torch.Tensor, g: torch.Tensor) -> bool:
-    """Whether K5's and K9-dW's TMA design takes these operands: bf16, both
-    base addresses 16-byte aligned and W a multiple of 8 (a TMA row stride
-    is a multiple of 16 bytes)."""
-    return (x.dtype == torch.bfloat16 and int(x.shape[3]) % 8 == 0
-            and x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0)
-
-
-def shifted_copies(x: torch.Tensor, k: int, pad: int,
-                   reflect: bool = False) -> torch.Tensor:
-    """The plain version of the K column-shifted copies of x [B, H, C, W]
-    that K5's and K9-dW's TMA design writes first and then reads (a TMA box
-    cannot start at an odd column): xs[dx, b, h, c, w] = x[b, h, c,
-    w + dx - pad], zeros past the edges, [K, B, H, C, W]; with ``reflect``,
-    x reflect-padded by pad = K // 2 on every side first, [K, B, H + 2 pad,
-    C, W]."""
-    W = int(x.shape[3])
-    if reflect:
-        xp = F.pad(x.permute(0, 2, 1, 3), (pad,) * 4, mode="reflect")
-        return xp.unfold(3, W, 1).permute(3, 0, 2, 1, 4).contiguous()
-    xp = F.pad(x, (pad, k - 1 - pad))
-    return xp.unfold(3, W, 1).permute(3, 0, 1, 2, 4).contiguous()
-
-
-def _launch_dw(fn_name, inputs, g, k, splits, *args):
-    """One dW launch of library ``conv_dw``'s ``fn_name`` (signature
-    inputs..., g, part, dw, B, H, C, W, Cout, K, args..., splits, stream),
-    ``inputs`` x or (x, room for its shifted copies); returns dW
+def _launch_dw(fn_name, x, g, k, splits, *args):
+    """One dW launch of library ``conv_dw``'s ``fn_name`` (signature x, g,
+    part, dw, B, H, C, W, Cout, K, args..., splits, stream); returns dW
     [K,K,C,Cout] f32."""
-    x = inputs[0]
     B, H, C, W = x.shape
     Cout = int(g.shape[2])
     part = torch.empty((splits, k * k * C, Cout), dtype=torch.float32,
                        device=x.device)
     dw = torch.empty((k, k, C, Cout), dtype=torch.float32, device=x.device)
     fn = kernels.function("conv_dw", fn_name,
-                          [P] * (len(inputs) + 3) + [I] * (7 + len(args))
-                          + [P])
-    err = fn(*(kernels.ptr(t) for t in inputs), kernels.ptr(g),
-             kernels.ptr(part), kernels.ptr(dw), B, H, C, W, Cout, k, *args,
-             splits, kernels.stream())
+                          [P] * 4 + [I] * (7 + len(args)) + [P])
+    err = fn(kernels.ptr(x), kernels.ptr(g), kernels.ptr(part),
+             kernels.ptr(dw), B, H, C, W, Cout, k, *args, splits,
+             kernels.stream())
     kernels.check("conv_dw", err)
     return dw
 
 
-def _tma_dw(fn_name, x, g, k, pad, reflect, *args):
-    """K5's TMA design on x: room for its K shifted copies, which the
-    launch writes, then the product."""
-    B, H, C, W = x.shape
-    xs = torch.empty((k, B, H + (2 * pad if reflect else 0), C, W),
-                     dtype=x.dtype, device=x.device)
-    return _launch_dw(fn_name, (x, xs), g, k,
-                      dw_tma_splits(k, C, int(g.shape[2]), B * H, W), *args)
+def _tma_dw(fn_name, x, g, k, pad, *args):
+    """K5's or K9-dW's tap-ring design on x (``pad`` the taps' offset: the
+    forward's pad, or K // 2 for the reflect pad), counted under
+    ``<fn_name's kernel>.ring``."""
+    B, H, C, W = (int(v) for v in x.shape)
+    geo = dw_tma_geometry(B, H, W, C, int(g.shape[2]), k, pad)
+    dw = _launch_dw(fn_name, x, g, k, geo["splits"], *args)
+    kernels.paths[fn_name[:-len("_bf16")] + ".ring"] += 1
+    return dw
 
 
 def conv_dw_simt_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
@@ -390,22 +436,23 @@ def conv_dw_simt_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
     _check_dw(x, g, k, pad)
     kernels.check_cuda("conv_dw", x, g)
     suffix = "f32" if kernels.dtype_suffix(x) == "f32" else "simt_bf16"
-    dw = _launch_dw(f"conv_dw_{suffix}", (x,), g, k,
+    dw = _launch_dw(f"conv_dw_{suffix}", x, g, k,
                     dw_splits(k, int(x.shape[2]), int(g.shape[2]),
                               int(x.shape[0] * x.shape[1])), pad)
     kernels.launches["conv_dw_simt"] += 1
+    kernels.paths["conv_dw.simt"] += 1
     return dw
 
 
 def conv_dw_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
                  pad: int) -> torch.Tensor:
-    """Launch K5 on CUDA tensors: the TMA design (its shifted copies, then
-    the product) where ``dw_tma_domain`` holds, else the CUDA-core one;
-    returns dW [K,K,C,Cout] in f32."""
+    """Launch K5 on CUDA tensors: the tap-ring design where
+    ``dw_tma_domain`` holds, else the CUDA-core one; returns dW
+    [K,K,C,Cout] in f32."""
     _check_dw(x, g, k, pad)
     kernels.check_cuda("conv_dw", x, g)
-    if dw_tma_domain(x, g):
-        dw = _tma_dw("conv_dw_bf16", x, g, k, pad, False, pad)
+    if dw_tma_domain(x, g, k, pad):
+        dw = _tma_dw("conv_dw_bf16", x, g, k, pad, pad)
     else:
         dw = conv_dw_simt_cuda(x, g, k, pad)
     kernels.launches["conv_dw"] += 1

@@ -17,11 +17,11 @@ VJP built from two Pallas calls:
   K//2 < W.
 - dW: ``_conv_dw_call`` on the reflect-padded input. K9-dW
   (``conv_reflect_dw`` in ``kernels/csrc/conv_dw.cu``) in bf16 is K5's
-  TMA design at pad 0 on the column-shifted copies of the reflect-padded x,
-  which its launch writes first (``cuda_conv.shifted_copies`` is their
-  plain version), as JAX pads in XLA; in f32, and in bf16 outside K5's TMA
-  domain, it is K5's CUDA-core design staging its im2col tile through the
-  same map, with no copy.
+  tap-ring design at pad K//2 with the reflect pad an index map of its
+  loads: reflected rows, and reflected columns at the W edges, with no
+  padded copy (JAX pads in XLA); in f32, and in bf16 outside K5's domain,
+  it is K5's CUDA-core design staging its im2col tile through the same
+  map. Paths counted as ``conv_reflect_dw.ring`` / ``.simt``.
 - dX: ``_conv_fwd_call`` as the full correlation of dY with the flipped,
   ci<->co-swapped weights over the padded domain (side H + 2p), then a fold
   of the halo rows and columns back through the reflect map. Here K1
@@ -134,23 +134,23 @@ def conv_reflect_dw_simt_cuda(x: torch.Tensor, g: torch.Tensor,
     kernels.check_cuda("conv_reflect_dw", x, g)
     suffix = "f32" if kernels.dtype_suffix(x) == "f32" else "simt_bf16"
     dw = cuda_conv._launch_dw(
-        f"conv_reflect_dw_{suffix}", (x,), g, k,
+        f"conv_reflect_dw_{suffix}", x, g, k,
         cuda_conv.dw_splits(k, int(x.shape[2]), int(g.shape[2]),
                             int(x.shape[0] * x.shape[1])))
     kernels.launches["conv_dw_simt"] += 1
+    kernels.paths["conv_reflect_dw.simt"] += 1
     return dw
 
 
 def conv_reflect_dw_cuda(x: torch.Tensor, g: torch.Tensor,
                          k: int) -> torch.Tensor:
-    """Launch K9-dW on CUDA tensors: K5's TMA design on the shifted copies
-    of the reflect-padded x (``cuda_conv.shifted_copies``, plain) where
-    ``cuda_conv.dw_tma_domain`` holds, else the CUDA-core design; returns dW
-    [K,K,C,Cout] in f32."""
+    """Launch K9-dW on CUDA tensors: K5's tap-ring design through the
+    reflected index map where ``cuda_conv.dw_tma_domain`` holds, else the
+    CUDA-core design; returns dW [K,K,C,Cout] in f32."""
     _check_dw(x, g, k)
     kernels.check_cuda("conv_reflect_dw", x, g)
-    if cuda_conv.dw_tma_domain(x, g):
-        dw = cuda_conv._tma_dw("conv_reflect_dw_bf16", x, g, k, k // 2, True)
+    if cuda_conv.dw_tma_domain(x, g, k, k // 2, reflect=True):
+        dw = cuda_conv._tma_dw("conv_reflect_dw_bf16", x, g, k, k // 2)
     else:
         dw = conv_reflect_dw_simt_cuda(x, g, k)
     kernels.launches["conv_reflect_dw"] += 1
