@@ -238,8 +238,9 @@ failing the run if it fails:
     serving forward and at ``UGATIT_EDGE_NORM_SHAPES``, bf16 and f32, both
     paths (16-byte units, one element), each bf16 case twice bit-equal;
     both timed beside their bytes' least time; then the trainer's step at
-    batch 8 eager, captured and replayed, each with
-    ``UGATIT_POWER_ITERATIONS`` on its root and 60 K14 and 60 K15
+    batch 8 eager, captured and replayed, each moving every one of the
+    discriminators' ``UGATIT_SN_BUFFERS`` spectral-norm ``u`` vectors (its
+    power iterations ran, on a replay too) with 60 K14 and 60 K15
     launches, finite losses, img/s over five replays and the peak memory
     with the graph's pool. Its train step is the ``ugatit_train`` path of
     the kernels line: K14/K15 timed at its shapes, the other kernels'
@@ -4444,9 +4445,11 @@ UGATIT_CONFIG = {
                      "cam": 1000.0}}
 UGATIT_OPT = {"name": "adam", "learning_rate": 1e-4, "beta_1": 0.5,
               "beta_2": 0.999, "epsilon": 1e-8, "weight_decay": 1e-4}
-# one power iteration per spectral-normalised weight (9 global, 7 local)
-# per discriminator application, three applications of each of the two
-UGATIT_POWER_ITERATIONS = 2 * 3 * (9 + 7)
+# the spectral-normalised weights' ``u`` buffers of more than one element
+# in the two discriminators (the convolution blocks': 6 global, 4 local
+# each), which every train step's power iterations move; the C->1 logits'
+# and the head's ``u`` are one element, 1 whatever an iteration does
+UGATIT_SN_BUFFERS = 2 * (6 + 4)
 # K14/K15 launch shapes (B, H, C, W, per-sample gamma, relu) of a train
 # step and a serving forward at batch 8, each with its launches per
 # generator application: the four AdaLIN blocks' two norms and the two ILN
@@ -4590,8 +4593,9 @@ def ugatit(out_dir):
     """Phase 29: K14/K15 checked at every launch shape of a U-GAT-IT train
     step and serving forward and at the edge shapes, timed; then the
     trainer's step at batch 8 (eager, captured, replayed): its K14/K15
-    launches, ``power_iterations`` on each root, finite losses, img/s over
-    replayed steps and peak memory with the graph's pool."""
+    launches, every discriminator ``u`` buffer moved by each step, finite
+    losses, img/s over replayed steps and peak memory with the graph's
+    pool."""
     from cyclegan_tpu_torch import kernels, tracing
     from cyclegan_tpu_torch.config import Namespace
     from cyclegan_tpu_torch.trainer import CycleGan
@@ -4620,15 +4624,19 @@ def ugatit(out_dir):
         params = sum(p.numel() for m in trainer.state.models.values()
                      for p in m.parameters())
         a, b = _uniform_pair(BATCH, SIZE)
+        us = [u for n in ("d_A", "d_B") for k, u in
+              trainer.state.models[n].named_buffers()
+              if k.endswith(".u") and u.numel() > 1]
         counts, losses = [], []
         for i in range(3):
             kernels.reset_launches()
+            before = [u.clone() for u in us]
             m = trainer.train_step_fn(trainer.state, *trainer._put(a, b))
             launched = {k: v for k, v in kernels.launches.items() if v}
             losses.append({k: float(v) for k, v in m.items()})
             entry = tracing.entries()[-1]
-            counts.append({"power_iterations":
-                           entry["counters"].get("power_iterations"),
+            counts.append({"u_moved": sum(not torch.equal(u, old)
+                                          for u, old in zip(us, before)),
                            "replayed": bool(entry["counters"].get(
                                "graph_replay")),
                            "ada_norm": kernels.launches["ada_norm"],
@@ -4640,8 +4648,9 @@ def ugatit(out_dir):
         print(f"ugatit steps: {counts}; losses {losses}", flush=True)
         want = UGATIT_APPS_PER_STEP * UGATIT_NORMS_PER_APP
         for i, c in enumerate(counts):
-            if c["power_iterations"] != UGATIT_POWER_ITERATIONS:
-                fail(f"ugatit step {i}: power_iterations {c}")
+            if len(us) != UGATIT_SN_BUFFERS or c["u_moved"] != len(us):
+                fail(f"ugatit step {i}: moved {c['u_moved']} of {len(us)} "
+                     f"u buffers, want all {UGATIT_SN_BUFFERS}")
             if c["ada_norm"] != want or c["ada_norm_bwd"] != want:
                 fail(f"ugatit step {i}: K14/K15 launches {c}, want {want}")
             dw = len(ugatit_dw_launches()["conv_reflect_dw"])

@@ -25,6 +25,7 @@ from typing import Iterator, List, Sequence, Tuple, Union
 import numpy as np
 
 from cyclegan_tpu_torch.data.pipeline import (
+    _check_host_shard,
     decode_record,
     decode_workers,
     epoch_batches,
@@ -62,14 +63,6 @@ def _decode_ref(ref: RecordRef, width: int) -> np.ndarray:
         f.seek(offset)
         payload = f.read(length)
     return decode_record(payload, width)
-
-
-def _check_host_shard(process_index: int, process_count: int) -> None:
-    if process_count < 1:
-        raise ValueError(f"process_count must be >= 1, got {process_count}")
-    if not 0 <= process_index < process_count:
-        raise ValueError(f"process_index {process_index} out of range for "
-                         f"process_count {process_count}")
 
 
 class StreamingDataset:

@@ -87,6 +87,17 @@ def check_cuda(name: str, *tensors) -> None:
                              f"not contiguous")
 
 
+def dispatch(name: str, cuda_fn, plain_fn, x: torch.Tensor, *args, **kw):
+    """The port's kernel choice, by the device of ``x``, the first tensor:
+    on a card ``cuda_fn`` (the kernel ``name``'s launch), on the CPU
+    ``plain_fn`` (its plain version); any other device raises."""
+    if x.is_cuda:
+        return cuda_fn(x, *args, **kw)
+    if x.device.type == "cpu":
+        return plain_fn(x, *args, **kw)
+    raise ValueError(f"{name}: no kernel for device {x.device}")
+
+
 def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
@@ -96,5 +107,5 @@ def stream() -> int:
 
 
 __all__ = ["KERNELS", "launches", "launched", "paths", "reset_launches",
-           "build_dir", "check", "function", "check_cuda", "dtype_suffix",
-           "ptr", "stream"]
+           "build_dir", "check", "function", "check_cuda", "dispatch",
+           "dtype_suffix", "ptr", "stream"]

@@ -10,10 +10,22 @@ outputs to f32 before any loss.
 (global and local logits and CAM logits), the generators' CAM logits as
 BCE from logits (translation target 1, identity target 0), L1 cycle and
 identity; weights ``adversarial``, ``cycle``, ``identity``, ``cam``.
+
+A network family's losses (``get_losses``) take the train step's forward
+set as its networks return it, and only they know the outputs' shape:
+``(w, real_a, real_b, fake_a, fake_b, cycled_a, cycled_b, same_a, same_b,
+disc_real_a, disc_real_b, disc_fake_a_gen, disc_fake_b_gen, disc_fake_a_d,
+disc_fake_b_d) -> (surrogate, metrics)``. ``fake_a`` is g_BA(real_b),
+``cycled_a`` g_BA(fake_b), ``same_a`` g_BA(real_a) (``_b`` the other way);
+each ``disc_fake_*`` is a discriminator on its fake batch through the
+generator view (``_gen``: parameters detached) and the discriminator view
+(``_d``: fakes detached). The surrogate's gradient with respect to each
+network is that of the network's own loss in ``metrics``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -47,6 +59,15 @@ def get_loss_obj(loss: str) -> LossFn:
     return _LOSS_OBJ_MAPS[loss]
 
 
+def get_losses(loss: str) -> Callable:
+    """Name -> the family's losses over the forward set (the module
+    docstring): ``ugatit_losses`` for ``ugatit``, else ``cyclegan_losses``
+    with ``get_loss_obj(loss)``; KeyError on an unknown name."""
+    if loss == UGATIT:
+        return ugatit_losses
+    return functools.partial(cyclegan_losses, get_loss_obj(loss))
+
+
 def calc_cycle_loss(real_image, cycled_image, weight=10.0):
     """Weighted L1 cycle-consistency loss."""
     return weight * torch.mean(torch.abs(real_image - cycled_image))
@@ -78,14 +99,50 @@ def accuracy(real, fake):
     return torch.mean((predictions == labels).to(torch.float32))
 
 
-def ugatit_losses(w, real_a, real_b, cycled_a, cycled_b, same_a, same_b,
-                  cams, d_real_a, d_real_b, d_fake_a_gen, d_fake_b_gen,
-                  d_fake_a_d, d_fake_b_d):
-    """(surrogate, metrics) of U-GAT-IT's losses, every input f32. ``cams``:
-    the generators' CAM logits (``ab`` of g_AB(a), ``ba`` of g_BA(b), ``aa``
-    of g_BA(a), ``bb`` of g_AB(b)); each ``d_*`` a discriminator's four
-    outputs, the fakes' through the generator view (``_gen``: parameters
-    detached) and the discriminator view (``_d``: fakes detached).
+def cyclegan_losses(loss_obj: LossFn, w, real_a, real_b, fake_a, fake_b,
+                    cycled_a, cycled_b, same_a, same_b, disc_real_a,
+                    disc_real_b, disc_fake_a_gen, disc_fake_b_gen,
+                    disc_fake_a_d, disc_fake_b_d):
+    """(surrogate, metrics) of the CycleGAN losses (cyclegan_tpu/steps.py
+    ``_forward_losses``), every network output a tensor, cast to f32;
+    ``loss_obj`` the adversarial loss, ``fake_a`` and ``fake_b`` unused."""
+    f32 = lambda t: t.to(torch.float32)  # noqa: E731
+    cycled_a, cycled_b = f32(cycled_a), f32(cycled_b)
+    same_a, same_b = f32(same_a), f32(same_b)
+    disc_real_a, disc_real_b = f32(disc_real_a), f32(disc_real_b)
+    disc_fake_a_gen, disc_fake_b_gen = f32(disc_fake_a_gen), \
+        f32(disc_fake_b_gen)
+    disc_fake_a_d, disc_fake_b_d = f32(disc_fake_a_d), f32(disc_fake_b_d)
+
+    gab_adv = generator_loss(disc_fake_b_gen, loss_obj, w["generator"])
+    gba_adv = generator_loss(disc_fake_a_gen, loss_obj, w["generator"])
+    total_cycle = (calc_cycle_loss(real_a, cycled_a, w["cycle"])
+                   + calc_cycle_loss(real_b, cycled_b, w["cycle"]))
+    id_a = identity_loss(real_a, same_a, w["identity"])
+    id_b = identity_loss(real_b, same_b, w["identity"])
+    da_loss = discriminator_loss(disc_real_a, disc_fake_a_d, loss_obj,
+                                 w["discriminator"])
+    db_loss = discriminator_loss(disc_real_b, disc_fake_b_d, loss_obj,
+                                 w["discriminator"])
+    surrogate = (gab_adv + gba_adv + total_cycle + id_a + id_b + da_loss
+                 + db_loss)
+    metrics = dict(
+        gAB_loss=gab_adv + total_cycle + id_b,
+        gBA_loss=gba_adv + total_cycle + id_a,
+        dA_loss=da_loss,
+        dB_loss=db_loss,
+        dA_acc=accuracy(disc_real_a, disc_fake_a_d),
+        dB_acc=accuracy(disc_real_b, disc_fake_b_d),
+    )
+    return surrogate, metrics
+
+
+def ugatit_losses(w, real_a, real_b, fake_a, fake_b, cycled_a, cycled_b,
+                  same_a, same_b, d_real_a, d_real_b, d_fake_a_gen,
+                  d_fake_b_gen, d_fake_a_d, d_fake_b_d):
+    """(surrogate, metrics) of U-GAT-IT's losses, in f32: each generator
+    output is (image, CAM logits), each discriminator output its four
+    outputs (global and local logits and CAM logits).
 
     G_loss_A = adv (sum of d_A's four least squares on g_BA(b) against 1)
     + cycle |g_BA(g_AB(a)) - a| + identity |g_BA(a) - a| + cam (BCE of
@@ -98,6 +155,15 @@ def ugatit_losses(w, real_a, real_b, cycled_a, cycled_b, same_a, same_b,
     adv, cyc, idw, camw = (w["adversarial"], w["cycle"], w["identity"],
                            w["cam"])
 
+    cam_ab, cam_ba, cam_aa, cam_bb = (out[1].float() for out in (
+        fake_b, fake_a, same_a, same_b))
+    cycled_a, cycled_b, same_a, same_b = (out[0].float() for out in (
+        cycled_a, cycled_b, same_a, same_b))
+    d_real_a, d_real_b, d_fake_a_gen, d_fake_b_gen, d_fake_a_d, d_fake_b_d = (
+        [t.float() for t in outs] for outs in (
+            d_real_a, d_real_b, d_fake_a_gen, d_fake_b_gen, d_fake_a_d,
+            d_fake_b_d))
+
     def lsq(outs, target):
         return sum(_mse(torch.full_like(y, target), y) for y in outs)
 
@@ -108,10 +174,10 @@ def ugatit_losses(w, real_a, real_b, cycled_a, cycled_b, same_a, same_b,
     cycle_b = _mae(real_b, cycled_b)
     g_loss_a = (adv * lsq(d_fake_a_gen, 1.0) + cyc * cycle_a
                 + idw * _mae(real_a, same_a)
-                + camw * (bce(cams["ba"], 1.0) + bce(cams["aa"], 0.0)))
+                + camw * (bce(cam_ba, 1.0) + bce(cam_aa, 0.0)))
     g_loss_b = (adv * lsq(d_fake_b_gen, 1.0) + cyc * cycle_b
                 + idw * _mae(real_b, same_b)
-                + camw * (bce(cams["ab"], 1.0) + bce(cams["bb"], 0.0)))
+                + camw * (bce(cam_ab, 1.0) + bce(cam_bb, 0.0)))
     da_loss = adv * (lsq(d_real_a, 1.0) + lsq(d_fake_a_d, 0.0))
     db_loss = adv * (lsq(d_real_b, 1.0) + lsq(d_fake_b_d, 0.0))
     metrics = dict(

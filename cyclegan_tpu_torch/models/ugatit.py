@@ -28,10 +28,8 @@ Spectral norm as ``torch.nn.utils.spectral_norm``: the weight as a
 (out, -1) matrix, one power iteration per application in training mode
 under ``no_grad`` (eps 1e-12) that updates the persistent ``u`` buffer
 in place (a CUDA graph of the step replays it), then sigma = u^T W v,
-differentiable in W, and W / sigma; each iteration counts
-``power_iterations`` on the open ``tracing`` root. Out of training mode
-no iteration runs and v is taken from u (the discriminators serve
-nothing).
+differentiable in W, and W / sigma. Out of training mode no iteration
+runs and v is taken from u (the discriminators serve nothing).
 
 Parameters: conv ``w`` HWIO, Linear ``w`` [in, out], biases ``b``;
 AdaLIN's ``rho`` (0.9) and ILN's ``rho`` (0), ``gamma`` (1), ``beta`` (0)
@@ -54,7 +52,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cyclegan_tpu_torch import tracing
 from cyclegan_tpu_torch.ops import (
     concat_channels,
     conv2d,
@@ -115,7 +112,6 @@ def spectral_normalized(w: torch.Tensor, u: torch.Tensor,
         if power_iteration:
             u_new = F.normalize(m.t() @ v, dim=0, eps=SN_EPS)
             u.copy_(u_new)
-            tracing.count("power_iterations")
         else:
             u_new = u.clone()
     sigma = torch.dot(u_new, m.t() @ v)
@@ -214,14 +210,12 @@ class UGATITGenerator(nn.Module):
                               eps=IN_EPS, act="relu")
             x = x + instance_norm(conv2d_reflect(y, blk["conv2"]["w"]),
                                   eps=IN_EPS)
-        with tracing.span("cam"):
-            w_gap, w_gmp = self.gap_fc["w"], self.gmp_fc["w"]
-            x, cam_logit = _cam(x, w_gap, w_gmp, w_gap, w_gmp, self.conv1x1,
-                                torch.relu)
-        with tracing.span("gamma_beta"):
-            h = torch.relu(_flat_chw(x) @ self.fc[0]["w"])
-            h = torch.relu(h @ self.fc[1]["w"])
-            gamma, beta = h @ self.gamma["w"], h @ self.beta["w"]
+        w_gap, w_gmp = self.gap_fc["w"], self.gmp_fc["w"]
+        x, cam_logit = _cam(x, w_gap, w_gmp, w_gap, w_gmp, self.conv1x1,
+                            torch.relu)
+        h = torch.relu(_flat_chw(x) @ self.fc[0]["w"])
+        h = torch.relu(h @ self.fc[1]["w"])
+        gamma, beta = h @ self.gamma["w"], h @ self.beta["w"]
         for blk in self.ada:
             y = ada_norm(conv2d_reflect(x, blk["conv1"]["w"]),
                          blk["norm1"]["rho"], gamma, beta, relu=True)
@@ -258,18 +252,16 @@ class DiscriminatorScale(nn.Module):
 
     def forward(self, x: torch.Tensor):
         it = self.training
-        with tracing.span("spectral_norm"):
-            ws = [_sn(p, it) for p in self.blocks]
-            w_gap, w_gmp = _sn(self.gap_fc, it), _sn(self.gmp_fc, it)
-            w_head = _sn(self.head, it)
+        ws = [_sn(p, it) for p in self.blocks]
+        w_gap, w_gmp = _sn(self.gap_fc, it), _sn(self.gmp_fc, it)
+        w_head = _sn(self.head, it)
         last = len(self.blocks) - 1
         for i, (p, w) in enumerate(zip(self.blocks, ws)):
             x = F.leaky_relu(_down(x, w, 1 if i == last else 2, p["b"]),
                              LEAKY)
-        with tracing.span("cam"):
-            x, cam_logit = _cam(
-                x, self.gap_fc["w"], self.gmp_fc["w"], w_gap, w_gmp,
-                self.conv1x1, lambda t: F.leaky_relu(t, LEAKY))
+        x, cam_logit = _cam(x, self.gap_fc["w"], self.gmp_fc["w"], w_gap,
+                            w_gmp, self.conv1x1,
+                            lambda t: F.leaky_relu(t, LEAKY))
         return _down(x, w_head, 1), cam_logit
 
 

@@ -193,14 +193,6 @@ def ada_norm_bwd_cuda(x, gy, rho, gamma, saved, layer_stats,
     return dx, drho, dgamma, dbeta
 
 
-def _device_call(x, cuda_fn, plain_fn, *args, **kw):
-    if x.is_cuda:
-        return cuda_fn(x, *args, **kw)
-    if x.device.type == "cpu":
-        return plain_fn(x, *args, **kw)
-    raise ValueError(f"ada_norm: no kernel for device {x.device}")
-
-
 class AdaNorm(torch.autograd.Function):
     """y = ada_norm(x, rho, gamma, beta) on NHCW x: forward K14 (which keeps
     its statistics), backward K15; each parameter's gradient in its own
@@ -208,9 +200,9 @@ class AdaNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, rho, gamma, beta, eps, relu):
-        y, saved, layer_stats = _device_call(
-            x, ada_norm_cuda, ada_norm_plain, rho, gamma, beta, eps, relu,
-            with_stats=True)
+        y, saved, layer_stats = kernels.dispatch(
+            "ada_norm", ada_norm_cuda, ada_norm_plain, x, rho, gamma, beta,
+            eps, relu, with_stats=True)
         ctx.save_for_backward(x, rho, gamma, saved, layer_stats)
         ctx.relu = relu
         ctx.dtypes = (gamma.dtype, beta.dtype, gamma.dim())
@@ -219,9 +211,9 @@ class AdaNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x, rho, gamma, saved, layer_stats = ctx.saved_tensors
-        dx, drho, dgamma, dbeta = _device_call(
-            x, ada_norm_bwd_cuda, ada_norm_bwd_plain, gy.contiguous(), rho,
-            gamma, saved, layer_stats, ctx.relu)
+        dx, drho, dgamma, dbeta = kernels.dispatch(
+            "ada_norm_bwd", ada_norm_bwd_cuda, ada_norm_bwd_plain, x,
+            gy.contiguous(), rho, gamma, saved, layer_stats, ctx.relu)
         g_dtype, b_dtype, per_channel = ctx.dtypes
         if per_channel == 1:
             dgamma, dbeta = dgamma.sum(dim=0), dbeta.sum(dim=0)
@@ -260,5 +252,5 @@ def ada_norm(x: torch.Tensor, rho: torch.Tensor, gamma: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, rho, gamma, beta)):
         return AdaNorm.apply(x.contiguous(), rho, gamma, beta, eps, relu)
-    return _device_call(x.contiguous(), ada_norm_cuda, ada_norm_plain, rho,
-                        gamma, beta, eps, relu)
+    return kernels.dispatch("ada_norm", ada_norm_cuda, ada_norm_plain,
+                            x.contiguous(), rho, gamma, beta, eps, relu)

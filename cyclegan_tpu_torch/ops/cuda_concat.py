@@ -100,11 +100,8 @@ def concat_up2_cuda(skip: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _concat_up2(skip, x):
-    if x.is_cuda:
-        return concat_up2_cuda(skip, x)
-    if x.device.type == "cpu":
-        return concat_up2_plain(skip, x)
-    raise ValueError(f"concat_up2: no kernel for device {x.device}")
+    return kernels.dispatch("concat_up2", concat_up2_cuda, concat_up2_plain,
+                            skip, x)
 
 
 def _check_split(g, c1):
@@ -151,11 +148,8 @@ def split_pool2_cuda(g: torch.Tensor, c1: int):
 
 
 def split_pool2(g: torch.Tensor, c1: int):
-    if g.is_cuda:
-        return split_pool2_cuda(g, c1)
-    if g.device.type == "cpu":
-        return split_pool2_plain(g, c1)
-    raise ValueError(f"split_pool2: no kernel for device {g.device}")
+    return kernels.dispatch("split_pool2", split_pool2_cuda,
+                            split_pool2_plain, g, c1)
 
 
 class ConcatUp2(torch.autograd.Function):
@@ -208,11 +202,7 @@ def concat2_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _concat2(a, b):
-    if a.is_cuda:
-        return concat2_cuda(a, b)
-    if a.device.type == "cpu":
-        return concat2_plain(a, b)
-    raise ValueError(f"concat2: no kernel for device {a.device}")
+    return kernels.dispatch("concat2", concat2_cuda, concat2_plain, a, b)
 
 
 def _check_split2(g, c1):
@@ -244,11 +234,7 @@ def split2_cuda(g: torch.Tensor, c1: int):
 
 
 def split2(g: torch.Tensor, c1: int):
-    if g.is_cuda:
-        return split2_cuda(g, c1)
-    if g.device.type == "cpu":
-        return split2_plain(g, c1)
-    raise ValueError(f"split2: no kernel for device {g.device}")
+    return kernels.dispatch("split2", split2_cuda, split2_plain, g, c1)
 
 
 class Concat2(torch.autograd.Function):

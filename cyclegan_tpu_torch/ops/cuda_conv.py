@@ -258,11 +258,8 @@ def conv_same_cuda(x: torch.Tensor, w: torch.Tensor,
 
 def _conv_same(x, w, bias=None, pad=None, grow=0):
     """K1 or its plain version, by the tensor's device; not differentiable."""
-    if x.is_cuda:
-        return conv_same_cuda(x, w, bias, pad=pad, grow=grow)
-    if x.device.type == "cpu":
-        return conv_same_plain(x, w, bias, pad=pad, grow=grow)
-    raise ValueError(f"conv_same: no kernel for device {x.device}")
+    return kernels.dispatch("conv_same", conv_same_cuda, conv_same_plain, x,
+                            w, bias, pad=pad, grow=grow)
 
 
 def _check_dw(x, g, k, pad):
@@ -462,11 +459,8 @@ def conv_dw_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
 def conv_dw(x: torch.Tensor, g: torch.Tensor, k: int,
             pad: int) -> torch.Tensor:
     """K5 or its plain version, by the tensor's device."""
-    if x.is_cuda:
-        return conv_dw_cuda(x, g, k, pad)
-    if x.device.type == "cpu":
-        return conv_dw_plain(x, g, k, pad)
-    raise ValueError(f"conv_dw: no kernel for device {x.device}")
+    return kernels.dispatch("conv_dw", conv_dw_cuda, conv_dw_plain, x, g, k,
+                            pad)
 
 
 class ConvSame(torch.autograd.Function):

@@ -205,11 +205,8 @@ def instance_norm_nhwc_cuda(x: torch.Tensor, gamma: Optional[torch.Tensor],
 
 def _instance_norm_nhwc(x, gamma, beta, eps):
     """K13 or its plain version, by the tensor's device."""
-    if x.is_cuda:
-        return instance_norm_nhwc_cuda(x, gamma, beta, eps)
-    if x.device.type == "cpu":
-        return instance_norm_nhwc_plain(x, gamma, beta, eps)
-    raise ValueError(f"instance_norm_nhwc: no kernel for device {x.device}")
+    return kernels.dispatch("instance_norm_nhwc", instance_norm_nhwc_cuda,
+                            instance_norm_nhwc_plain, x, gamma, beta, eps)
 
 
 def instance_norm_nhwc_bwd(x, dy, gamma, mean, rstd):

@@ -175,13 +175,9 @@ def instance_norm_act_cuda(x: torch.Tensor, gamma: Optional[torch.Tensor],
 
 def _instance_norm_act(x, gamma, beta, eps, act, alpha, with_stats):
     """K2 or its plain version, by the tensor's device."""
-    if x.is_cuda:
-        return instance_norm_act_cuda(x, gamma, beta, eps, act, alpha,
-                                      with_stats=with_stats)
-    if x.device.type == "cpu":
-        return instance_norm_act_plain(x, gamma, beta, eps, act, alpha,
-                                       with_stats=with_stats)
-    raise ValueError(f"instance_norm_act: no kernel for device {x.device}")
+    return kernels.dispatch("instance_norm_act", instance_norm_act_cuda,
+                            instance_norm_act_plain, x, gamma, beta, eps, act,
+                            alpha, with_stats=with_stats)
 
 
 def _check_bwd(x, gz, mu, rstd):
@@ -249,14 +245,10 @@ def instance_norm_act_bwd_cuda(x, gz, gamma, beta, mu, rstd,
 def instance_norm_act_bwd(x, gz, gamma, beta, mu, rstd, act="relu",
                           alpha=0.2):
     """K6 or its plain version, by the tensor's device."""
-    if x.is_cuda:
-        return instance_norm_act_bwd_cuda(x, gz, gamma, beta, mu, rstd, act,
-                                          alpha)
-    if x.device.type == "cpu":
-        return instance_norm_act_bwd_plain(x, gz, gamma, beta, mu, rstd, act,
-                                           alpha)
-    raise ValueError(f"instance_norm_act_bwd: no kernel for device "
-                     f"{x.device}")
+    return kernels.dispatch("instance_norm_act_bwd",
+                            instance_norm_act_bwd_cuda,
+                            instance_norm_act_bwd_plain, x, gz, gamma, beta,
+                            mu, rstd, act, alpha)
 
 
 class InstanceNormAct(torch.autograd.Function):

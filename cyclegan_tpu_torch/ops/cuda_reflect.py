@@ -105,11 +105,8 @@ def conv_reflect_cuda(x: torch.Tensor, w: torch.Tensor,
 def _conv_reflect(x, w, bias=None):
     """K9 or its plain version, by the tensor's device; not
     differentiable."""
-    if x.is_cuda:
-        return conv_reflect_cuda(x, w, bias)
-    if x.device.type == "cpu":
-        return conv_reflect_plain(x, w, bias)
-    raise ValueError(f"conv_reflect: no kernel for device {x.device}")
+    return kernels.dispatch("conv_reflect", conv_reflect_cuda,
+                            conv_reflect_plain, x, w, bias)
 
 
 def _check_dw(x, g, k):
@@ -159,11 +156,8 @@ def conv_reflect_dw_cuda(x: torch.Tensor, g: torch.Tensor,
 
 def conv_reflect_dw(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     """K9-dW or its plain version, by the tensor's device."""
-    if x.is_cuda:
-        return conv_reflect_dw_cuda(x, g, k)
-    if x.device.type == "cpu":
-        return conv_reflect_dw_plain(x, g, k)
-    raise ValueError(f"conv_reflect_dw: no kernel for device {x.device}")
+    return kernels.dispatch("conv_reflect_dw", conv_reflect_dw_cuda,
+                            conv_reflect_dw_plain, x, g, k)
 
 
 def _fold_shape(dxp, p):
@@ -238,11 +232,8 @@ def reflect_fold_cuda(dxp: torch.Tensor, p: int) -> torch.Tensor:
 
 def reflect_fold(dxp: torch.Tensor, p: int) -> torch.Tensor:
     """K10 or its plain version, by the tensor's device."""
-    if dxp.is_cuda:
-        return reflect_fold_cuda(dxp, p)
-    if dxp.device.type == "cpu":
-        return reflect_fold_plain(dxp, p)
-    raise ValueError(f"reflect_fold: no kernel for device {dxp.device}")
+    return kernels.dispatch("reflect_fold", reflect_fold_cuda,
+                            reflect_fold_plain, dxp, p)
 
 
 def padded_dx(g: torch.Tensor, w_t: torch.Tensor, p: int) -> torch.Tensor:

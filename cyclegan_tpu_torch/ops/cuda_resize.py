@@ -87,11 +87,7 @@ def sum2x2_cuda(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
 
 
 def sum2x2(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
-    if x.is_cuda:
-        return sum2x2_cuda(x, scale)
-    if x.device.type == "cpu":
-        return sum2x2_plain(x, scale)
-    raise ValueError(f"sum2x2: no kernel for device {x.device}")
+    return kernels.dispatch("sum2x2", sum2x2_cuda, sum2x2_plain, x, scale)
 
 
 def _check_dup(x):
@@ -151,11 +147,7 @@ def dup2x2_cuda(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
 
 
 def dup2x2(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
-    if x.is_cuda:
-        return dup2x2_cuda(x, scale)
-    if x.device.type == "cpu":
-        return dup2x2_plain(x, scale)
-    raise ValueError(f"dup2x2: no kernel for device {x.device}")
+    return kernels.dispatch("dup2x2", dup2x2_cuda, dup2x2_plain, x, scale)
 
 
 class AvgPool2x2(torch.autograd.Function):

@@ -67,15 +67,18 @@ the host launches a step's 800-odd kernels once. The jitter before it and
 the optimizer updates and batch-stat commit after it stay eager, as does
 the whole step where the graph would not hold (``make_train_step``).
 
-U-GAT-IT (``loss: ugatit``, ``models/ugatit.py``): the same six
-generator applications and three applications of each discriminator (the
-reals, the fakes' generator and discriminator views), each network
-returning a tuple (``_forward_losses_ugatit``), and the losses of
-``losses.ugatit_losses`` in f32; each discriminator application runs one
-power iteration per spectral-normalised weight, an in-place write of its
-``u`` buffer that the step's CUDA graph replays. After the optimizer
-updates every generator ``rho`` is clipped into [0, 1]. A mesh,
-``paired``, ``fuse_apps`` and ``remat`` are refused for it.
+Network families: every family runs the one forward set above, each
+network's output passed on as the network returns it, and the family's
+losses (``losses.get_losses`` of the loss name) are the only code that
+knows the outputs' shape. U-GAT-IT (``loss: ugatit``,
+``models/ugatit.py``): each generator returns (image, CAM logits), each
+discriminator four outputs, and the losses are ``losses.ugatit_losses``;
+each discriminator application in a train step runs one power iteration
+per spectral-normalised weight, an in-place write of its ``u`` buffer
+that the step's CUDA graph replays (the validate step runs the networks
+in eval mode: no iteration). After the optimizer updates every generator
+``rho`` is clipped into [0, 1]. A mesh, ``paired``, ``fuse_apps`` and
+``remat`` are refused for it.
 
 Batch norm (``normalization: batchnorm``): every application of a train
 step normalizes with its own batch's statistics, and all of them read the
@@ -132,17 +135,8 @@ from torch.func import functional_call, vmap
 from torch.utils.checkpoint import checkpoint
 
 from cyclegan_tpu_torch import kernels, tracing
-from cyclegan_tpu_torch.losses import (
-    UGATIT,
-    accuracy,
-    calc_cycle_loss,
-    discriminator_loss,
-    generator_loss,
-    get_loss_obj,
-    identity_loss,
-    ugatit_losses,
-)
-from cyclegan_tpu_torch.models import create_model
+from cyclegan_tpu_torch.losses import UGATIT, get_losses
+from cyclegan_tpu_torch.models import create_model, generated_image
 from cyclegan_tpu_torch.ops import cuda_norm, layout, spatialctx
 from cyclegan_tpu_torch.ops import norm as norm_ops
 from cyclegan_tpu_torch.optimizers import get_optimizer
@@ -152,9 +146,6 @@ NETWORKS = ("g_AB", "g_BA", "d_A", "d_B")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _METRIC_OF = {"g_AB": "gAB_loss", "g_BA": "gBA_loss", "d_A": "dA_loss",
               "d_B": "dB_loss"}
-# counters a step's graph counts while it is captured, added again on each
-# replay (the power iterations run inside it)
-REPLAYED_COUNTERS = ("power_iterations",)
 
 
 @dataclasses.dataclass
@@ -277,7 +268,7 @@ def _rematerialized(fn: Callable, *args):
                       preserve_rng_state=False)
 
 
-def _forward_losses(models: Mapping[str, nn.Module], loss_obj: Callable,
+def _forward_losses(models: Mapping[str, nn.Module], losses: Callable,
                     weights: Mapping[str, float], real_a: torch.Tensor,
                     real_b: torch.Tensor, compute_dtype: torch.dtype,
                     stop_grads: bool, tpu_layout: bool = True,
@@ -285,12 +276,14 @@ def _forward_losses(models: Mapping[str, nn.Module], loss_obj: Callable,
                     remat: bool = False, paired: bool = False,
                     dropout: Optional[torch.Generator] = None,
                     dropout_block=None, train: bool = True,
-                    stats: Optional[dict] = None, ugatit: bool = False
+                    stats: Optional[dict] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The shared forward set and the losses (cyclegan_tpu/steps.py
     ``_forward_losses``, or ``_forward_losses_paired`` with ``paired``), in
     the NHCW layout with ``tpu_layout`` and in NHWC (K13 for the norms with
-    ``pallas_norm``) without. ``real_a``, ``real_b``: NHWC f32 in [-1, 1];
+    ``pallas_norm``) without. ``losses``: the family's losses over the
+    forward set (``losses.get_losses``). ``real_a``, ``real_b``: NHWC f32
+    in [-1, 1];
     ``dropout``: the generator of the generators' dropout masks (None: no
     dropout), ``dropout_block`` this rank's block of them on a mesh
     (``_draw_masks``). Returns (surrogate, metrics); with ``stop_grads`` the
@@ -302,20 +295,11 @@ def _forward_losses(models: Mapping[str, nn.Module], loss_obj: Callable,
     else with the moving statistics. ``stats``, a dict, receives each
     network's kept application's new moving statistics ({network: {norm
     block: (mean, var)}}, the module docstring), for
-    ``ops/norm.commit_batch_stats``; the paired step keeps none.
-    ``ugatit``: U-GAT-IT's networks and losses (``_forward_losses_ugatit``;
-    ``loss_obj`` unused)."""
-    if ugatit:
-        scope = layout.nhcw() if tpu_layout else layout.nhwc()
-        with scope, cuda_norm.scope(pallas_norm):
-            if tpu_layout:
-                real_a, real_b = layout.to_nhcw(real_a), layout.to_nhcw(real_b)
-            return _forward_losses_ugatit(models, weights, real_a, real_b,
-                                          compute_dtype, stop_grads)
+    ``ops/norm.commit_batch_stats``; the paired step keeps none."""
     if paired:
         with layout.nhwc(), cuda_norm.scope(pallas_norm), \
                 norm_ops.batch_stats(train):
-            return _forward_losses_paired(models, loss_obj, weights, real_a,
+            return _forward_losses_paired(models, losses, weights, real_a,
                                           real_b, compute_dtype, stop_grads,
                                           remat, dropout, dropout_block)
     scope = layout.nhcw() if tpu_layout else layout.nhwc()
@@ -323,7 +307,7 @@ def _forward_losses(models: Mapping[str, nn.Module], loss_obj: Callable,
         if tpu_layout:
             real_a = layout.to_nhcw(real_a)
             real_b = layout.to_nhcw(real_b)
-        return _forward_losses_scoped(models, loss_obj, weights, real_a,
+        return _forward_losses_scoped(models, losses, weights, real_a,
                                       real_b, compute_dtype, stop_grads,
                                       fuse_apps, remat, dropout,
                                       dropout_block, stats)
@@ -338,7 +322,7 @@ def _cast_params(models, compute_dtype):
             for name in NETWORKS}
 
 
-def _forward_losses_scoped(models, loss_obj, weights, real_a, real_b,
+def _forward_losses_scoped(models, losses, weights, real_a, real_b,
                            compute_dtype, stop_grads, fuse_apps=False,
                            remat=False, dropout=None, dropout_block=None,
                            stats=None):
@@ -379,70 +363,30 @@ def _forward_losses_scoped(models, loss_obj, weights, real_a, real_b,
         cycled_b = gen("g_AB", fake_a)
     else:  # batch norm keeps g_BA's translation and g_AB's cycle pass
         fake_b = gen("g_AB", a_net)
-        cycled_a = gen("g_BA", fake_b)
+        cycled_a = gen("g_BA", generated_image(fake_b))
         fake_a = gen("g_BA", b_net, keep=True)
-        cycled_b = gen("g_AB", fake_a, keep=True)
+        cycled_b = gen("g_AB", generated_image(fake_a), keep=True)
         same_a = gen("g_BA", a_net)
         same_b = gen("g_AB", b_net)
 
     disc_real_a = run("d_A", a_net)
     disc_real_b = run("d_B", b_net)
+    image_a, image_b = generated_image(fake_a), generated_image(fake_b)
     if stop_grads:
         disc_fake_a_gen, disc_fake_a_d = disc_views(
-            models["d_A"], params["d_A"], fake_a, sink("d_A"))
+            models["d_A"], params["d_A"], image_a, sink("d_A"))
         disc_fake_b_gen, disc_fake_b_d = disc_views(
-            models["d_B"], params["d_B"], fake_b, sink("d_B"))
+            models["d_B"], params["d_B"], image_b, sink("d_B"))
     else:
-        disc_fake_a_gen = disc_fake_a_d = run("d_A", fake_a)
-        disc_fake_b_gen = disc_fake_b_d = run("d_B", fake_b)
-    return _losses(loss_obj, weights, real_a, real_b, cycled_a, cycled_b,
-                   same_a, same_b, disc_real_a, disc_real_b,
-                   disc_fake_a_gen, disc_fake_b_gen, disc_fake_a_d,
-                   disc_fake_b_d)
+        disc_fake_a_gen = disc_fake_a_d = run("d_A", image_a)
+        disc_fake_b_gen = disc_fake_b_d = run("d_B", image_b)
+    return losses(weights, real_a, real_b, fake_a, fake_b, cycled_a,
+                  cycled_b, same_a, same_b, disc_real_a, disc_real_b,
+                  disc_fake_a_gen, disc_fake_b_gen, disc_fake_a_d,
+                  disc_fake_b_d)
 
 
-def _forward_losses_ugatit(models, weights, real_a, real_b, compute_dtype,
-                           stop_grads):
-    """U-GAT-IT's forward set, in the scope its caller opens: the six
-    generator applications in the order of ``_forward_losses_scoped``, then
-    d_A and d_B on the reals and, with ``stop_grads``, each on its fake
-    batch through both views (``disc_views``); every output cast to f32
-    for ``losses.ugatit_losses``."""
-    a_net = real_a.to(compute_dtype)
-    b_net = real_b.to(compute_dtype)
-    params = _cast_params(models, compute_dtype)
-
-    def run(name, x):
-        return functional_call(models[name], params[name], (x,))
-
-    def f32(outs):
-        return tuple(t.float() for t in outs)
-
-    fake_b, cam_ab = run("g_AB", a_net)
-    cycled_a, _ = run("g_BA", fake_b)
-    fake_a, cam_ba = run("g_BA", b_net)
-    cycled_b, _ = run("g_AB", fake_a)
-    same_a, cam_aa = run("g_BA", a_net)
-    same_b, cam_bb = run("g_AB", b_net)
-    d_real_a, d_real_b = run("d_A", a_net), run("d_B", b_net)
-    if stop_grads:
-        d_fake_a_gen, d_fake_a_d = disc_views(models["d_A"], params["d_A"],
-                                              fake_a)
-        d_fake_b_gen, d_fake_b_d = disc_views(models["d_B"], params["d_B"],
-                                              fake_b)
-    else:
-        d_fake_a_gen = d_fake_a_d = run("d_A", fake_a)
-        d_fake_b_gen = d_fake_b_d = run("d_B", fake_b)
-    cams = {"ab": cam_ab, "ba": cam_ba, "aa": cam_aa, "bb": cam_bb}
-    return ugatit_losses(
-        weights, real_a, real_b, cycled_a.float(), cycled_b.float(),
-        same_a.float(), same_b.float(),
-        {k: v.float() for k, v in cams.items()}, f32(d_real_a),
-        f32(d_real_b), f32(d_fake_a_gen), f32(d_fake_b_gen),
-        f32(d_fake_a_d), f32(d_fake_b_d))
-
-
-def _forward_losses_paired(models, loss_obj, weights, real_a, real_b,
+def _forward_losses_paired(models, losses, weights, real_a, real_b,
                            compute_dtype, stop_grads, remat=False,
                            dropout=None, dropout_block=None):
     """The paired twin step (cyclegan_tpu/steps.py
@@ -496,45 +440,10 @@ def _forward_losses_paired(models, loss_obj, weights, real_a, real_b,
         d_fake_gen = d_fake_d = vd(pd, fakes)
     disc_fake_a_gen, disc_fake_b_gen = d_fake_gen.unbind(0)
     disc_fake_a_d, disc_fake_b_d = d_fake_d.unbind(0)
-    return _losses(loss_obj, weights, real_a, real_b, cycled_a, cycled_b,
-                   same_a, same_b, disc_real_a, disc_real_b,
-                   disc_fake_a_gen, disc_fake_b_gen, disc_fake_a_d,
-                   disc_fake_b_d)
-
-
-def _losses(loss_obj, w, real_a, real_b, cycled_a, cycled_b, same_a, same_b,
-            disc_real_a, disc_real_b, disc_fake_a_gen, disc_fake_b_gen,
-            disc_fake_a_d, disc_fake_b_d):
-    """(surrogate, metrics) from the forward set's outputs, in f32."""
-    f32 = lambda t: t.to(torch.float32)  # noqa: E731
-    cycled_a, cycled_b = f32(cycled_a), f32(cycled_b)
-    same_a, same_b = f32(same_a), f32(same_b)
-    disc_real_a, disc_real_b = f32(disc_real_a), f32(disc_real_b)
-    disc_fake_a_gen, disc_fake_b_gen = f32(disc_fake_a_gen), \
-        f32(disc_fake_b_gen)
-    disc_fake_a_d, disc_fake_b_d = f32(disc_fake_a_d), f32(disc_fake_b_d)
-
-    gab_adv = generator_loss(disc_fake_b_gen, loss_obj, w["generator"])
-    gba_adv = generator_loss(disc_fake_a_gen, loss_obj, w["generator"])
-    total_cycle = (calc_cycle_loss(real_a, cycled_a, w["cycle"])
-                   + calc_cycle_loss(real_b, cycled_b, w["cycle"]))
-    id_a = identity_loss(real_a, same_a, w["identity"])
-    id_b = identity_loss(real_b, same_b, w["identity"])
-    da_loss = discriminator_loss(disc_real_a, disc_fake_a_d, loss_obj,
-                                 w["discriminator"])
-    db_loss = discriminator_loss(disc_real_b, disc_fake_b_d, loss_obj,
-                                 w["discriminator"])
-    surrogate = (gab_adv + gba_adv + total_cycle + id_a + id_b + da_loss
-                 + db_loss)
-    metrics = dict(
-        gAB_loss=gab_adv + total_cycle + id_b,
-        gBA_loss=gba_adv + total_cycle + id_a,
-        dA_loss=da_loss,
-        dB_loss=db_loss,
-        dA_acc=accuracy(disc_real_a, disc_fake_a_d),
-        dB_acc=accuracy(disc_real_b, disc_fake_b_d),
-    )
-    return surrogate, metrics
+    return losses(weights, real_a, real_b, fake_a, fake_b, cycled_a,
+                  cycled_b, same_a, same_b, disc_real_a, disc_real_b,
+                  disc_fake_a_gen, disc_fake_b_gen, disc_fake_a_d,
+                  disc_fake_b_d)
 
 
 def _weights(loss_weights: Mapping[str, float]) -> Dict[str, float]:
@@ -746,16 +655,12 @@ class _Captured:
                                         device=x.device).copy_(x)
                             for x in (real_a, real_b))
         launches, paths = dict(kernels.launches), kernels.paths.copy()
-        counted = tracing.counters()
         self.graph = CudaGraph()
         self.out = self.graph.capture(lambda: (
             *grads(state, *self.inputs), [p.grad for p in params]))
         self.launches = {k: kernels.launches[k] - n
                          for k, n in launches.items()}
         self.paths = kernels.paths - paths
-        now = tracing.counters()
-        self.counters = {k: now[k] - counted.get(k, 0)
-                         for k in REPLAYED_COUNTERS if now.get(k)}
 
     def parameters(self, state: TrainState) -> Optional[list]:
         """``state``'s parameters, where its parameters and buffers are
@@ -766,13 +671,10 @@ class _Captured:
         return params
 
     def count(self) -> None:
-        """One step's kernel launches and paths, and its
-        ``REPLAYED_COUNTERS``."""
+        """One step's kernel launches and paths."""
         for name, n in self.launches.items():
             kernels.launches[name] += n
         kernels.paths.update(self.paths)
-        for name, n in self.counters.items():
-            tracing.count(name, n)
 
     def run(self, params: list, real_a: torch.Tensor, real_b: torch.Tensor):
         """(metrics, kept batch statistics) of one step on the batch pair:
@@ -788,11 +690,11 @@ class _Captured:
         return {k: v.clone() for k, v in metrics.items()}, stats
 
 
-def _ugatit_options(loss_name: str, mesh, **options) -> bool:
-    """Whether the step is U-GAT-IT's; a ValueError where it is and a mesh
-    or one of ``options`` is set, which its step does not take."""
+def _ugatit_options(loss_name: str, mesh, **options) -> None:
+    """A ValueError where the step is U-GAT-IT's and a mesh or one of
+    ``options`` is set, which its step does not take."""
     if loss_name != UGATIT:
-        return False
+        return
     refused = [k for k, v in options.items() if v]
     if mesh is not None:
         refused.insert(0, "mesh")
@@ -801,7 +703,6 @@ def _ugatit_options(loss_name: str, mesh, **options) -> bool:
                          f"{', '.join(refused)} (a mesh, an H-sharded "
                          f"spatial axis, paired, fuse_apps and remat are "
                          f"out of its scope)")
-    return True
 
 
 def _clip_rhos(models: Mapping[str, nn.Module]) -> None:
@@ -826,8 +727,9 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
     """The train step ``(state, real_a, real_b) -> metrics``: preprocess
     (``preprocess(generator, a, b) -> (a, b)``, e.g. the jitter), one
     forward set in the layout ``tpu_layout`` picks (with the options of
-    the module docstring), ONE backward, four optimizer updates, in place
-    on ``state``. After it each parameter's ``.grad`` holds the step's
+    the module docstring) and the losses of ``loss_name``'s family
+    (``losses.get_losses``), ONE backward, four optimizer updates, in
+    place on ``state``. After it each parameter's ``.grad`` holds the step's
     gradient, and each batch norm's kept moving statistics are committed
     after the updates (the module docstring). Metrics are detached f32
     scalars on the batch's device, each step's its own; the step never
@@ -873,9 +775,9 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
     the preprocess is called as ``preprocess(generator, a, b, rows=rows)``
     and draws for ``rows`` (``augment.random_jitter_batch``'s: the global
     batch's draw and this rank's rows of it, or None)."""
-    ugatit = _ugatit_options(loss_name, mesh, paired=paired,
-                             fuse_apps=fuse_apps, remat=remat)
-    loss_obj = None if ugatit else get_loss_obj(loss_name)
+    _ugatit_options(loss_name, mesh, paired=paired, fuse_apps=fuse_apps,
+                    remat=remat)
+    losses = get_losses(loss_name)
     weights = _weights(loss_weights)
     cdtype = DTYPES[compute_dtype]
     par = _parallel(mesh, mesh_axis, spatial_axis, shard_map_dp, tpu_layout)
@@ -895,11 +797,11 @@ def make_train_step(loss_name: str, loss_weights: Mapping[str, float],
         stats = {}
         with tracing.span("forward"):
             surrogate, metrics = _forward_losses(
-                state.models, loss_obj, weights, real_a, real_b, cdtype,
+                state.models, losses, weights, real_a, real_b, cdtype,
                 stop_grads=True, tpu_layout=tpu_layout,
                 pallas_norm=pallas_norm, fuse_apps=fuse_apps, remat=remat,
                 paired=paired, dropout=dropout, dropout_block=block,
-                stats=stats, ugatit=ugatit)
+                stats=stats)
         with tracing.span("backward"):
             surrogate.backward()
         return {k: v.detach() for k, v in metrics.items()}, stats
@@ -1002,13 +904,14 @@ def make_validate_step(loss_name: str, loss_weights: Mapping[str, float],
                        shard_map_dp: bool = False) -> Callable:
     """The eval step ``(state, real_a, real_b) -> metrics``: the forward
     set without stop-gradients, dropout or a backward (4 discriminator
-    applications), batch norms on their moving statistics, in the layout
+    applications), batch norms on their moving statistics, the networks
+    in eval mode (a spectral norm's ``u`` stays), in the layout
     ``tpu_layout`` picks, ``fuse_apps`` as the train step's;
     ``preprocess(images)`` (e.g. ``prepare_eval_batch``, elementwise, so
     right on a strip) runs first on each batch. With ``mesh`` the batches
     are this rank's blocks and the metrics are averaged over the mesh."""
-    ugatit = _ugatit_options(loss_name, mesh, fuse_apps=fuse_apps)
-    loss_obj = None if ugatit else get_loss_obj(loss_name)
+    _ugatit_options(loss_name, mesh, fuse_apps=fuse_apps)
+    losses = get_losses(loss_name)
     weights = _weights(loss_weights)
     cdtype = DTYPES[compute_dtype]
     par = _parallel(mesh, mesh_axis, spatial_axis, shard_map_dp, tpu_layout)
@@ -1018,12 +921,19 @@ def make_validate_step(loss_name: str, loss_weights: Mapping[str, float],
                       real_b: torch.Tensor) -> Dict[str, torch.Tensor]:
         if preprocess is not None:
             real_a, real_b = preprocess(real_a), preprocess(real_b)
-        with contextlib.nullcontext() if par is None else par.scope():
-            _, metrics = _forward_losses(
-                state.models, loss_obj, weights, real_a, real_b, cdtype,
-                stop_grads=False, tpu_layout=tpu_layout,
-                pallas_norm=pallas_norm, fuse_apps=fuse_apps, train=False,
-                ugatit=ugatit)
+        modes = [(m, m.training) for m in state.models.values()]
+        try:
+            for m, _ in modes:
+                m.eval()
+            with contextlib.nullcontext() if par is None else par.scope():
+                _, metrics = _forward_losses(
+                    state.models, losses, weights, real_a, real_b, cdtype,
+                    stop_grads=False, tpu_layout=tpu_layout,
+                    pallas_norm=pallas_norm, fuse_apps=fuse_apps,
+                    train=False)
+        finally:
+            for m, mode in modes:
+                m.train(mode)
         if par is not None:
             metrics = dict(zip(metrics, par.mean(list(metrics.values()))))
         return metrics
@@ -1041,7 +951,7 @@ def reference_gradients(models: Mapping[str, nn.Module], loss_name: str,
     stop-gradients, then
     each network's own total loss differentiated with respect to that
     network alone. For the tests."""
-    _, metrics = _forward_losses(models, get_loss_obj(loss_name),
+    _, metrics = _forward_losses(models, get_losses(loss_name),
                                  _weights(loss_weights), real_a, real_b,
                                  torch.float32, stop_grads=False)
     grads = {}

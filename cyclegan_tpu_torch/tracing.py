@@ -28,15 +28,11 @@ root ``put`` (``trainer.py``, counter ``sync``); root ``train_step``
 (``steps.py``) with ``jitter`` and ``optimizer``, and ``forward`` and
 ``backward`` where it runs eager, ``replay`` (counter ``graph_replay``)
 where it replays its CUDA graph and ``capture`` (counter
-``graph_capture``) where it captures it; inside a U-GAT-IT forward
-(``models/ugatit.py``, eager and capturing steps) ``cam`` (each CAM
-attention), ``gamma_beta`` (the generators' MLP) and ``spectral_norm``
-(each discriminator scale's power iterations and sigmas), and counter
-``power_iterations``, which a replay adds again as the capture counted it
-(``steps.REPLAYED_COUNTERS``);
-root ``stylize`` (``apps/inference.py``, counter ``sync``) with ``h2d``,
-``forward``, ``d2h``; root ``request`` (``apps/server.py``) with
-``decode``, ``resize``, ``stylize``, ``encode``, its ``Server-Timing``.
+``graph_capture``, and ``sync`` for its wait) where it captures it (its
+``forward`` and ``backward`` under it); root ``stylize``
+(``apps/inference.py``, counter ``sync``) with ``h2d``, ``forward``,
+``d2h``; root ``request`` (``apps/server.py``) with ``decode``,
+``resize``, ``stylize``, ``encode``, its ``Server-Timing``.
 """
 
 from __future__ import annotations
@@ -121,13 +117,6 @@ def count(name: str, n: int = 1) -> None:
         counters[name] = counters.get(name, 0) + n
 
 
-def counters() -> Dict[str, int]:
-    """A copy of the open root's counters ({} where no span is open on
-    this thread)."""
-    stack = _STACK.open
-    return dict(stack[0].entry["counters"]) if stack else {}
-
-
 def entries() -> List[Dict]:
     """The ring's entries, oldest first."""
     return list(_ring)
@@ -138,4 +127,4 @@ def reset() -> None:
     _ring.clear()
 
 
-__all__ = ["RING", "span", "count", "counters", "entries", "reset"]
+__all__ = ["RING", "span", "count", "entries", "reset"]

@@ -34,7 +34,7 @@ from cyclegan_tpu.losses import get_loss_obj as jax_loss_obj
 from cyclegan_tpu.models import create_model as jax_create_model
 from cyclegan_tpu.optimizers import get_optimizer as jax_get_optimizer
 from cyclegan_tpu_torch import steps
-from cyclegan_tpu_torch.losses import get_loss_obj
+from cyclegan_tpu_torch.losses import get_losses
 from cyclegan_tpu_torch.models import UNetGenerator
 from cyclegan_tpu_torch.ops import conv as conv_ops
 from cyclegan_tpu_torch.ops import cuda_norm
@@ -148,7 +148,7 @@ def test_paired_gradients_match_jax(point, jax_paired, pallas_norm):
     params, real_a, real_b = point
     models = _port_state(UNET_CFG, params).models
     surrogate, _ = steps._forward_losses(
-        models, get_loss_obj(UNET_CFG["loss"]), WEIGHTS,
+        models, get_losses(UNET_CFG["loss"]), WEIGHTS,
         torch.from_numpy(real_a), torch.from_numpy(real_b), torch.float32,
         stop_grads=True, pallas_norm=pallas_norm, paired=True)
     named = {n: list(models[n].named_parameters()) for n in NETWORKS}

@@ -38,7 +38,7 @@ from cyclegan_tpu.utils.checkpoint import load_pytree as jax_load_pytree
 from cyclegan_tpu_torch import steps
 from cyclegan_tpu_torch.apps.inference import InferenceSession
 from cyclegan_tpu_torch.config import yaml2namespace
-from cyclegan_tpu_torch.losses import get_loss_obj
+from cyclegan_tpu_torch.losses import get_losses
 from cyclegan_tpu_torch.models import (
     ResNetGenerator,
     SimpleDiscriminator,
@@ -151,7 +151,7 @@ def port_f32(point):
     cuda_norm_act.instance_norm_act_plain = recording
     try:
         surrogate, metrics = steps._forward_losses(
-            models, get_loss_obj(CFG["loss"]), WEIGHTS,
+            models, get_losses(CFG["loss"]), WEIGHTS,
             torch.from_numpy(real_a), torch.from_numpy(real_b),
             torch.float32, stop_grads=True)
     finally:

@@ -3,8 +3,9 @@
 On the CPU, through a stand-in for ``steps.CudaGraph`` that runs the
 captured closure where a graph would record it and runs it again against
 the static inputs on every replay: graph steps give the eager step's
-losses, gradients and parameters bit for bit, each step returns its own
-metrics, each step counts one step's kernel launches and paths (the
+losses, gradients and parameters bit for bit (U-GAT-IT's spectral-norm
+``u`` buffers too, which each replay's power iterations move), each step
+returns its own metrics, each step counts one step's kernel launches and paths (the
 capturing one too), ``graph_capture`` and ``graph_replay`` land on the
 right roots, the step stays eager on the CPU device, on a mesh, with
 dropout, ``remat`` and ``paired``, a second input shape captures its own
@@ -30,6 +31,9 @@ from cyclegan_tpu_torch import kernels, steps, tracing
 from cyclegan_tpu_torch.config import yaml2namespace
 from cyclegan_tpu_torch.data.augment import random_jitter_batch
 from cyclegan_tpu_torch.ops import cuda_conv, cuda_norm_act
+from tests.test_torch_ugatit import CFG as UGATIT_CFG
+from tests.test_torch_ugatit import WEIGHTS as UGATIT_WEIGHTS
+from tests.test_torch_ugatit import _images as ugatit_images
 
 SIZE, BATCH, STEPS = 32, 2, 5
 WEIGHTS = dict(cycle=2.0, identity=0.5, generator=1.0, discriminator=0.5)
@@ -65,11 +69,14 @@ def _leaves(tree) -> list:
 
 
 class StandIn:
-    """A CUDA graph on the CPU. ``capture`` runs the closure (a graph only
-    records it); ``replay`` runs it again against the same static inputs,
-    with the kernel counters left as they were (a replay calls no
-    wrapper), and copies each tensor it returns into the captured ones,
-    where a graph rewrites its outputs in place."""
+    """A CUDA graph on the CPU. ``capture`` runs the closure, a run that
+    stands for the replay the step makes at once on the same static
+    inputs (a graph only records it, and a second run would move state
+    the closure writes in place, a spectral norm's ``u``, twice); every
+    later ``replay`` runs it again against the static inputs, with the
+    kernel counters left as they were (a replay calls no wrapper), and
+    copies each tensor it returns into the captured ones, where a graph
+    rewrites its outputs in place."""
 
     made = []
 
@@ -83,9 +90,13 @@ class StandIn:
     def capture(self, fn):
         self.fn = fn
         self.out = fn()
+        self.ran = True
         return self.out
 
     def replay(self) -> None:
+        if self.ran:  # the capture's run was this replay's
+            self.ran = False
+            return
         launches, paths = dict(kernels.launches), kernels.paths.copy()
         fresh = self.fn()
         kernels.launches.update(launches)
@@ -112,9 +123,10 @@ def _config(normalization="instancenorm", dropout=False):
                                    final_activation="sigmoid"))
 
 
-def _state(seed=0, **config):
-    return steps.init_train_state(steps.build_models(_config(**config), seed),
-                                  dict(g_opt=ADAM, d_opt=ADAM), seed, "cpu")
+def _state(seed=0, model=None, **config):
+    return steps.init_train_state(
+        steps.build_models(model or _config(**config), seed),
+        dict(g_opt=ADAM, d_opt=ADAM), seed, "cpu")
 
 
 def _jitter(generator, a, b, rows=None):
@@ -157,24 +169,32 @@ def _graph_counters(entry):
     (dict(tpu_layout=False), dict()),
     (dict(fuse_apps=True), dict()),
     (dict(), dict(normalization="batchnorm")),
-], ids=["nhcw", "nhwc", "fuse_apps", "batchnorm"])
+    (dict(), "ugatit"),
+], ids=["nhcw", "nhwc", "fuse_apps", "batchnorm", "ugatit"])
 def test_graph_steps_are_the_eager_steps(monkeypatch, options, config):
     """Five steps through the stand-in against five eager steps from the
-    same weights, batches and jitter seed: every step's metrics (read
-    after all five, so none was overwritten by a later replay), and the
-    parameters, gradients and batch-norm statistics after the last,
+    same weights, batches and jitter seed (U-GAT-IT: three steps, eager,
+    capturing and replayed, of ``test_torch_ugatit.py``'s tiny model on
+    its images): every step's metrics (read after all of them, so none was
+    overwritten by a later replay), and the parameters, gradients and
+    buffers (batch-norm statistics, spectral-norm ``u``) after the last,
     bit-equal."""
-    batches = _batches()
+    loss, weights, preprocess, batches = "mse", WEIGHTS, _jitter, _batches()
+    if config == "ugatit":
+        loss, weights, preprocess = "ugatit", UGATIT_WEIGHTS, None
+        batches = [(ugatit_images(2 * i), ugatit_images(2 * i + 1))
+                   for i in range(3)]
+        config = dict(model=UGATIT_CFG)
     eager_state = _state(**config)
     eager = _run(eager_state, steps.make_train_step(
-        "mse", WEIGHTS, preprocess=_jitter, **options), batches)
+        loss, weights, preprocess=preprocess, **options), batches)
     assert not any(_graph_counters(e) for e in _roots())
 
     StandIn.made = []
     monkeypatch.setattr(steps, "CudaGraph", StandIn)
     graph_state = _state(**config)
     graphed = _run(graph_state, steps.make_train_step(
-        "mse", WEIGHTS, preprocess=_jitter, **options), batches)
+        loss, weights, preprocess=preprocess, **options), batches)
     assert len(StandIn.made) == 1
     for i, (want, got) in enumerate(zip(eager, graphed)):
         assert list(got) == list(want)
@@ -186,7 +206,7 @@ def test_graph_steps_are_the_eager_steps(monkeypatch, options, config):
         assert list(got) == list(want)
         for k in want:
             assert torch.equal(got[k], want[k]), k
-    assert graph_state.step == eager_state.step == STEPS
+    assert graph_state.step == eager_state.step == len(batches)
 
 
 def _counting_dispatchers(monkeypatch):

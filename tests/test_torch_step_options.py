@@ -31,7 +31,7 @@ from cyclegan_tpu.losses import get_loss_obj as jax_loss_obj
 from cyclegan_tpu.models import create_model as jax_create_model
 from cyclegan_tpu_torch import steps
 from cyclegan_tpu_torch.config import yaml2namespace
-from cyclegan_tpu_torch.losses import get_loss_obj
+from cyclegan_tpu_torch.losses import get_losses
 from cyclegan_tpu_torch.weights import (
     jax_params_to_torch,
     load_jax_params,
@@ -100,7 +100,7 @@ def port_grads(recipe, point, tpu_layout, **options):
     cfg = RECIPES[recipe]
     models = _port_models(recipe, params)
     surrogate, _ = steps._forward_losses(
-        models, get_loss_obj(cfg["loss"]),
+        models, get_losses(cfg["loss"]),
         {k: float(v) for k, v in cfg["loss_weights"].items()},
         torch.from_numpy(real_a), torch.from_numpy(real_b), torch.float32,
         stop_grads=True, tpu_layout=tpu_layout, **options)
@@ -187,7 +187,7 @@ def test_fused_runs_four_generator_applications(points, fuse_apps):
             lambda m, args, out: batches.append(args[0].shape[0]))
     params, real_a, real_b = points["unet"][:3]
     steps._forward_losses(
-        models, get_loss_obj("mse"), {k: 1.0 for k in (
+        models, get_losses("mse"), {k: 1.0 for k in (
             "generator", "cycle", "identity", "discriminator")},
         torch.from_numpy(real_a), torch.from_numpy(real_b), torch.float32,
         stop_grads=True, fuse_apps=fuse_apps)
@@ -232,7 +232,7 @@ def test_remat_recomputes_the_generators_only(points, monkeypatch):
             lambda m, args, n=n: calls.__setitem__(n, calls[n] + 1))
     params, real_a, real_b = points["unet"][:3]
     surrogate, _ = steps._forward_losses(
-        models, get_loss_obj("mse"), {k: 1.0 for k in (
+        models, get_losses("mse"), {k: 1.0 for k in (
             "generator", "cycle", "identity", "discriminator")},
         torch.from_numpy(real_a), torch.from_numpy(real_b), torch.float32,
         stop_grads=True, remat=True)

@@ -29,7 +29,7 @@ from cyclegan_tpu.models import create_model as jax_create_model
 from cyclegan_tpu.optimizers import get_optimizer as jax_get_optimizer
 from cyclegan_tpu_torch import steps
 from cyclegan_tpu_torch.config import yaml2namespace
-from cyclegan_tpu_torch.losses import get_loss_obj
+from cyclegan_tpu_torch.losses import get_losses
 from cyclegan_tpu_torch.ops import cuda_norm_act, layout
 from cyclegan_tpu_torch.weights import (
     jax_params_to_torch,
@@ -114,7 +114,7 @@ def _port_grads(models, real_a, real_b, dtype):
     """(grads {net: {key: numpy}}, metrics) of the single-backward
     surrogate, as the train step computes them."""
     surrogate, metrics = steps._forward_losses(
-        models, get_loss_obj(CFG.loss), WEIGHTS, torch.from_numpy(real_a),
+        models, get_losses(CFG.loss), WEIGHTS, torch.from_numpy(real_a),
         torch.from_numpy(real_b), dtype, stop_grads=True)
     named = {n: list(models[n].named_parameters()) for n in NETWORKS}
     values = iter(torch.autograd.grad(

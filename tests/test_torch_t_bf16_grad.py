@@ -24,7 +24,7 @@ from cyclegan_tpu.losses import get_loss_obj as jax_loss_obj
 from cyclegan_tpu.models import create_model as jax_create_model
 from cyclegan_tpu_torch import steps
 from cyclegan_tpu_torch.config import yaml2namespace
-from cyclegan_tpu_torch.losses import get_loss_obj
+from cyclegan_tpu_torch.losses import get_losses
 from cyclegan_tpu_torch.ops import layout
 from cyclegan_tpu_torch.weights import (jax_params_to_torch,
                                         models_to_jax_params)
@@ -91,7 +91,7 @@ def test_port_bf16_gradients_within_ratio_of_jax_bf16(point, jax_grads):
     models, real_a, real_b = point
     with layout.nhcw():
         surrogate, _ = steps._forward_losses(
-            models, get_loss_obj(CONFIG.loss), WEIGHTS,
+            models, get_losses(CONFIG.loss), WEIGHTS,
             torch.from_numpy(real_a), torch.from_numpy(real_b),
             torch.bfloat16, stop_grads=True)
     named = {n: list(models[n].named_parameters()) for n in NETWORKS}

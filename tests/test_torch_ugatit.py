@@ -1,10 +1,11 @@
 """U-GAT-IT in the port (``models/ugatit.py``, ``ops/ada_norm.py``, the
-``ugatit`` loss of ``steps.py``) against the plain reference
-``tests/ugatit_reference.py``, on the CPU at 128x128, ngf/ndf 8, two
-residual blocks, batch 2 (the global discriminator needs 128x128): the
-networks' outputs and spectral-norm updates, the AdaLIN/ILN op against
-its formula (and ``gradcheck`` in f64), two train steps, a checkpoint
-round trip and ``InferenceSession.stylize``."""
+``ugatit`` losses of ``losses.py`` through ``steps.py``) against the
+benchmark's plain reference ``benchmark/reference/ugatit.py``, on the CPU
+at 128x128, ngf/ndf 8, two residual blocks, batch 2 (the global
+discriminator needs 128x128): the networks' outputs and spectral-norm
+updates, the AdaLIN/ILN op against its formula (and ``gradcheck`` in
+f64), two train steps, the validate step, a checkpoint round trip and
+``InferenceSession.stylize``."""
 
 from __future__ import annotations
 
@@ -12,10 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.reference import ugatit as bench_ref
-from cyclegan_tpu_torch import steps, tracing
+from benchmark.reference import ugatit as ref
+from cyclegan_tpu_torch import steps
 from cyclegan_tpu_torch.config import Namespace, namespace2yaml
 from cyclegan_tpu_torch.data.augment import random_jitter_batch
+from cyclegan_tpu_torch.losses import ugatit_losses
 from cyclegan_tpu_torch.models import create_model
 from cyclegan_tpu_torch.ops import layout
 from cyclegan_tpu_torch.ops.ada_norm import (
@@ -24,7 +26,6 @@ from cyclegan_tpu_torch.ops.ada_norm import (
     ada_norm_bwd_plain,
     ada_norm_plain,
 )
-from tests import ugatit_reference as ref
 
 SIZE, BATCH = 128, 2
 OPT = {"name": "adam", "learning_rate": 1e-2, "beta_1": 0.5, "beta_2": 0.999,
@@ -300,27 +301,42 @@ def test_reference_train_matches_port_steps():
     assert float(np.median(gaps)) <= MEDIAN_GAP
 
 
-def test_power_iterations_counted_and_replayed():
-    """A step counts one power iteration per spectral-normalised weight
-    and discriminator application (16 per discriminator, three
-    applications each); the step's graph adds the capture's count on a
-    replay."""
-    weights = _weights()
+@pytest.mark.parametrize("tpu_layout", [False, True])
+def test_validate_step_matches_reference(tpu_layout):
+    """The validate step (the forward set without stop-gradients, the
+    networks in eval mode): its four losses against the U-GAT-IT losses
+    of the reference's generators and of its discriminators without a
+    power iteration; every ``u`` unchanged, the networks back in train
+    mode."""
+    weights = _weights(seed=4)
     state = _state(weights)
-    step = steps.make_train_step("ugatit", WEIGHTS, "float32")
-    a, b = _images(1), _images(2)
-    step(state, a, b)
-    assert tracing.entries()[-1]["counters"]["power_iterations"] == 96
-    spans = tracing.entries()[-1]["spans"]
-    assert {"forward/cam", "forward/gamma_beta",
-            "forward/spectral_norm"} <= set(spans)
-    with tracing.span("train_step"):
-        captured = steps._Captured.__new__(steps._Captured)
-        captured.launches, captured.paths = {}, __import__(
-            "collections").Counter()
-        captured.counters = {"power_iterations": 96}
-        captured.count()
-    assert tracing.entries()[-1]["counters"]["power_iterations"] == 96
+    a, b = _images(3), _images(4)
+    metrics = steps.make_validate_step("ugatit", WEIGHTS, "float32",
+                                       tpu_layout=tpu_layout)(state, a, b)
+    o, ra, rb = ref.Ops(), a.permute(0, 3, 1, 2), b.permute(0, 3, 1, 2)
+    with torch.no_grad():
+        def g(name, x):
+            return ref.generator(o, CFG["generator"], weights[name], x)
+
+        def d(name, x):
+            return ref.discriminator(o, CFG["discriminator"], weights[name],
+                                     x, power_iteration=False)
+
+        fake_b, fake_a = g("g_AB", ra), g("g_BA", rb)
+        d_fake_a, d_fake_b = d("d_A", fake_a[0]), d("d_B", fake_b[0])
+        _, want = ugatit_losses(
+            WEIGHTS, ra, rb, fake_a, fake_b, g("g_BA", fake_b[0]),
+            g("g_AB", fake_a[0]), g("g_BA", ra), g("g_AB", rb),
+            d("d_A", ra), d("d_B", rb), d_fake_a, d_fake_b, d_fake_a,
+            d_fake_b)
+    for k in ref.LOSS_NAMES:
+        assert abs(float(metrics[k]) - float(want[k])) <= 1e-5 * abs(
+            float(want[k])), k
+    for n in NETWORKS:
+        assert state.models[n].training
+        for k, v in state.models[n].state_dict().items():
+            if k.endswith(".u"):
+                assert torch.equal(v, weights[n][k]), (n, k)
 
 
 @pytest.mark.parametrize("option", ["paired", "fuse_apps", "remat", "mesh"])
@@ -378,18 +394,3 @@ def test_session_stylize_matches_reference(tmp_path, tpu_layout):
     want = ref.stylize(CFG["generator"], weights["g_BA"], images).numpy()
     assert got.shape == want.shape
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
-
-
-def test_reference_copies_agree():
-    """The benchmark's copy of the reference gives the tests' outputs."""
-    x = _images(3)
-    outs = []
-    for module in (ref, bench_ref):
-        w = module.make_weights(CFG, 11, "cpu")
-        o = module.Ops()
-        img, cam = module.generator(o, CFG["generator"], w["g_AB"],
-                                    x.permute(0, 3, 1, 2))
-        d = module.discriminator(o, CFG["discriminator"], w["d_B"], img)
-        outs.append([img, cam, *d, *w["d_B"].values()])
-    for a, b in zip(*outs):
-        assert torch.equal(a, b)

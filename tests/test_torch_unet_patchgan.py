@@ -32,7 +32,7 @@ from cyclegan_tpu.models import create_model as jax_create_model
 from cyclegan_tpu.optimizers import get_optimizer as jax_get_optimizer
 from cyclegan_tpu_torch import steps
 from cyclegan_tpu_torch.config import yaml2namespace
-from cyclegan_tpu_torch.losses import get_loss_obj
+from cyclegan_tpu_torch.losses import get_losses
 from cyclegan_tpu_torch.models import create_model
 from cyclegan_tpu_torch.ops import layout
 from cyclegan_tpu_torch.weights import (
@@ -102,7 +102,7 @@ def _pre_norm_bias(name, key):
 def _port_grads(params, real_a, real_b, tpu_layout):
     models = _port_models(params)
     surrogate, metrics = steps._forward_losses(
-        models, get_loss_obj(CFG["loss"]), WEIGHTS, torch.from_numpy(real_a),
+        models, get_losses(CFG["loss"]), WEIGHTS, torch.from_numpy(real_a),
         torch.from_numpy(real_b), torch.float32, stop_grads=True,
         tpu_layout=tpu_layout)
     named = {n: list(models[n].named_parameters()) for n in NETWORKS}

@@ -41,7 +41,7 @@ from cyclegan_tpu.optimizers import get_optimizer as jax_get_optimizer
 from cyclegan_tpu_torch import steps
 from cyclegan_tpu_torch.apps.inference import InferenceSession
 from cyclegan_tpu_torch.config import yaml2namespace
-from cyclegan_tpu_torch.losses import get_loss_obj
+from cyclegan_tpu_torch.losses import get_losses
 from cyclegan_tpu_torch.models import StridedUNet, UNetGenerator, create_model
 from cyclegan_tpu_torch.ops import cuda_norm_act, layout
 from cyclegan_tpu_torch.utils.checkpoint import save_model_folder
@@ -161,7 +161,7 @@ def port_f32(point):
     cuda_norm_act.instance_norm_act_plain = recording
     try:
         surrogate, metrics = steps._forward_losses(
-            models, get_loss_obj(BASE.loss), WEIGHTS,
+            models, get_losses(BASE.loss), WEIGHTS,
             torch.from_numpy(real_a), torch.from_numpy(real_b),
             torch.float32, stop_grads=True)
     finally:
